@@ -1,0 +1,582 @@
+"""Drive the PyTorch / CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result):
+  1. print the card's name and power limit; build the kernels from
+     zett_tpu_torch/csrc (one nvcc per source, in parallel);
+  2. each kernel against its plain PyTorch version on the card at the
+     transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
+     median times of the kernel, the plain version and one PyTorch library
+     call, beside the least time the card could take;
+  3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 2048
+     rows: the card (kernels) against the CPU (plain versions), f32;
+  4. zero-shot transfer end to end through ``zett_tpu_torch.transfer``'s
+     CLI on its default device: a seeded GPT-2-small-shaped source model with
+     gpt2_raw's tokenizer, a seeded hypernet at gpt2_en's config (bf16), the
+     gpt_neox0001 target at batch 16384; checks the written model, that both
+     kernels ran, times the transfer and the hypernet per 32k vocab, and
+     breaks the hypernet's device time down by kernel (torch.profiler).
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+SEED = 0
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "zett_tpu_torch", "smoke")
+
+# configs/zeroshot/gpt2_en.json's hypernet
+GPT2_EN = dict(
+    hidden_size=768, intermediate_size=1536, num_hidden_layers=3, num_attention_heads=12,
+    hn_surface_maxlen=7, max_position_embeddings=10, embed_using_source_embeddings=True,
+    n_extra_tokens=256, rescale_embeddings=True, predict_bias=True, n_embd=768,
+    hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def median_ms(fn, reps=20, warmup=3):
+    """Median of per-call CUDA-event times, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(flops, nbytes, dtype):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp(x):
+    """Spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+def compare(got, ref, dtype, what):
+    """Tolerances: f32 max abs 2e-5 on outputs of magnitude < 8 (sums in
+    another order than the plain version's library GEMMs; the card showed
+    3e-6). bf16, judged at the outputs' unit scale: on
+    99.9% of elements within 2 ulps of max(|ref|, 1), and everywhere within
+    8 ulps of the largest |ref| (an f32 sum in another order can round a
+    bf16 intermediate the other way, and a LayerNorm or gelu downstream
+    carries that one ulp on)."""
+    got = got.float().cpu().numpy()
+    ref = ref.float().cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = np.abs(got - ref)
+    if dtype == torch.float32:
+        ok = err.max() <= 2e-5
+        detail = f"max abs {err.max():.3g} (tol 2e-5)"
+    else:
+        within = float((err <= 2 * bf16_ulp(np.maximum(np.abs(ref), 1.0))).mean())
+        cap = 8 * float(bf16_ulp(np.abs(ref).max()))
+        ok = within >= 0.999 and err.max() <= cap
+        detail = f"max abs {err.max():.3g} (cap {cap:.3g}), within 2 ulps {within:.5f} (tol 0.999)"
+    log(f"  {what}: {detail}")
+    if not ok:
+        raise AssertionError(f"{what}: {detail}")
+    return float(err.max())
+
+
+# --------------------------------------------------------------------- phase 2
+def layer_inputs(B, L, dtype, gen, H=768, I=1536):
+    def mk(shape, s):
+        return (torch.randn(shape, generator=gen) * s).to(dtype).cuda()
+
+    x = mk((B, L, H), 1.0)
+    mask = torch.rand(B, L, generator=gen) > 0.3
+    mask[:, 0] = True
+    mask[1::97] = False  # all-padding surface forms
+    ws = [mk((H, H), 0.03) for _ in range(4)]
+    bs = [mk((H,), 0.01) for _ in range(4)]
+    w1, b1, w2, b2 = mk((H, I), 0.03), mk((I,), 0.01), mk((I, H), 0.03), mk((H,), 0.01)
+    lns = (1 + 0.1 * torch.randn(H, generator=gen)).cuda()
+    lnb = (0.1 * torch.randn(H, generator=gen)).cuda()
+    return (x, mask.cuda(), ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],
+            lns, lnb, w1, b1, w2, b2, lns, lnb)
+
+
+def library_encoder_layer(args, h):
+    """torch.nn.TransformerEncoderLayer (post-LN, tanh-gelu) loaded with the
+    same weights: the library yardstick of kernel 1, timed only."""
+    x, mask, wq, bq, wk, bk, wv, bv, wo, bo, l1s, l1b, w1, b1, w2, b2, l2s, l2b = args
+    H, I = x.shape[-1], w1.shape[1]
+    layer = torch.nn.TransformerEncoderLayer(
+        H, h, I, dropout=0.0, batch_first=True, layer_norm_eps=1e-5,
+        activation=lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+    ).to(device=x.device, dtype=x.dtype).eval()
+    with torch.no_grad():
+        layer.self_attn.in_proj_weight.copy_(torch.cat([wq, wk, wv], 1).t())
+        layer.self_attn.in_proj_bias.copy_(torch.cat([bq, bk, bv]))
+        layer.self_attn.out_proj.weight.copy_(wo.t())
+        layer.self_attn.out_proj.bias.copy_(bo)
+        layer.linear1.weight.copy_(w1.t())
+        layer.linear1.bias.copy_(b1)
+        layer.linear2.weight.copy_(w2.t())
+        layer.linear2.bias.copy_(b2)
+        for ln, s, b in ((layer.norm1, l1s, l1b), (layer.norm2, l2s, l2b)):
+            ln.weight.copy_(s)
+            ln.bias.copy_(b)
+    pad = ~mask
+    return lambda: layer(x, src_key_padding_mask=pad)
+
+
+def check_kernel1(B, L, dtype, gen, timed):
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.encoder_layer import encoder_layer, encoder_layer_reference
+
+    h, eps = 12, 1e-5
+    args = layer_inputs(B, L, dtype, gen)
+    before = _build.launch_counts["encoder_layer"]
+    got = encoder_layer(*args, num_heads=h, eps=eps)
+    torch.cuda.synchronize()
+    if _build.launch_counts["encoder_layer"] != before + 1:
+        raise AssertionError("encoder_layer did not count its launch")
+    with torch.no_grad():
+        ref = encoder_layer_reference(*args, h, eps)
+    err = compare(got, ref, dtype, f"kernel 1 B={B} L={L} {str(dtype)[6:]}")
+    if not timed:
+        return None
+    del got, ref
+    H, I, M = 768, 1536, B * L
+    ms = median_ms(lambda: encoder_layer(*args, num_heads=h, eps=eps))
+    with torch.no_grad():
+        plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=5)
+        lib = library_encoder_layer(args, h)
+        library_ms = median_ms(lib, reps=10)
+    size = torch.finfo(dtype).bits // 8
+    flops = 2 * M * (4 * H * H + 2 * H * I) + 2 * 2 * B * h * L * L * 64
+    nbytes = (2 * M * H + 4 * H * H + 2 * H * I + 6 * H + I) * size + B * L * 4 + 4 * H * 4
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    log(f"  kernel 1 B={B} L={L} {str(dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"TransformerEncoderLayer {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_kernel2(B, Lk, dtype, gen, timed):
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.attention_core import attention_core, attention_core_reference
+
+    h, d = 12, 64
+    qm = (torch.randn(B, h, d, generator=gen)).to(dtype).cuda()
+    km = (torch.randn(B, Lk * h, d, generator=gen)).to(dtype).cuda()
+    vm = (torch.randn(B, Lk * h, d, generator=gen)).to(dtype).cuda()
+    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    mask[:, 0] = True
+    mask[1::97] = False
+    kmaskf = mask.repeat_interleave(h, dim=-1).float().cuda()
+    before = _build.launch_counts["attention_core"]
+    got = attention_core(qm, km, vm, kmaskf, h)
+    torch.cuda.synchronize()
+    if _build.launch_counts["attention_core"] != before + 1:
+        raise AssertionError("attention_core did not count its launch")
+    ref = attention_core_reference(qm, km, vm, kmaskf, h)
+    err = compare(got, ref, dtype, f"kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}")
+    if not timed:
+        return None
+    ms = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h))
+    plain_ms = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h), reps=10)
+    q4 = qm.view(B, 1, h, d).transpose(1, 2)
+    k4 = km.view(B, Lk, h, d).transpose(1, 2)
+    v4 = vm.view(B, Lk, h, d).transpose(1, 2)
+    amask = mask.cuda()[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = median_ms(lambda: sdpa(q4, k4, v4, attn_mask=amask))
+    size = torch.finfo(dtype).bits // 8
+    flops = 2 * 2 * B * h * Lk * d
+    nbytes = (2 * B * h * d + 2 * B * Lk * h * d) * size + B * Lk * h * 4
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    log(f"  kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_kernels():
+    gen = torch.Generator().manual_seed(SEED)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for L in (7, 4):
+            main = dtype == torch.bfloat16 and L == 7
+            r = check_kernel1(16384, L, dtype, gen, timed=True)
+            if main:
+                results["encoder_layer"] = r
+        check_kernel1(1000, 7, dtype, gen, timed=False)  # ragged: 7000 rows, not a tile multiple
+        for Lk in (7, 4):
+            r = check_kernel2(16384, Lk, dtype, gen, timed=True)
+            if dtype == torch.bfloat16 and Lk == 7:
+                results["attention_core"] = r
+        check_kernel2(1001, 7, dtype, gen, timed=False)
+        torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------------------------- phase 3
+def flax_layout(model, rng):
+    """Seeded parameters for a port Hypernet, keyed by Flax path (the layout
+    of a checkpoint's params.npz): kernels (in, out), embeddings, scales."""
+    from zett_tpu_torch.models.hypernet import Dense, LayerNorm
+
+    kinds = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            kinds[name] = "dense"
+        elif isinstance(mod, LayerNorm):
+            kinds[name] = "ln"
+        elif isinstance(mod, torch.nn.Embedding):
+            kinds[name] = "embed"
+    flat = {}
+    for name, p in model.state_dict().items():
+        mod, leaf = name.rpartition(".")[::2]
+        kind = kinds.get(mod)
+        shape = tuple(p.shape)
+        if kind == "dense" and leaf == "weight":
+            fan_in = shape[1]
+            value = rng.standard_normal(shape[::-1], dtype=np.float32) / math.sqrt(fan_in)
+            leaf = "kernel"
+        elif kind == "ln" and leaf == "weight":
+            value = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+            leaf = "scale"
+        elif kind == "embed":
+            value = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+            leaf = "embedding"
+        elif leaf == "w":
+            value = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            value = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        parts = mod.split(".") if mod else []
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] == "layers" and path == ["encoder"]:
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+                continue
+            path.append(f"layers_{parts[i]}" if parts[i].isdigit() else parts[i])
+            i += 1
+        flat["/".join(path + [leaf])] = value
+    return flat
+
+
+def hypernet_inputs(rng, n, vocab, maxlen, n_extra):
+    sf = rng.integers(1, vocab + n_extra, size=(n, maxlen))
+    lens = rng.integers(1, maxlen + 1, size=n)
+    sf[np.arange(maxlen)[None] >= lens[:, None]] = 0
+    sf[5::211] = 0
+    return sf
+
+
+def phase_hypernet():
+    from zett_tpu_torch.models import Hypernet, HypernetConfig
+    from zett_tpu_torch.models.convert import flax_to_torch
+    from zett_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(SEED)
+    vocab = 50001
+    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    cpu_model = Hypernet(cfg, dtype=torch.float32)
+    cpu_model.load_state_dict(flax_to_torch(flax_layout(cpu_model, rng)))
+    gpu_model = Hypernet(cfg, dtype=torch.float32)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.cuda().eval()
+    src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
+    sf = hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen, cfg.n_extra_tokens)
+    sf_t, src_t = torch.from_numpy(sf), torch.from_numpy(src)
+    before = dict(_build.launch_counts)
+    with torch.inference_mode():
+        got = gpu_model(sf_t.cuda(), None, src_t.cuda())
+        torch.cuda.synchronize()
+        ref = cpu_model(sf_t, None, src_t)
+    if _build.launch_counts["encoder_layer"] == before["encoder_layer"] or \
+            _build.launch_counts["attention_core"] == before["attention_core"]:
+        raise AssertionError("the Hypernet on the card did not launch both kernels")
+    for name, g, r in (("emb_in", got[0], ref[0]), ("bias", got[2], ref[2])):
+        g, r = g.float().cpu().numpy(), r.float().numpy()
+        err = np.abs(g - r).max()
+        scale = np.abs(r).max()
+        # three layers and four projection blocks of f32 sums in another
+        # order than the CPU's (the card showed 1.6e-6 x scale)
+        log(f"  hypernet {name}: max abs {err:.3g} at output scale {scale:.3g} (tol 1e-5 x scale)")
+        if not np.isfinite(g).all() or err > 1e-5 * max(scale, 1.0):
+            raise AssertionError(f"hypernet {name} differs: {err}")
+
+
+# --------------------------------------------------------------------- phase 4
+def write_source_model(path, vocab, rng):
+    """A GPT-2-small-shaped HF directory (12 layers, 768 wide, 12 heads)
+    with seeded weights and gpt2_raw's tokenizer."""
+    from zett_tpu_torch.models.backbones.hf_io import save_safetensors
+
+    E, n_pos, n_layer = 768, 1024, 12
+
+    def normal(shape, s):
+        return torch.from_numpy(s * rng.standard_normal(shape, dtype=np.float32))
+
+    sd = {
+        "transformer.wte.weight": normal((vocab, E), 0.1),
+        "transformer.wpe.weight": normal((n_pos, E), 0.01),
+        "transformer.ln_f.weight": 1 + normal((E,), 0.1),
+        "transformer.ln_f.bias": normal((E,), 0.1),
+    }
+    for i in range(n_layer):
+        for name, shape in (("ln_1.weight", (E,)), ("ln_1.bias", (E,)),
+                            ("ln_2.weight", (E,)), ("ln_2.bias", (E,)),
+                            ("attn.c_attn.weight", (E, 3 * E)), ("attn.c_attn.bias", (3 * E,)),
+                            ("attn.c_proj.weight", (E, E)), ("attn.c_proj.bias", (E,)),
+                            ("mlp.c_fc.weight", (E, 4 * E)), ("mlp.c_fc.bias", (4 * E,)),
+                            ("mlp.c_proj.weight", (4 * E, E)), ("mlp.c_proj.bias", (E,))):
+            sd[f"transformer.h.{i}.{name}"] = normal(shape, 0.02)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    os.makedirs(path, exist_ok=True)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "gpt2", "vocab_size": vocab, "n_positions": n_pos,
+                   "n_embd": E, "n_layer": n_layer, "n_head": 12,
+                   "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True}, f)
+    shutil.copy(os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json"),
+                os.path.join(path, "tokenizer.json"))
+    return sd["transformer.wte.weight"]
+
+
+def write_checkpoint(path, vocab, rng):
+    from zett_tpu_torch.models import Hypernet, HypernetConfig
+
+    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "hn_config.json"), "w") as f:
+        json.dump({**cfg.to_dict(), "dtype": "bfloat16"}, f)
+    np.savez(os.path.join(path, "params.npz"),
+             **flax_layout(Hypernet(cfg, dtype=torch.bfloat16), rng))
+    shutil.copy(os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json"),
+                os.path.join(path, "tokenizer.json"))
+    return cfg
+
+
+def hypernet_batches(ckpt, model_dir, target_path, batch_size):
+    """The hypernet and its inputs for the target's whole vocab, batched and
+    length-bucketed as the transfer runs it."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.tokenization.surface_forms import get_surface_form_matrix
+    from zett_tpu_torch.transfer.__main__ import load_hypernet
+
+    hypernet = load_hypernet(ckpt, torch.device("cuda"))
+    source_tok = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    target, _ = convert_to_byte_level(Tokenizer.from_file(target_path),
+                                      match_special_tokens_to=source_tok,
+                                      make_whitespace_consistent=True)
+    sf, _ = get_surface_form_matrix(target, hypernet.config.hn_surface_maxlen, source_tok)
+    wte = load_hf_state_dict(model_dir)["transformer.wte.weight"]
+    src = torch.cat([wte, wte.new_zeros((-len(wte)) % 128, wte.shape[1])]).cuda()
+    maxlen = sf.shape[1]
+    nz = sf != 0
+    eff = np.where(nz.any(1), maxlen - np.argmax(nz[:, ::-1], axis=1), maxlen)
+    order = np.argsort(eff, kind="stable")
+    order = np.resize(order, len(order) + (-len(order)) % batch_size).reshape(-1, batch_size)
+    batches = []
+    for chunk in order:
+        w = min(-(-int(eff[chunk].max()) // 4) * 4, maxlen)
+        batches.append(torch.from_numpy(sf[chunk][:, :w].astype(np.int64)).cuda())
+
+    def run():
+        with torch.inference_mode():
+            for b in batches:
+                hypernet(b, None, src)
+
+    with torch.inference_mode():
+        hypernet(batches[0], None, src)  # warm-up
+    return run, len(target), [tuple(b.shape) for b in batches]
+
+
+def device_breakdown(run, top=12):
+    """Device time by kernel over one run (torch.profiler), the device's
+    busy time and its idle share of the run's host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # the device timeline also carries annotations named after the host ops
+    # that enclose its kernels: keep device events no host op is named as
+    host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    spans, by_name = [], {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in host_names:
+            spans.append((e.time_range.start, e.time_range.end))
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms, reach = 0.0, float("-inf")  # union of the kernels' spans
+    for start, end in sorted(spans):
+        busy_ms += max(0.0, end - max(start, reach)) / 1e3
+        reach = max(reach, end)
+    if busy_ms == 0:
+        log("  profile: no device time recorded (not measured)")
+        return
+    log(f"  profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+        f"(idle share {1 - busy_ms / wall_ms:.3f})")
+    total = sum(ms for ms, _ in by_name.values())
+    ours = sum(ms for name, (ms, _) in by_name.items() if "zt::" in name)
+    log(f"  profile: the port's kernels {ours:.3f} ms ({100 * ours / total:.1f}% of device "
+        f"time), library and elementwise kernels {total - ours:.3f} ms")
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {name[:90]}")
+
+
+def phase_transfer():
+    from zett_tpu_torch.models.backbones.hf_io import load_safetensors
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    rng = np.random.default_rng(SEED)
+    source_tok = Tokenizer.from_file(
+        os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json"))
+    vocab = len(source_tok)
+    model_dir, ckpt, out = (os.path.join(WORK, d) for d in ("gpt2", "ckpt", "out"))
+    target_path = os.path.join(REPO, "artifacts", "tokenizers", "gpt_neox0001", "tokenizer.json")
+    batch = 16384
+    wte = write_source_model(model_dir, vocab, rng)
+    cfg = write_checkpoint(ckpt, vocab, rng)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    transfer_main(["--checkpoint", ckpt, "--model", model_dir,
+                   "--target-tokenizer", target_path, "--output", out,
+                   "--batch-size", str(batch), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+
+    for name in ("model.safetensors", "config.json", "tokenizer.json", "bias.npy"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"transfer wrote no {name}")
+    target = Tokenizer.from_file(os.path.join(out, "tokenizer.json"))
+    with open(os.path.join(out, "config.json")) as f:
+        if json.load(f)["vocab_size"] != len(target):
+            raise AssertionError("config.json vocab_size is not the converted tokenizer's length")
+    sd = load_safetensors(os.path.join(out, "model.safetensors"))
+    emb = sd["transformer.wte.weight"]
+    bias = np.load(os.path.join(out, "bias.npy"))
+    if emb.shape != (len(target), 768) or not torch.isfinite(emb).all() \
+            or not np.isfinite(bias).all():
+        raise AssertionError(f"bad output table {tuple(emb.shape)}")
+    if not torch.equal(sd["lm_head.weight"], emb):
+        raise AssertionError("lm_head is not tied to the new table")
+    for token in target.all_special_tokens:
+        if not torch.equal(emb[target.token_to_id(token)], wte[source_tok.token_to_id(token)]):
+            raise AssertionError(f"special token {token!r} row is not the source row")
+    n_batches = -(-len(target) // batch)
+    expected = {"encoder_layer": n_batches * (cfg.num_hidden_layers - 1),
+                "attention_core": n_batches}
+    log(f"  transfer: {len(target)} tokens in {wall:.3f} s wall, launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+
+    run, n_vocab, shapes = hypernet_batches(ckpt, model_dir, target_path, batch)
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    log(f"  hypernet: median of 5 passes {ms:.3f} ms (min {min(times):.3f}, max "
+        f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
+        f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
+    device_breakdown(run)
+    return launches, wall, ms
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import zett_tpu_torch  # noqa: F401
+    except ImportError:
+        traceback.print_exc()
+        print("chip_smoke: the zett_tpu_torch package is not beside this script", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 comparisons at full precision
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+        log(smi)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+        from zett_tpu_torch.ops import _build
+
+        log(f"phase 1: built {list(_build.SOURCES)} in {_build.build():.2f} s")
+        log("phase 2: kernels against their plain versions")
+        kernels = phase_kernels()
+        log("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
+        phase_hypernet()
+        log("phase 4: transfer through the CLI on its default device")
+        launches, wall, hn_ms = phase_transfer()
+    except Exception:  # noqa: BLE001 — any failure fails the run
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+    sources = {
+        "encoder_layer": ("zett_tpu_torch/csrc/encoder_layer.cu",
+                          "zett_tpu/ops/pallas_attention.py:727"),
+        "attention_core": ("zett_tpu_torch/csrc/attention_core.cu",
+                           "zett_tpu/ops/pallas_attention.py:215"),
+    }
+    rows = []
+    for name, (source, replaces) in sources.items():
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], **kernels[name]})
+    log(f"transfer_wall_s {wall:.3f} hypernet_ms_per_vocab {hn_ms:.3f}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""Guards of the PyTorch port: it imports nothing of JAX, the JAX package
+or the third-party libraries the card's machine lacks; its entry point runs
+on the card unless asked for the CPU; and a kernel wrapper handed a tensor
+that is not on the CPU launches its kernel or raises."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from zett_tpu_torch.ops import _build, attention_core, encoder_layer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "regex", "safetensors",
+             "tokenizers", "transformers", "zett_tpu")
+
+
+def _port_files():
+    root = os.path.join(REPO, "zett_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_port_files()), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_nothing_forbidden(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_cli_import_leaves_jax_out():
+    code = ("import sys, zett_tpu_torch.transfer.__main__; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'zett_tpu', 'regex', 'safetensors')]; "
+            "assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+def test_cli_without_device_flag_needs_the_card(tmp_path):
+    """Without --device cpu the CLI runs on the card; with none it raises
+    before doing any work."""
+    from zett_tpu_torch.transfer.__main__ import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--checkpoint", str(tmp_path), "--model", str(tmp_path),
+              "--target-tokenizer", str(tmp_path), "--output", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")
+
+
+@pytest.fixture
+def no_built_kernels(monkeypatch, tmp_path):
+    """No built library and no compiler to build one."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no_bin"))
+
+
+def test_kernel_wrappers_raise_off_the_cpu(no_built_kernels):
+    """A tensor that is not on the CPU never takes the plain version: the
+    wrapper goes for its kernel and, with none built, raises."""
+    H, L, B = 128, 4, 2
+    x = torch.empty(B, L, H, device="meta")
+    w, b = torch.empty(H, H, device="meta"), torch.empty(H, device="meta")
+    before = dict(_build.launch_counts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        encoder_layer(x, None, w, b, w, b, w, b, w, b, b, b, w, b, w, b, b, b,
+                      num_heads=2, eps=1e-5)
+    q = torch.empty(B, 2, 64, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        attention_core(q, q, q, torch.empty(B, 2, device="meta"), 2)
+    assert _build.launch_counts == before
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    before = dict(_build.launch_counts)
+    q = torch.randn(3, 2, 64)
+    out = attention_core(q, q, q, torch.ones(3, 2), 2)
+    assert out.shape == q.shape
+    assert _build.launch_counts == before

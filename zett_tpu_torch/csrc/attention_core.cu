@@ -1,0 +1,44 @@
+// Kernel 2: the merged-head attention core forward at dropout rate 0.
+//
+// Replaces the TPU kernel zett_tpu/ops/pallas_attention.py
+// _core_train_fwd_kernel / _core_train_fwd_pallas (:215, :335), the tier-4
+// core under merged_attention_train. On the transfer path it runs for the
+// last, CLS-only encoder layer: one query position against all key
+// positions of each surface form.
+//
+// Inputs are position-major merged: qm (B, Lq*h, 64), km/vm (B, Lk*h, 64),
+// index = position*h + head, and kmaskf (B, Lk*h) f32. That memory is the
+// plain (B, L, h*64) layout, so the per-head core of attention.cuh reads it
+// with a head offset and no relayout.
+//
+// What bounds it on an H100: at the transfer's shapes (B = 16384, Lq*h =
+// 12, Lk*h = 84, bf16) it does ~2*B*h*Lk*64*2 = 0.35 GFLOP against ~0.40 GB
+// of q/k/v/out, so it is memory-bound (>= 0.12 ms at 3.35 TB/s). The design
+// reads each key and value row once into shared memory, keeps the scores
+// and weights on chip, and writes only the context.
+#include "attention.cuh"
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, const void* vm,
+                                 const float* kmaskf, void* out, int B, int Lq, int Lk, int h,
+                                 void* stream) {
+  zt::AttnArgs a;
+  a.q = qm;
+  a.k = km;
+  a.v = vm;
+  a.out = out;
+  a.mask = kmaskf;
+  a.B = B;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.h = h;
+  a.q_sb = a.o_sb = (long long)Lq * h * zt::kHeadDim;
+  a.k_sb = a.v_sb = (long long)Lk * h * zt::kHeadDim;
+  a.q_sl = a.k_sl = a.v_sl = a.o_sl = (long long)h * zt::kHeadDim;
+  a.m_sb = (long long)Lk * h;
+  a.m_sl = h;
+  a.m_sh = 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) return (int)zt::launch_attention<__nv_bfloat16>(a, s);
+  return (int)zt::launch_attention<float>(a, s);
+}

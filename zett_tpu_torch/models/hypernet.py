@@ -1,0 +1,346 @@
+"""The ZeTT hypernetwork, inference route, in PyTorch.
+
+Counterpart of ``zett_tpu/models/hypernet.py``: a small post-LN transformer
+encoder runs over each target token's surface form, pools the first
+position and projects to the frozen LM's embeddings (+ an lm-head bias).
+
+Kept features: source-embedding input with the fallback table (or the hn
+vocab's own embedding table), absolute positions, affine rescalers,
+single/dual heads, the bias head and CLS pooling. The route
+is the JAX package's inference route on the TPU: every layer except the last
+runs kernel 1 (``ops.encoder_layer``, the tier-3 layer); the last,
+CLS-only layer computes its projections and FFN with torch matmuls and its
+attention core with kernel 2 (``ops.attention_core``, the tier-4 core).
+Configurations that leave this route (target priors, language ids,
+inter-token attention, adapters, relative positions, the t5 encoder,
+erf-gelu, concat pooling, head widths other than 64) raise
+``NotImplementedError``.
+
+Parameters are stored as torch's ``nn.Linear`` layout; ``models.convert``
+maps a Flax parameter tree onto them. Weights are f32 and cast to the
+compute dtype at use, as flax's ``param_dtype``/``dtype`` split does; the
+rescalers and position embeddings carry the compute dtype themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ..ops.attention_core import attention_core
+from ..ops.encoder_layer import encoder_layer, gelu, layer_norm_flax_exact
+
+MERGED_ATTENTION_MAX = 256  # widest merged (L*h) row on the kernel route
+
+
+@dataclass
+class HypernetConfig:
+    # encoder dims
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 3
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 24
+    vocab_size: int = 256  # hn tokenizer vocab (ignored when embedding from source)
+    type_vocab_size: int = 1
+    pad_token_id: int = 0
+    layer_norm_eps: float = 1e-5
+    hidden_dropout_prob: float = 0.1
+    attention_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    # target embedding dims
+    n_embd: int = 768
+    separate_out_embeddings: bool = False
+    # ZeTT extensions
+    hn_surface_maxlen: int = 16
+    embed_target_priors: bool = False
+    add_inter_token_attention: bool = False
+    inter_token_attention_bias_by_priors: bool = False
+    inter_token_attention_bias_scaler: float = 1.0
+    n_inter_token_blocks: int = 16
+    inter_token_residual_ln: bool = False
+    language_adapter_bottleneck_dim: int = 0
+    embed_lang_id: bool = False
+    n_langs: int = 1
+    embed_using_source_embeddings: bool = False
+    original_vocab_size: int = 0  # source vocab size (source-embedding mode)
+    n_extra_tokens: int = 1  # fallback table size (byte tokens new to source)
+    rescale_embeddings: bool = False
+    single_head: bool = False
+    predict_bias: bool = True
+    concat_last_hidden_state: bool = False
+    position_embedding_type: str = "absolute"
+    encoder_type: str = "roberta"
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    hidden_act: str = "gelu_new"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "HypernetConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @property
+    def n_in_embd(self) -> int:
+        return self.n_embd * 2 if self.separate_out_embeddings else self.n_embd
+
+
+def _check_supported(cfg: HypernetConfig) -> None:
+    unsupported = {
+        "embed_target_priors": cfg.embed_target_priors,
+        "embed_lang_id": cfg.embed_lang_id,
+        "add_inter_token_attention": cfg.add_inter_token_attention,
+        "language_adapter_bottleneck_dim": cfg.language_adapter_bottleneck_dim > 0,
+        "position_embedding_type=relative": cfg.position_embedding_type != "absolute",
+        "encoder_type=t5": cfg.encoder_type != "roberta",
+        "hidden_act=gelu (the tier-2 block route)": cfg.hidden_act == "gelu",
+        "head width other than 64": cfg.hidden_size != 64 * cfg.num_attention_heads,
+        "concat_last_hidden_state": cfg.concat_last_hidden_state,
+    }
+    missing = [name for name, on in unsupported.items() if on]
+    if missing:
+        raise NotImplementedError(f"hypernet features not ported: {', '.join(missing)}")
+
+
+class Dense(nn.Linear):
+    """flax nn.Dense: f32 parameters promoted to the compute dtype, the
+    product in that dtype, then the bias added in it."""
+
+    def __init__(self, in_features: int, out_features: int, dtype):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def kernel(self):
+        """The (in, out) kernel in the compute dtype."""
+        return self.weight.to(self.dtype).t()
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.kernel() + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm (f32 statistics, output in the module dtype)."""
+
+    def __init__(self, dim: int, eps: float, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        return layer_norm_flax_exact(x, self.weight, self.bias, self.eps, self.dtype)
+
+
+class Rescaler(nn.Module):
+    """Per-feature affine calibration w * x + b, parameters in the module
+    dtype (promoted with x as jnp would)."""
+
+    def __init__(self, dim: int, dtype):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(1, dim, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(1, dim, dtype=dtype))
+
+    def forward(self, x):
+        return self.w * x + self.b
+
+
+class ProjectorBlock(nn.Module):
+    """Residual MLP block of the in/out projection heads. Its LayerNorm uses
+    flax's default epsilon 1e-6 and its activation is always tanh-gelu
+    (``zett_tpu/models/hypernet.py:140-144``)."""
+
+    def __init__(self, dim: int, intermediate_dim: int, dtype):
+        super().__init__()
+        self.dense1 = Dense(dim, intermediate_dim, dtype)
+        self.dense2 = Dense(intermediate_dim, dim, dtype)
+        self.ln = LayerNorm(dim, 1e-6, dtype)
+
+    def forward(self, x):
+        h = self.dense1(x)
+        h = self.dense2(gelu(h))
+        return self.ln(gelu(h) + x)
+
+
+class Attention(nn.Module):
+    """Holds the query/key/value/out projections of a layer. Only the
+    CLS-only last layer computes through this module (the other layers hand
+    the weights to kernel 1)."""
+
+    def __init__(self, cfg: HypernetConfig, dtype):
+        super().__init__()
+        H = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.query = Dense(H, H, dtype)
+        self.key = Dense(H, H, dtype)
+        self.value = Dense(H, H, dtype)
+        self.out = Dense(H, H, dtype)
+
+    def forward_cls(self, hidden, mask):
+        """Output for position 0 only: q projects the CLS position, keys and
+        values span all positions; the core is kernel 2."""
+        B, Lk, H = hidden.shape
+        h = self.num_heads
+        d = H // h
+        qm = self.query(hidden[:, :1]).reshape(B, h, d)
+        km = self.key(hidden).reshape(B, Lk * h, d)
+        vm = self.value(hidden).reshape(B, Lk * h, d)
+        kmaskf = mask.repeat_interleave(h, dim=-1).float()
+        ctx = attention_core(qm, km, vm, kmaskf, h).reshape(B, 1, H)
+        return self.out(ctx)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: HypernetConfig, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        eps = cfg.layer_norm_eps
+        self.attention = Attention(cfg, dtype)
+        self.attention_ln = LayerNorm(cfg.hidden_size, eps, dtype)
+        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, dtype)
+        self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype)
+        self.output_ln = LayerNorm(cfg.hidden_size, eps, dtype)
+
+    def forward(self, hidden, mask, cls_only: bool = False):
+        cfg = self.cfg
+        if cls_only:
+            attn = self.attention.forward_cls(hidden, mask)
+            attn = self.attention_ln(attn + hidden[:, :1])
+            mid = gelu(self.intermediate(attn))
+            return self.output_ln(self.output(mid) + attn)
+        if hidden.shape[1] * cfg.num_attention_heads > MERGED_ATTENTION_MAX:
+            raise NotImplementedError(
+                f"surface width {hidden.shape[1]} x {cfg.num_attention_heads} heads is "
+                f"off the kernel route (merged width > {MERGED_ATTENTION_MAX})"
+            )
+        a = self.attention
+        dt = self.dtype
+        return encoder_layer(
+            hidden, mask,
+            a.query.kernel(), a.query.bias.to(dt), a.key.kernel(), a.key.bias.to(dt),
+            a.value.kernel(), a.value.bias.to(dt), a.out.kernel(), a.out.bias.to(dt),
+            self.attention_ln.weight, self.attention_ln.bias,
+            self.intermediate.kernel(), self.intermediate.bias.to(dt),
+            self.output.kernel(), self.output.bias.to(dt),
+            self.output_ln.weight, self.output_ln.bias,
+            num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
+        )
+
+
+class HypernetEncoder(nn.Module):
+    """Embeddings and the layer stack."""
+
+    def __init__(self, cfg: HypernetConfig, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        if not cfg.embed_using_source_embeddings:
+            self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Parameter(
+            torch.zeros(cfg.max_position_embeddings, cfg.hidden_size, dtype=dtype)
+        )
+        self.embeddings_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)
+        )
+
+    def forward(self, input_ids, attention_mask, inputs_embeds=None):
+        if inputs_embeds is None:
+            inputs_embeds = self.word_embeddings.weight.to(self.dtype)[input_ids]
+        L = inputs_embeds.shape[1]
+        hidden = self.embeddings_ln(inputs_embeds + self.position_embeddings[:L])
+        # the last layer's non-CLS outputs are dead when the caller pools
+        # hidden[:, 0]: it computes position 0 only (exact)
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            hidden = layer(hidden, attention_mask, cls_only=i == n - 1)
+        return hidden
+
+
+class Hypernet(nn.Module):
+    """target surface forms (+ source embeddings) -> (emb_in, emb_out | None,
+    bias), forward only."""
+
+    def __init__(self, config: HypernetConfig, dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        _check_supported(cfg)
+        self.config = cfg
+        self.dtype = dtype
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.encoder = HypernetEncoder(cfg, dtype)
+        self.fallback_embeddings = nn.Embedding(max(cfg.n_extra_tokens, 1), cfg.n_in_embd)
+        if cfg.embed_using_source_embeddings:
+            self.input_projection = nn.Sequential(
+                Dense(cfg.n_in_embd, H, dtype), ProjectorBlock(H, I, dtype)
+            )
+        head_in_dim = cfg.n_in_embd if cfg.single_head else cfg.n_embd
+        self.output_projection = nn.Sequential(
+            ProjectorBlock(H, I, dtype), Dense(H, head_in_dim, dtype)
+        )
+        if not cfg.single_head and cfg.separate_out_embeddings:
+            self.output_projection_out = nn.Sequential(
+                ProjectorBlock(H, I, dtype), Dense(H, cfg.n_embd, dtype)
+            )
+        if cfg.rescale_embeddings:
+            self.in_scaler = Rescaler(cfg.n_in_embd, dtype)
+            self.scaler = Rescaler(cfg.n_embd if not cfg.single_head else cfg.n_in_embd, dtype)
+            if cfg.separate_out_embeddings:
+                self.out_scaler = Rescaler(cfg.n_embd, dtype)
+        if cfg.predict_bias:
+            self.bias_projection = Dense(H, 1, dtype)
+
+    def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
+                lang_index=None):
+        """The JAX module's call signature; target_priors and lang_index feed
+        features that are not ported and are ignored."""
+        cfg = self.config
+        sf = target_surface_forms
+        attention_mask = sf != cfg.pad_token_id
+
+        inputs_embeds = None
+        if cfg.embed_using_source_embeddings:
+            # surface-form ids index the SOURCE vocab; byte tokens beyond it
+            # fall back to a learned table (ids clipped into both tables)
+            use_fallback = sf >= cfg.original_vocab_size
+            main_ids = torch.clamp(sf, 0, cfg.original_vocab_size - 1)
+            fallback_ids = torch.clamp(
+                sf - cfg.original_vocab_size, 0, max(cfg.n_extra_tokens, 1) - 1
+            )
+            source_embeds = source_embeddings[main_ids]
+            if cfg.rescale_embeddings:
+                source_embeds = self.in_scaler(source_embeds)
+            fallback = self.fallback_embeddings.weight.to(self.dtype)[fallback_ids]
+            inputs_embeds = torch.where(use_fallback[..., None], fallback, source_embeds)
+            inputs_embeds = self.input_projection(inputs_embeds)
+
+        hidden = self.encoder(sf, attention_mask, inputs_embeds=inputs_embeds)
+        pooled = hidden[:, 0]
+
+        predicted = self.output_projection(pooled)
+        if cfg.single_head:
+            predicted_in = predicted[..., : cfg.n_embd]
+            predicted_out = predicted[..., cfg.n_embd:] if cfg.separate_out_embeddings else None
+        else:
+            predicted_in = predicted
+            predicted_out = (
+                self.output_projection_out(pooled) if cfg.separate_out_embeddings else None
+            )
+        if cfg.rescale_embeddings:
+            predicted_in = self.scaler(predicted_in)
+            if predicted_out is not None:
+                predicted_out = self.out_scaler(predicted_out)
+
+        if cfg.predict_bias:
+            predicted_bias = self.bias_projection(pooled)[..., 0]
+        else:
+            predicted_bias = torch.zeros(sf.shape[0], dtype=self.dtype, device=sf.device)
+        return predicted_in, predicted_out, predicted_bias

@@ -1,0 +1,115 @@
+"""Build and bind the port's CUDA kernels, and count their launches.
+
+Each ``zett_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface under
+``build/zett_tpu_torch/`` at the root of the checkout, at first use, and
+loaded with ctypes. Nothing is built or loaded when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zett_tpu_torch")
+SOURCES = ("encoder_layer", "attention_core")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+# Launches per kernel wrapper. A wrapper adds one where it launches its
+# kernel on the card, and nowhere else.
+launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    newest = max(
+        os.path.getmtime(os.path.join(CSRC, f))
+        for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+    return os.path.getmtime(lib) < newest
+
+
+def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> float:
+    """Compile the named kernels (default: all) that are missing or older
+    than their sources, one nvcc process per source, all started together.
+    Returns the wall time in seconds. Raises if any compile fails."""
+    names = [n for n in (names or SOURCES) if _stale(n)]
+    t0 = time.perf_counter()
+    if not names:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in names:
+        tmp = _lib_path(name) + f".{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}:\n{out}")
+            continue
+        if verbose and out:
+            print(out)
+        os.replace(tmp, _lib_path(name))
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of a kernel library, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_lib_path(name))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

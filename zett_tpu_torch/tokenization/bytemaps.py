@@ -1,0 +1,29 @@
+"""GPT-2 byte <-> unicode-char maps.
+
+Byte-level tokenizers store raw bytes as printable unicode characters so that
+vocab files remain valid text. The construction is the standard GPT-2 one:
+printable latin bytes map to themselves, everything else is shifted into the
+U+0100.. range. Counterpart of ``zett_tpu/tokenization/bytemaps.py``.
+"""
+
+
+def _byte_to_char_map() -> dict:
+    # bytes that are kept as-is: '!'..'~', '¡'..'¬', '®'..'ÿ'
+    keep = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("¡"), ord("¬") + 1))
+        + list(range(ord("®"), ord("ÿ") + 1))
+    )
+    mapping = {}
+    n = 0
+    for b in range(256):
+        if b in keep:
+            mapping[b] = chr(b)
+        else:
+            mapping[b] = chr(256 + n)
+            n += 1
+    return mapping
+
+
+BYTES_TO_CHARS: dict = _byte_to_char_map()
+CHARS_TO_BYTES: dict = {c: b for b, c in BYTES_TO_CHARS.items()}
