@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the kernels from
-     zett_tpu_torch/csrc (one nvcc per source, in parallel);
+     zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
+     host library (g++);
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
@@ -16,7 +17,22 @@ Phases (any failure exits non-zero and prints no result):
      gpt2_raw's tokenizer, a seeded hypernet at gpt2_en's config (bf16), the
      gpt_neox0001 target at batch 16384; checks the written model, that both
      kernels ran, times the transfer and the hypernet per 32k vocab, and
-     breaks the hypernet's device time down by kernel (torch.profiler).
+     breaks the hypernet's device time down by kernel (torch.profiler);
+  5. kernels 2 and 3 (the tier-4 attention core's forward and backward)
+     against their plain versions at the training shapes (B = 32896 full and
+     CLS-only layers, B = 16384 at L = 1, a ragged batch, all-padding rows),
+     bf16 and f32, dropout rate 0 and 0.1; the kept fraction of kernel 2's
+     own mask, and seed determinism; times beside bounds, plain versions and
+     SDPA;
+  6. the hypernet's training route at gpt2_en's widths on 2048 rows, card
+     against CPU, f32: the loss and every parameter gradient;
+  7. training through ``zett_tpu_torch.training``'s CLI on its default
+     device at configs/zeroshot/gpt2_en.json's widths (6 steps, 2 of them
+     identity steps, on text made from the repo's Markdown files, phase 4's
+     seeded source model): finite losses, both kernels launched 3 times per
+     step, frozen weights unchanged, a transfer from the written final/;
+     times per step, host collate time, peak memory and a profile of one
+     train step.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -39,6 +55,7 @@ SEED = 0
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 REPO = os.path.dirname(os.path.abspath(__file__))
+CARD = "not read"  # nvidia-smi's name and power limit, set by main()
 WORK = os.path.join(REPO, "build", "zett_tpu_torch", "smoke")
 
 # configs/zeroshot/gpt2_en.json's hypernet
@@ -78,35 +95,39 @@ def bound(flops, nbytes, dtype):
 
 def bf16_ulp(x):
     """Spacing of bfloat16 numbers at |x| (8 significant bits)."""
-    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
-    return 2.0 ** (e - 7)
+    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=2.0 ** -126)))
+    return torch.exp2(e - 7)
 
 
 def compare(got, ref, dtype, what):
-    """Tolerances: f32 max abs 2e-5 on outputs of magnitude < 8 (sums in
-    another order than the plain version's library GEMMs; the card showed
-    3e-6). bf16, judged at the outputs' unit scale: on
+    """Tolerances: f32 max abs 2e-5 on outputs of magnitude < 8, and 2e-5 x
+    (largest |ref| / 8) above that (sums in another order than the plain
+    version's library GEMMs; the card showed 3e-6). bf16, judged at the
+    outputs' unit scale: on
     99.9% of elements within 2 ulps of max(|ref|, 1), and everywhere within
     8 ulps of the largest |ref| (an f32 sum in another order can round a
     bf16 intermediate the other way, and a LayerNorm or gelu downstream
-    carries that one ulp on)."""
-    got = got.float().cpu().numpy()
-    ref = ref.float().cpu().numpy()
-    if not np.isfinite(got).all():
+    carries that one ulp on). Computed on the card."""
+    got = got.float()
+    ref = ref.float().to(got.device)
+    if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite output")
-    err = np.abs(got - ref)
+    err = (got - ref).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    top = float(ref.abs().max()) if ref.numel() else 0.0
     if dtype == torch.float32:
-        ok = err.max() <= 2e-5
-        detail = f"max abs {err.max():.3g} (tol 2e-5)"
+        tol = 2e-5 * max(1.0, top / 8)
+        ok = max_err <= tol
+        detail = f"max abs {max_err:.3g} (tol {tol:.3g})"
     else:
-        within = float((err <= 2 * bf16_ulp(np.maximum(np.abs(ref), 1.0))).mean())
-        cap = 8 * float(bf16_ulp(np.abs(ref).max()))
-        ok = within >= 0.999 and err.max() <= cap
-        detail = f"max abs {err.max():.3g} (cap {cap:.3g}), within 2 ulps {within:.5f} (tol 0.999)"
+        within = float((err <= 2 * bf16_ulp(torch.clamp(ref.abs(), min=1.0))).float().mean())
+        cap = 8 * float(bf16_ulp(torch.tensor(top)))
+        ok = within >= 0.999 and max_err <= cap
+        detail = f"max abs {max_err:.3g} (cap {cap:.3g}), within 2 ulps {within:.5f} (tol 0.999)"
     log(f"  {what}: {detail}")
     if not ok:
         raise AssertionError(f"{what}: {detail}")
-    return float(err.max())
+    return max_err
 
 
 # --------------------------------------------------------------------- phase 2
@@ -241,6 +262,358 @@ def phase_kernels():
         check_kernel2(1001, 7, dtype, gen, timed=False)
         torch.cuda.empty_cache()
     return results
+
+
+# --------------------------------------------------------------------- phase 5
+def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64):
+    """Kernel 2/3 operands at a training shape: merged q/k/v/dout, a ragged
+    key mask with all-padding rows."""
+    def mk(L):
+        return torch.randn(B, L * h, d, generator=gen).to(dtype).cuda()
+
+    qm, km, vm, dout = mk(Lq), mk(Lk), mk(Lk), mk(Lq)
+    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    mask[:, 0] = True
+    mask[1::97] = False  # all-padding surface forms
+    return qm, km, vm, dout, mask.repeat_interleave(h, dim=-1).float().cuda(), mask.cuda()
+
+
+def core_bound(B, Lq, Lk, dtype, backward, h=12, d=64):
+    size = torch.finfo(dtype).bits // 8
+    n_q, n_k = B * Lq * h * d, B * Lk * h * d
+    mask_bytes = B * Lk * h * 4
+    if backward:  # q, k, v, dout in; dq, dk, dv out; five products
+        nbytes = (2 * n_q + 2 * n_k) * size + (n_q + 2 * n_k) * size + mask_bytes
+        flops = 5 * 2 * B * h * Lq * Lk * d
+    else:  # q, k, v in; out; two products
+        nbytes = (2 * n_q + 2 * n_k) * size + mask_bytes
+        flops = 2 * 2 * B * h * Lq * Lk * d
+    return bound(flops, nbytes, dtype)
+
+
+def sdpa_layout(qm, km, vm, mask, Lq, Lk, h=12, d=64):
+    B = qm.shape[0]
+    q4 = qm.view(B, Lq, h, d).transpose(1, 2)
+    k4 = km.view(B, Lk, h, d).transpose(1, 2)
+    v4 = vm.view(B, Lk, h, d).transpose(1, 2)
+    return q4, k4, v4, mask[:, None, None, :]
+
+
+def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234):
+    """Kernels 2 and 3 against their plain versions at one training shape,
+    dtype and dropout rate; with ``timed``, their median times beside the
+    plain versions', SDPA's (forward; backward) and the bounds."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_bwd, attention_core_bwd_reference,
+        attention_core_reference)
+
+    h = 12
+    qm, km, vm, dout, kmaskf, mask = core_inputs(B, Lq, Lk, dtype, gen)
+    tag = f"B={B} Lq*h={Lq * h} Lk*h={Lk * h} {str(dtype)[6:]} rate {rate}"
+    before = dict(_build.launch_counts)
+    out = attention_core(qm, km, vm, kmaskf, h, rate, seed)
+    grads = attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed)
+    torch.cuda.synchronize()
+    for name in ("attention_core", "attention_core_bwd"):
+        if _build.launch_counts[name] != before[name] + 1:
+            raise AssertionError(f"{name} did not count its launch")
+    err_f = compare(out, attention_core_reference(qm, km, vm, kmaskf, h, rate, seed), dtype,
+                    f"kernel 2 {tag}")
+    refs = attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed)
+    err_b = max(compare(g, r, dtype, f"kernel 3 {tag} {n}")
+                for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
+    del out, grads, refs
+    if not timed:
+        return None
+    ms_f = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed))
+    ms_b = median_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed))
+    plain_f = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h, rate, seed),
+                        reps=5, warmup=1)
+    plain_b = median_ms(
+        lambda: attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed),
+        reps=5, warmup=1)
+    q4, k4, v4, amask = sdpa_layout(qm, km, vm, mask, Lq, Lk)
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_f = median_ms(lambda: sdpa(q4, k4, v4, attn_mask=amask, dropout_p=rate))
+    o4 = sdpa(q4, k4, v4, attn_mask=amask, dropout_p=rate)
+    g4 = dout.view(B, Lq, h, 64).transpose(1, 2)
+    lib_b = median_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True))
+    del o4
+    bound_f, by_f = core_bound(B, Lq, Lk, dtype, backward=False)
+    bound_b, by_b = core_bound(B, Lq, Lk, dtype, backward=True)
+    log(f"  kernel 2 {tag}: {ms_f:.4f} ms, plain {plain_f:.4f} ms, SDPA {lib_f:.4f} ms, "
+        f"bound {bound_f:.4f} ms ({by_f})")
+    log(f"  kernel 3 {tag}: {ms_b:.4f} ms, plain {plain_b:.4f} ms, SDPA backward "
+        f"{lib_b:.4f} ms, bound {bound_b:.4f} ms ({by_b})")
+    fwd = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
+               library_ms=lib_f)
+    bwd = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b,
+               library_ms=lib_b)
+    return fwd, bwd
+
+
+def observed_keep(B, Lq, Lk, rate, seed, gen, h=12):
+    """Kernel 2's own keep mask, read off its output: with each key's value
+    row the one-hot e_j, output column j of query i is the dropped weight
+    (0 where dropped). Returns bool (B, h, Lq, Lk)."""
+    from zett_tpu_torch.ops.attention_core import attention_core
+
+    qm = torch.randn(B, Lq * h, 64, generator=gen).cuda()
+    km = torch.randn(B, Lk * h, 64, generator=gen).cuda()
+    vm = torch.zeros(B, Lk, h, 64)
+    for j in range(Lk):
+        vm[:, j, :, j] = 1.0
+    vm = vm.view(B, Lk * h, 64).cuda()
+    kmaskf = torch.ones(B, Lk * h).cuda()
+    out = attention_core(qm, km, vm, kmaskf, h, rate, seed)
+    return out.view(B, Lq, h, 64)[..., :Lk].permute(0, 2, 1, 3) != 0, out
+
+
+def check_dropout(gen, rate=0.1):
+    """Kernel 2's mask: kept fraction within 5 sigma of 1 - rate; the same
+    seed gives bitwise the same output, another seed another mask."""
+    B, L = 32896, 7
+    keep, out = observed_keep(B, L, L, rate, 99, gen)
+    n = keep.numel()
+    frac = keep.float().mean().item()
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    log(f"  dropout: kept fraction {frac:.6f} of {n} weights (expected {1 - rate}, "
+        f"5 sigma {5 * sigma:.2e})")
+    if abs(frac - (1 - rate)) > 5 * sigma:
+        raise AssertionError(f"kept fraction {frac} is not within 5 sigma of {1 - rate}")
+    gen2 = torch.Generator().manual_seed(SEED + 5)
+    keep_a, out_a = observed_keep(64, L, L, rate, 99, gen2)
+    gen2 = torch.Generator().manual_seed(SEED + 5)
+    keep_b, out_b = observed_keep(64, L, L, rate, 99, gen2)
+    gen2 = torch.Generator().manual_seed(SEED + 5)
+    keep_c, _ = observed_keep(64, L, L, rate, 100, gen2)
+    if not torch.equal(out_a, out_b):
+        raise AssertionError("the same seed gave different outputs")
+    if torch.equal(keep_a, keep_c):
+        raise AssertionError("another seed gave the same mask")
+    log("  dropout: same seed bitwise equal, another seed another mask")
+
+
+def phase_train_kernels():
+    gen = torch.Generator().manual_seed(SEED + 1)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, 0.1):
+            for B, Lq, Lk in ((32896, 7, 7), (32896, 1, 7), (16384, 1, 1)):
+                main = dtype == torch.bfloat16 and rate == 0.0 and (Lq, Lk) == (7, 7)
+                r = check_train_core(B, Lq, Lk, dtype, rate, gen, timed=dtype == torch.bfloat16)
+                if main:
+                    results["attention_core"], results["attention_core_bwd"] = r
+            check_train_core(1001, 7, 7, dtype, rate, gen, timed=False)  # ragged batch
+            torch.cuda.empty_cache()
+    check_dropout(gen)
+    return results
+
+
+# --------------------------------------------------------------------- phase 6
+def phase_hypernet_train():
+    """The hypernet's training route (inference=False: torch projections
+    around kernels 2 and 3) at gpt2_en's widths on 2048 rows, f32: loss and
+    every parameter gradient on the card against the CPU's (plain
+    versions), from the same weights and inputs."""
+    from zett_tpu_torch.models import Hypernet, HypernetConfig
+    from zett_tpu_torch.models.convert import flax_to_torch
+    from zett_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(SEED + 2)
+    vocab = 50001
+    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    cpu_model = Hypernet(cfg, dtype=torch.float32)
+    cpu_model.load_state_dict(flax_to_torch(flax_layout(cpu_model, rng)))
+    gpu_model = Hypernet(cfg, dtype=torch.float32)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.cuda()
+    src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
+    sf = torch.from_numpy(hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen,
+                                          cfg.n_extra_tokens))
+    w_in = torch.from_numpy(rng.standard_normal((2048, 768), dtype=np.float32))
+    w_b = torch.from_numpy(rng.standard_normal(2048, dtype=np.float32))
+
+    def loss_of(model, dev):
+        e, _, b = model(sf.to(dev), None, torch.from_numpy(src).to(dev), None,
+                        deterministic=True, inference=False)
+        return (e * w_in.to(dev)).sum() + (b * w_b.to(dev)).sum()
+
+    before = dict(_build.launch_counts)
+    got = loss_of(gpu_model, "cuda")
+    got.backward()
+    torch.cuda.synchronize()
+    for name in ("attention_core", "attention_core_bwd"):
+        if _build.launch_counts[name] == before[name]:
+            raise AssertionError(f"the training route on the card did not launch {name}")
+    ref = loss_of(cpu_model, "cpu")
+    ref.backward()
+    got, ref = float(got.detach()), float(ref.detach())
+    err = abs(got - ref)
+    log(f"  loss: card {got:.6f} CPU {ref:.6f} (tol 1e-5 x max(|loss|, 1))")
+    if not math.isfinite(got) or err > 1e-5 * max(abs(ref), 1.0):
+        raise AssertionError(f"training-route loss differs: {err}")
+    grads = {n: (p.grad, dict(cpu_model.named_parameters())[n].grad)
+             for n, p in gpu_model.named_parameters()}
+    top = max(float(r.abs().max()) for _, r in grads.values())
+    worst, worst_name = 0.0, ""
+    for name, (g, r) in grads.items():
+        scale = max(float(r.abs().max()), 1e-2 * top)
+        ratio = float((g.cpu() - r).abs().max()) / scale
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient of {name}")
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    # f32 sums over 2048 rows in another order, through three layers and
+    # the projector blocks; leaves whose exact gradient is 0 (the key
+    # biases) are judged at 1% of the largest gradient
+    log(f"  gradients of {len(grads)} parameters: worst max abs error / scale {worst:.3g} "
+        f"({worst_name}; tol 2e-4)")
+    if worst > 2e-4:
+        raise AssertionError(f"training-route gradient of {worst_name} differs: {worst}")
+
+
+# --------------------------------------------------------------------- phase 7
+TRAIN_TEXT_SOURCES = ("SURVEY.md", "PAPER.md", "PAPERS.md", "VERDICT.md")
+
+
+def write_training_text(directory):
+    """en.txt from Markdown files of the repo, one paragraph per line."""
+    import glob
+
+    paths = [os.path.join(REPO, f) for f in TRAIN_TEXT_SOURCES]
+    paths += sorted(glob.glob(os.path.join(REPO, "docs", "*.md")))
+    paragraphs = []
+    for path in paths:
+        with open(path) as f:
+            for block in f.read().split("\n\n"):
+                line = " ".join(part.strip() for part in block.splitlines() if part.strip())
+                if line:
+                    paragraphs.append(line)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "en.txt"), "w") as f:
+        f.write("\n".join(paragraphs) + "\n")
+    return len(paragraphs), sum(map(len, paragraphs))
+
+
+def phase_training(model_dir):
+    """python -m zett_tpu_torch.training at configs/zeroshot/gpt2_en.json's
+    widths through its ``main`` on the default device, then a transfer from
+    the written final/."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.training.__main__ import load_config_file
+    from zett_tpu_torch.training.__main__ import main as train_main
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    train_dir, out = os.path.join(WORK, "train_text"), os.path.join(WORK, "train_out")
+    n_par, n_chars = write_training_text(train_dir)
+    config = load_config_file(os.path.join(REPO, "configs", "zeroshot", "gpt2_en.json"))
+    for key in ("valid_directory", "extra_valid_tokenizers"):
+        config.pop(key)
+    reduced = dict(model_dir=model_dir, train_directory=train_dir, output_dir=out, steps=6,
+                   identity_steps=2, warmup_steps=[2, 4], random_warmup_steps=0,
+                   logging_steps=1, save_steps=0, num_workers=0, eval_at_step_zero=False)
+    config.update(reduced)
+    config_path = os.path.join(WORK, "gpt2_en_smoke.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+    log(f"  training text: {n_par} paragraphs, {n_chars} characters; overrides {reduced}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, history = train_main([config_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    steps = config["steps"]
+    n_layers = config["num_hidden_layers"]
+    expected = {"attention_core": steps * n_layers, "attention_core_bwd": steps * n_layers,
+                "encoder_layer": 0}
+    kinds = [r["kind"] for r in trainer.records]
+    log(f"  trained {steps} steps ({kinds.count('identity')} identity) in {wall:.3f} s wall, "
+        f"launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    if kinds.count("identity") != 2 or kinds.count("train") != steps - 2:
+        raise AssertionError(f"step kinds {kinds}")
+    losses = [h.get("loss", h.get("identity_loss")) for h in history]
+    log(f"  logged losses {['%.4f' % x for x in losses]}")
+    if len(history) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad training history {history}")
+
+    # frozen weights bitwise unchanged, trainable ones moved
+    source = load_hf_state_dict(model_dir)
+    for key, p in trainer.backbone.named_hf_parameters():
+        if not torch.equal(p.detach().cpu(), source[key].to(torch.bfloat16)):
+            raise AssertionError(f"backbone weight {key} changed")
+    hn = trainer.hypernet
+    for scaler in (hn.in_scaler, hn.scaler):
+        if not (bool((scaler.w == 1).all()) and bool((scaler.b == 0).all())):
+            raise AssertionError("a rescaler changed")
+    from zett_tpu_torch.models import Hypernet
+
+    init = Hypernet(trainer.hn_config, dtype=trainer.dtype)
+    init.init_weights(torch.Generator().manual_seed(trainer.cfg.seed))
+    init_params = dict(init.named_parameters())
+    # every trainable parameter moves except those whose exact gradient is
+    # 0: the attention key biases (the softmax ignores a per-query constant)
+    # and the bias head's bias (the predicted bias is unused without
+    # learnable_bias); decay moves the bias head's kernel
+    exempt = ("attention.key.bias", "bias_projection.bias")
+    required = [n for n, _ in hn.named_parameters()
+                if "scaler" not in n and not n.endswith(exempt)]
+    still = [n for n in required
+             if torch.equal(dict(hn.named_parameters())[n].detach().cpu(), init_params[n])]
+    log(f"  {len(required) - len(still)} of {len(required)} trainable hypernet parameters "
+        f"changed (exempt: {exempt})")
+    if still:
+        raise AssertionError(f"trainable hypernet parameters did not change: {still}")
+
+    records = trainer.records
+    train_ms = [r["device_ms"] for r in records if r["kind"] == "train"][1:]
+    ident_ms = [r["device_ms"] for r in records if r["kind"] == "identity"][1:]
+    collate_ms = [r["collate_ms"] for r in records if r["kind"] == "train"]
+    step_wall = [r["collate_ms"] + r["host_ms"] for r in records if r["kind"] == "train"][1:]
+    log(f"  on {CARD}: train step {np.median(train_ms):.3f} ms (CUDA events, median of the "
+        f"steps after the first: {['%.3f' % x for x in train_ms]}); identity step "
+        f"{['%.3f' % x for x in ident_ms]} ms; host collate per train batch "
+        f"{['%.1f' % x for x in collate_ms]} ms; peak memory {peak_gb:.2f} GiB")
+
+    batch = trainer.last_train_batch
+    sf = batch["target_surface_forms"]
+    log(f"  last train batch: {int(batch['mask'].sum())} sampled vocab rows of {len(sf)}, "
+        f"{int((sf == 0).all(1).sum())} all-padding surface forms")
+    trainer.train_step(batch)  # warm the exact shapes, outside the counted run
+    busy, prof_wall, by_name = device_breakdown(lambda: trainer.train_step(batch), top=16)
+    if busy is not None:
+        def share(pred):
+            return sum(ms for n, (ms, _) in by_name.items() if pred(n))
+
+        k2 = share(lambda n: "attention_kernel" in n)
+        k3 = share(lambda n: "attention_bwd_kernel" in n)
+        # cuBLAS's Hopper GEMMs are named nvjet_*; older ones gemm/cutlass/xmma
+        gemm = share(lambda n: any(t in n.lower() for t in ("nvjet", "gemm", "cutlass", "xmma")))
+        elementwise = share(lambda n: "at::native" in n)
+        total = sum(ms for ms, _ in by_name.values())
+        log(f"  train step breakdown (device ms): kernel 2 {k2:.3f}, kernel 3 {k3:.3f}, "
+            f"cuBLAS GEMMs {gemm:.3f}, PyTorch elementwise/reduction/copy kernels "
+            f"{elementwise:.3f}, other {total - k2 - k3 - gemm - elementwise:.3f}; idle share "
+            f"of the loop (collate included) {1 - busy / float(np.median(step_wall)):.3f}")
+
+    t0 = time.perf_counter()
+    target = os.path.join(REPO, "artifacts", "tokenizers", "gpt_neox0001", "tokenizer.json")
+    transfer_main(["--checkpoint", os.path.join(out, "final"), "--model", model_dir,
+                   "--target-tokenizer", target, "--output", os.path.join(WORK, "trained_out")])
+    if not os.path.exists(os.path.join(WORK, "trained_out", "model.safetensors")):
+        raise AssertionError("the transfer from final/ wrote no model")
+    log(f"  transfer from the trained final/: {time.perf_counter() - t0:.3f} s")
+    return launches, float(np.median(train_ms)), wall
 
 
 # --------------------------------------------------------------------- phase 3
@@ -422,7 +795,9 @@ def hypernet_batches(ckpt, model_dir, target_path, batch_size):
 
 def device_breakdown(run, top=12):
     """Device time by kernel over one run (torch.profiler), the device's
-    busy time and its idle share of the run's host wall time."""
+    busy time and its idle share of the run's host wall time. Returns
+    (busy_ms, wall_ms, {kernel name: (ms, launches)}); busy_ms is None when
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -447,7 +822,7 @@ def device_breakdown(run, top=12):
         reach = max(reach, end)
     if busy_ms == 0:
         log("  profile: no device time recorded (not measured)")
-        return
+        return None, wall_ms, by_name
     log(f"  profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"(idle share {1 - busy_ms / wall_ms:.3f})")
     total = sum(ms for ms, _ in by_name.values())
@@ -456,6 +831,7 @@ def device_breakdown(run, top=12):
         f"time), library and elementwise kernels {total - ours:.3f} ms")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"    {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {name[:90]}")
+    return busy_ms, wall_ms, by_name
 
 
 def phase_transfer():
@@ -503,7 +879,7 @@ def phase_transfer():
             raise AssertionError(f"special token {token!r} row is not the source row")
     n_batches = -(-len(target) // batch)
     expected = {"encoder_layer": n_batches * (cfg.num_hidden_layers - 1),
-                "attention_core": n_batches}
+                "attention_core": n_batches, "attention_core_bwd": 0}
     log(f"  transfer: {len(target)} tokens in {wall:.3f} s wall, launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -527,6 +903,7 @@ def phase_transfer():
 
 
 def main():
+    global CARD
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -543,17 +920,29 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip()
+        CARD = smi
         log(smi)
         log(f"torch {torch.__version__} cuda {torch.version.cuda}")
         from zett_tpu_torch.ops import _build
 
+        from zett_tpu_torch.csrc import host_lib
+
         log(f"phase 1: built {list(_build.SOURCES)} in {_build.build():.2f} s")
+        t0 = time.perf_counter()
+        host_lib.build()
+        log(f"  built the native host library (g++) in {time.perf_counter() - t0:.2f} s")
         log("phase 2: kernels against their plain versions")
         kernels = phase_kernels()
         log("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet()
         log("phase 4: transfer through the CLI on its default device")
-        launches, wall, hn_ms = phase_transfer()
+        transfer_launches, wall, hn_ms = phase_transfer()
+        log("phase 5: kernels 2 and 3 against their plain versions at the training shapes")
+        kernels.update(phase_train_kernels())
+        log("phase 6: the hypernet's training route at gpt2_en widths, card vs CPU (f32)")
+        phase_hypernet_train()
+        log("phase 7: training through the CLI on its default device")
+        train_launches, step_ms, train_wall = phase_training(os.path.join(WORK, "gpt2"))
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -565,12 +954,20 @@ def main():
                           "zett_tpu/ops/pallas_attention.py:727"),
         "attention_core": ("zett_tpu_torch/csrc/attention_core.cu",
                            "zett_tpu/ops/pallas_attention.py:215"),
+        "attention_core_bwd": ("zett_tpu_torch/csrc/attention_core_bwd.cu",
+                               "zett_tpu/ops/pallas_attention.py:254"),
     }
     rows = []
     for name, (source, replaces) in sources.items():
+        # launches: the main paths' runs, transfer (phase 4) and training (phase 7)
+        n = transfer_launches.get(name, 0) + train_launches.get(name, 0)
+        if n == 0:
+            log(f"{name} never launched on the main paths")
+            return 1
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], **kernels[name]})
-    log(f"transfer_wall_s {wall:.3f} hypernet_ms_per_vocab {hn_ms:.3f}")
+                     "launches": n, **kernels[name]})
+    log(f"transfer_wall_s {wall:.3f} hypernet_ms_per_vocab {hn_ms:.3f} "
+        f"train_step_ms {step_ms:.3f} train_wall_s {train_wall:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from zett_tpu_torch.ops import _build, attention_core, encoder_layer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "regex", "safetensors",
-             "tokenizers", "transformers", "zett_tpu")
+             "tokenizers", "transformers", "datasets", "zett_tpu")
 
 
 def _port_files():
@@ -43,10 +43,12 @@ def test_port_imports_nothing_forbidden(path):
             assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
-def test_cli_import_leaves_jax_out():
-    code = ("import sys, zett_tpu_torch.transfer.__main__; "
+@pytest.mark.parametrize("module", ["zett_tpu_torch.transfer.__main__",
+                                    "zett_tpu_torch.training.__main__"])
+def test_cli_import_leaves_jax_out(module):
+    code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'zett_tpu', 'regex', 'safetensors')]; "
+            "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)

@@ -116,9 +116,13 @@ def test_attention_core_plain_matches_jax(dtype_name, Lk):
 
 
 def test_attention_core_dropout_raises():
+    """Dropout inside the core is ported (tests/test_torch_port_train_kernels.py
+    holds it); a rate outside [0, 1) raises."""
     q = torch.zeros(2, 2, 64)
-    with pytest.raises(NotImplementedError):
-        attention_core(q, q, q, torch.ones(2, 2), 2, 0.1)
+    assert torch.isfinite(attention_core(q, q, q, torch.ones(2, 2), 2, 0.1, seed=3)).all()
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout rate"):
+            attention_core(q, q, q, torch.ones(2, 2), 2, rate)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])

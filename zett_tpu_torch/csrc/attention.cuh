@@ -19,6 +19,15 @@
 // so a query whose own head has no valid key sees every merged entry equal
 // and averages uniformly over ALL Lk*h merged value rows (every head). That
 // row is reproduced here exactly (the all-padding surface form case).
+//
+// Dropout of the softmax weights (kernel 2 on the training route) draws its
+// keep mask from a counter-based generator instead of the TPU kernel's
+// per-tile Mosaic PRNG: Philox4x32-10 keyed by (seed, 0) at the counter
+// (row b, merged query index, merged key index, 0). Each entry of the merged
+// (B, Lq*h, Lk*h) weight plane thus has its own bits, independent of how the
+// batch is tiled, and the backward (kernel 3) regenerates the same mask. An
+// entry is kept when its first output word is below keep_threshold =
+// round((1 - rate) * 2^32); kept weights are divided by 1 - rate in T.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,7 +71,40 @@ struct AttnArgs {
   int B, Lq, Lk, h;
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
   long long m_sb, m_sl, m_sh;
+  // dropout of the weights (dropout != 0): see the header note
+  int dropout = 0;
+  unsigned int seed = 0;
+  unsigned int keep_threshold = 0;
+  float keep_div = 1.0f;  // 1 - rate, rounded to T
 };
+
+// Philox4x32-10 (Salmon et al., SC'11), first output word.
+__host__ __device__ inline unsigned int philox_word0(unsigned int c0, unsigned int c1,
+                                                     unsigned int c2, unsigned int c3,
+                                                     unsigned int k0, unsigned int k1) {
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned long long p0 = 0xD2511F53ull * c0;
+    const unsigned long long p1 = 0xCD9E8D57ull * c2;
+    const unsigned int n0 = (unsigned int)(p1 >> 32) ^ c1 ^ k0;
+    const unsigned int n2 = (unsigned int)(p0 >> 32) ^ c3 ^ k1;
+    c1 = (unsigned int)p1;
+    c3 = (unsigned int)p0;
+    c0 = n0;
+    c2 = n2;
+  }
+  return c0;
+}
+
+// Whether merged weight (b, qi, kj) survives dropout.
+__device__ __forceinline__ bool dropout_keep(unsigned int seed, unsigned int threshold, int b,
+                                             int qi, int kj) {
+  return philox_word0((unsigned int)b, (unsigned int)qi, (unsigned int)kj, 0u, seed, 0u) <
+         threshold;
+}
 
 __host__ __device__ inline int attn_smem_floats_per_warp(int Lq, int Lk) {
   return (Lq + 2 * Lk) * kRowPad + Lq * (Lk + 1);
@@ -107,6 +149,21 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
     // merged value rows, cast to T as the softmax output is
     const float w = Num<T>::round(1.0f / (float)(Lk * a.h));
     const T* vrow = (const T*)a.v + b * a.v_sb;
+    if (a.dropout) {
+      // each merged weight has its own keep bit, so every query differs
+      const float wd = Num<T>::round(w / a.keep_div);
+      for (int i = 0; i < Lq; ++i)
+        for (int c = 0; c < 2; ++c) {
+          const int dim = lane + 32 * c;
+          float acc = 0.0f;
+          for (int j = 0; j < Lk; ++j)
+            for (int hh = 0; hh < a.h; ++hh)
+              if (dropout_keep(a.seed, a.keep_threshold, b, i * a.h + hd, j * a.h + hh))
+                acc += wd * Num<T>::to_f(vrow[j * a.v_sl + hh * kHeadDim + dim]);
+          ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * kHeadDim + dim] = Num<T>::from_f(acc);
+        }
+      return;
+    }
     for (int c = 0; c < 2; ++c) {
       const int dim = lane + 32 * c;
       float acc = 0.0f;
@@ -145,6 +202,17 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
     for (int j = 0; j < Lk; ++j) row[j] = Num<T>::round(row[j] / sum);
   }
   __syncwarp();
+  if (a.dropout) {
+    for (int idx = lane; idx < Lq * Lk; idx += 32) {
+      const int i = idx / Lk;
+      const int j = idx % Lk;
+      float* wij = sp + i * (Lk + 1) + j;
+      *wij = dropout_keep(a.seed, a.keep_threshold, b, i * a.h + hd, j * a.h + hd)
+                 ? Num<T>::round(*wij / a.keep_div)
+                 : 0.0f;
+    }
+    __syncwarp();
+  }
   for (int i = 0; i < Lq; ++i) {
     const float* row = sp + i * (Lk + 1);
     float acc0 = 0.0f, acc1 = 0.0f;

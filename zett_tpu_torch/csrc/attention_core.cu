@@ -1,10 +1,14 @@
-// Kernel 2: the merged-head attention core forward at dropout rate 0.
+// Kernel 2: the merged-head attention core forward, with seeded dropout of
+// the softmax weights.
 //
 // Replaces the TPU kernel zett_tpu/ops/pallas_attention.py
 // _core_train_fwd_kernel / _core_train_fwd_pallas (:215, :335), the tier-4
 // core under merged_attention_train. On the transfer path it runs for the
-// last, CLS-only encoder layer: one query position against all key
-// positions of each surface form.
+// last, CLS-only encoder layer (one query position against all key
+// positions of each surface form, rate 0); on the training route it runs
+// for every encoder layer, full-query (Lq = Lk) and CLS-only. Its backward
+// is kernel 3 (attention_core_bwd.cu), which regenerates the same keep mask
+// (attention.cuh's header note).
 //
 // Inputs are position-major merged: qm (B, Lq*h, 64), km/vm (B, Lk*h, 64),
 // index = position*h + head, and kmaskf (B, Lk*h) f32. That memory is the
@@ -15,13 +19,17 @@
 // 12, Lk*h = 84, bf16) it does ~2*B*h*Lk*64*2 = 0.35 GFLOP against ~0.40 GB
 // of q/k/v/out, so it is memory-bound (>= 0.12 ms at 3.35 TB/s). The design
 // reads each key and value row once into shared memory, keeps the scores
-// and weights on chip, and writes only the context.
+// and weights on chip, and writes only the context. At the training shapes
+// (B = 32896, Lq*h = Lk*h = 84) it moves ~1.4 GB: >= 0.43 ms.
 #include "attention.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. dropout != 0 drops weights whose Philox
+// bits are >= keep_threshold and divides the others by keep_div (1 - rate
+// in T). Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, const void* vm,
                                  const float* kmaskf, void* out, int B, int Lq, int Lk, int h,
-                                 void* stream) {
+                                 int dropout, unsigned int seed, unsigned int keep_threshold,
+                                 float keep_div, void* stream) {
   zt::AttnArgs a;
   a.q = qm;
   a.k = km;
@@ -38,6 +46,10 @@ extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, cons
   a.m_sb = (long long)Lk * h;
   a.m_sl = h;
   a.m_sh = 1;
+  a.dropout = dropout;
+  a.seed = seed;
+  a.keep_threshold = keep_threshold;
+  a.keep_div = keep_div;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return (int)zt::launch_attention<__nv_bfloat16>(a, s);
   return (int)zt::launch_attention<float>(a, s);

@@ -1,0 +1,135 @@
+"""GPT-2 decoder with its embedding table passed in (counterpart of
+``zett_tpu/models/backbones/gpt2.py``).
+
+``GPT2LMHeadModel.forward(input_ids, attention_mask, wte)`` embeds with
+``wte``, runs the blocks and returns ``hidden @ wte.T``: the training step
+splices the hypernet's predicted table in as ``wte``. Weights are the HF
+state dict's (Conv1D kernels are (in, out), as flax Dense kernels), held as
+parameters in their stored dtype and cast to the compute dtype at use, as
+flax promotes them. The arithmetic follows the JAX module
+(``gpt2.py:48-117``): attention scores accumulated and scaled in f32 with
+an additive ``finfo(f32).min`` causal/padding bias, an f32 softmax whose
+weights are cast to the compute dtype, flax LayerNorm (f32 statistics),
+tanh-gelu, and logits in the compute dtype. These are library ops (cuBLAS
+on the card), as they are XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ...ops.encoder_layer import gelu, layer_norm_flax_exact
+
+
+@dataclass
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_inner: Optional[int] = None
+    layer_norm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = True
+
+    @classmethod
+    def from_hf(cls, hf: dict) -> "GPT2Config":
+        return cls(
+            vocab_size=hf["vocab_size"], n_positions=hf["n_positions"], n_embd=hf["n_embd"],
+            n_layer=hf["n_layer"], n_head=hf["n_head"], n_inner=hf.get("n_inner"),
+            layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
+            tie_word_embeddings=hf.get("tie_word_embeddings", True),
+        )
+
+
+def _block_keys(i: int):
+    p = f"transformer.h.{i}."
+    return [p + k for k in (
+        "ln_1.weight", "ln_1.bias", "attn.c_attn.weight", "attn.c_attn.bias",
+        "attn.c_proj.weight", "attn.c_proj.bias", "ln_2.weight", "ln_2.bias",
+        "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight", "mlp.c_proj.bias")]
+
+
+def weight_keys(config: GPT2Config):
+    """The HF keys the model holds (``wte`` included: it is a parameter of
+    the backbone even though the forward takes the table as an argument)."""
+    keys = ["transformer.wte.weight", "transformer.wpe.weight",
+            "transformer.ln_f.weight", "transformer.ln_f.bias"]
+    for i in range(config.n_layer):
+        keys += _block_keys(i)
+    if not config.tie_word_embeddings:
+        keys.append("lm_head.weight")
+    return keys
+
+
+class GPT2LMHeadModel(nn.Module):
+    def __init__(self, config: GPT2Config, state_dict: Dict[str, torch.Tensor], dtype):
+        super().__init__()
+        if not config.tie_word_embeddings:
+            raise NotImplementedError("untied GPT-2 heads are not ported")
+        self.config = config
+        self.dtype = dtype
+        # HF names with "." -> "__" (ParameterDict keys cannot hold dots)
+        self.weights = nn.ParameterDict({
+            k.replace(".", "__"): nn.Parameter(state_dict[k].detach().clone())
+            for k in weight_keys(config)
+        })
+
+    def w(self, key: str) -> torch.Tensor:
+        return self.weights[key.replace(".", "__")].to(self.dtype)
+
+    def named_hf_parameters(self):
+        for k, p in self.weights.items():
+            yield k.replace("__", "."), p
+
+    def _ln(self, x, prefix):
+        # flax LayerNorm without a dtype: f32 statistics, output in the
+        # promoted dtype of x and the parameters (the compute dtype here)
+        return layer_norm_flax_exact(x, self.w(prefix + ".weight"), self.w(prefix + ".bias"),
+                                     self.config.layer_norm_epsilon, x.dtype)
+
+    def _dense(self, x, prefix):
+        # flax Dense: product in the compute dtype, then the bias added in it
+        return x @ self.w(prefix + ".weight") + self.w(prefix + ".bias")
+
+    def _attention(self, x, bias, prefix):
+        cfg = self.config
+        B, L, E = x.shape
+        H = cfg.n_head
+        hd = E // H
+        q, k, v = self._dense(x, prefix + ".c_attn").split(E, dim=-1)
+        q = q.reshape(B, L, H, hd).transpose(1, 2)
+        k = k.reshape(B, L, H, hd).transpose(1, 2)
+        v = v.reshape(B, L, H, hd).transpose(1, 2)
+        scores = q.float() @ k.float().transpose(-1, -2)
+        scores = scores / math.sqrt(hd) + bias
+        weights = torch.softmax(scores, dim=-1).to(self.dtype)
+        out = (weights @ v).transpose(1, 2).reshape(B, L, E)
+        return self._dense(out, prefix + ".c_proj")
+
+    def hidden_states(self, input_ids, attention_mask, wte):
+        """Final hidden states (after ln_f), (B, L, E) in the compute dtype."""
+        cfg = self.config
+        B, L = input_ids.shape
+        dev = input_ids.device
+        hidden = (torch.nn.functional.embedding(input_ids, wte.to(self.dtype))
+                  + self.w("transformer.wpe.weight")[:L][None])
+        causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))[None, None]
+        mask = causal if attention_mask is None else causal & attention_mask.bool()[:, None, None, :]
+        bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
+        for i in range(cfg.n_layer):
+            p = f"transformer.h.{i}"
+            hidden = hidden + self._attention(self._ln(hidden, p + ".ln_1"), bias, p + ".attn")
+            h = self._dense(self._ln(hidden, p + ".ln_2"), p + ".mlp.c_fc")
+            hidden = hidden + self._dense(gelu(h), p + ".mlp.c_proj")
+        return self._ln(hidden, "transformer.ln_f")
+
+    def forward(self, input_ids, attention_mask, wte):
+        """Logits (B, L, V) in the compute dtype: ``hidden @ wte.T``."""
+        hidden = self.hidden_states(input_ids, attention_mask, wte)
+        return hidden @ wte.to(self.dtype).t()

@@ -26,6 +26,20 @@ _GPT2_KEEP = re.compile(
 KEEP_KEYS = {"gpt2": _GPT2_KEEP}
 
 
+def is_output_tied(model_type: str, config: dict = None) -> bool:
+    """Whether the logits use the input table (``registry.py:114``): always
+    for gpt2."""
+    check_supported(model_type)
+    return True
+
+
+def resolve_out_path(model_type: str, state_dict: dict):
+    """The HF key of untied output embeddings present in the state dict,
+    or None when tied (``registry.py:48``); gpt2's head is tied."""
+    check_supported(model_type)
+    return None
+
+
 def check_supported(model_type: str) -> None:
     if model_type not in IN_EMBEDDING_KEYS:
         raise NotImplementedError(f"backbone {model_type!r} is not ported (gpt2 is)")

@@ -45,3 +45,50 @@ def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         sd[".".join(mods + [leaf])] = _to_tensor(value)
     return sd
+
+
+def flax_paths(model: torch.nn.Module) -> Dict[str, tuple]:
+    """torch parameter name -> (Flax path tuple, transpose): the inverse of
+    ``flax_to_torch`` for a port ``Hypernet`` (``nn.Linear`` weights are
+    Dense kernels, transposed; embedding tables and LayerNorm scales are
+    ``embedding``/``scale``)."""
+    from .hypernet import Dense, LayerNorm
+
+    kinds = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            kinds[name] = "kernel"
+        elif isinstance(mod, LayerNorm):
+            kinds[name] = "scale"
+        elif isinstance(mod, torch.nn.Embedding):
+            kinds[name] = "embedding"
+    out = {}
+    for name, _ in model.named_parameters():
+        mod, _, leaf = name.rpartition(".")
+        transpose = False
+        if leaf == "weight" and mod in kinds:
+            leaf = kinds[mod]
+            transpose = leaf == "kernel"
+        parts = mod.split(".") if mod else []
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] == "layers" and path == ["encoder"]:
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+                continue
+            path.append(f"layers_{parts[i]}" if parts[i].isdigit() else parts[i])
+            i += 1
+        out[name] = (tuple(path + [leaf]), transpose)
+    return out
+
+
+def torch_to_flax(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A port ``Hypernet``'s parameters keyed by "/"-joined Flax path, as
+    float32 numpy arrays (the layout of a checkpoint's ``params.npz``)."""
+    paths = flax_paths(model)
+    flat = {}
+    for name, p in model.named_parameters():
+        path, transpose = paths[name]
+        value = p.detach().float().cpu()
+        flat["/".join(path)] = (value.t() if transpose else value).contiguous().numpy()
+    return flat

@@ -1,4 +1,4 @@
-"""The ZeTT hypernetwork, inference route, in PyTorch.
+"""The ZeTT hypernetwork, inference and training routes, in PyTorch.
 
 Counterpart of ``zett_tpu/models/hypernet.py``: a small post-LN transformer
 encoder runs over each target token's surface form, pools the first
@@ -6,11 +6,21 @@ position and projects to the frozen LM's embeddings (+ an lm-head bias).
 
 Kept features: source-embedding input with the fallback table (or the hn
 vocab's own embedding table), absolute positions, affine rescalers,
-single/dual heads, the bias head and CLS pooling. The route
-is the JAX package's inference route on the TPU: every layer except the last
-runs kernel 1 (``ops.encoder_layer``, the tier-3 layer); the last,
-CLS-only layer computes its projections and FFN with torch matmuls and its
-attention core with kernel 2 (``ops.attention_core``, the tier-4 core).
+single/dual heads, the bias head and CLS pooling. Two routes, chosen as
+the JAX module chooses them (``inference``, defaulting to
+``deterministic``):
+
+- inference: every layer except the last runs kernel 1
+  (``ops.encoder_layer``, the tier-3 layer); the last, CLS-only layer
+  computes its projections and FFN with torch matmuls and its attention core
+  with kernel 2 (``ops.attention_core``, the tier-4 core). Forward only.
+- training (``inference=False``, what the Trainer runs): every layer
+  computes its projections, LayerNorms and FFN with torch ops (XLA in the
+  JAX package) and its attention core with ``merged_attention_train``,
+  kernel 2 forward and kernel 3 backward with in-kernel dropout; the last
+  layer stays CLS-only. Hidden dropout follows flax's ``nn.Dropout`` with
+  masks drawn from an explicit generator.
+
 Configurations that leave this route (target priors, language ids,
 inter-token attention, adapters, relative positions, the t5 encoder,
 erf-gelu, concat pooling, head widths other than 64) raise
@@ -29,9 +39,10 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention_core import attention_core
+from ..ops.attention_core import attention_core, merged_attention_train
 from ..ops.encoder_layer import encoder_layer, gelu, layer_norm_flax_exact
 
 MERGED_ATTENTION_MAX = 256  # widest merged (L*h) row on the kernel route
@@ -107,6 +118,22 @@ def _check_supported(cfg: HypernetConfig) -> None:
     missing = [name for name, on in unsupported.items() if on]
     if missing:
         raise NotImplementedError(f"hypernet features not ported: {', '.join(missing)}")
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A dropout seed in [0, 2^31 - 1) from a CPU generator (the JAX module
+    draws ``randint(rng, (), 0, 2**31 - 1)``, hypernet.py:205-208)."""
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+
+def dropout(x, rate: float, generator: torch.Generator):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
+    divided by 1 - rate. The mask comes from a device generator seeded from
+    ``generator``, so the draw is a pure function of that generator's state."""
+    dev_gen = torch.Generator(device=x.device)
+    dev_gen.manual_seed(draw_seed(generator))
+    keep = torch.rand(x.shape, generator=dev_gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Linear):
@@ -196,6 +223,24 @@ class Attention(nn.Module):
         ctx = attention_core(qm, km, vm, kmaskf, h).reshape(B, 1, H)
         return self.out(ctx)
 
+    def forward_train(self, hidden, mask, cls_only: bool, rate: float, generator):
+        """The differentiated route (hypernet.py:430-447 with the tier-4
+        core): torch projections, ``merged_attention_train`` on the merged
+        layout (queries at position 0 only when ``cls_only``), the out
+        projection."""
+        B, Lk, H = hidden.shape
+        h = self.num_heads
+        d = H // h
+        q_in = hidden[:, :1] if cls_only else hidden
+        Lq = q_in.shape[1]
+        qm = self.query(q_in).reshape(B, Lq * h, d)
+        km = self.key(hidden).reshape(B, Lk * h, d)
+        vm = self.value(hidden).reshape(B, Lk * h, d)
+        kmaskf = mask.repeat_interleave(h, dim=-1).float()
+        seed = draw_seed(generator) if rate > 0.0 else 0
+        ctx = merged_attention_train(qm, km, vm, kmaskf, seed, h, rate)
+        return self.out(ctx.reshape(B, Lq, H))
+
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: HypernetConfig, dtype):
@@ -209,8 +254,11 @@ class EncoderLayer(nn.Module):
         self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype)
         self.output_ln = LayerNorm(cfg.hidden_size, eps, dtype)
 
-    def forward(self, hidden, mask, cls_only: bool = False):
+    def forward(self, hidden, mask, cls_only: bool = False, inference: bool = True,
+                deterministic: bool = True, generator=None):
         cfg = self.cfg
+        if not inference:
+            return self._forward_train(hidden, mask, cls_only, deterministic, generator)
         if cls_only:
             attn = self.attention.forward_cls(hidden, mask)
             attn = self.attention_ln(attn + hidden[:, :1])
@@ -234,6 +282,21 @@ class EncoderLayer(nn.Module):
             num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
         )
 
+    def _forward_train(self, hidden, mask, cls_only, deterministic, generator):
+        """hypernet.py:528-582 with ``inference=False``."""
+        cfg = self.cfg
+        rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
+        attn = self.attention.forward_train(hidden, mask, cls_only, rate, generator)
+        hidden_drop = not deterministic and cfg.hidden_dropout_prob > 0.0
+        if hidden_drop:
+            attn = dropout(attn, cfg.hidden_dropout_prob, generator)
+        residual = hidden[:, :1] if cls_only else hidden
+        attn = self.attention_ln(attn + residual)
+        h = self.output(gelu(self.intermediate(attn)))
+        if hidden_drop:
+            h = dropout(h, cfg.hidden_dropout_prob, generator)
+        return self.output_ln(h + attn)
+
 
 class HypernetEncoder(nn.Module):
     """Embeddings and the layer stack."""
@@ -252,22 +315,27 @@ class HypernetEncoder(nn.Module):
             EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)
         )
 
-    def forward(self, input_ids, attention_mask, inputs_embeds=None):
+    def forward(self, input_ids, attention_mask, inputs_embeds=None, inference: bool = True,
+                deterministic: bool = True, generator=None):
+        cfg = self.cfg
         if inputs_embeds is None:
-            inputs_embeds = self.word_embeddings.weight.to(self.dtype)[input_ids]
+            inputs_embeds = F.embedding(input_ids, self.word_embeddings.weight.to(self.dtype))
         L = inputs_embeds.shape[1]
         hidden = self.embeddings_ln(inputs_embeds + self.position_embeddings[:L])
+        if not deterministic and cfg.hidden_dropout_prob > 0.0:
+            hidden = dropout(hidden, cfg.hidden_dropout_prob, generator)
         # the last layer's non-CLS outputs are dead when the caller pools
         # hidden[:, 0]: it computes position 0 only (exact)
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, attention_mask, cls_only=i == n - 1)
+            hidden = layer(hidden, attention_mask, cls_only=i == n - 1, inference=inference,
+                           deterministic=deterministic, generator=generator)
         return hidden
 
 
 class Hypernet(nn.Module):
     """target surface forms (+ source embeddings) -> (emb_in, emb_out | None,
-    bias), forward only."""
+    bias)."""
 
     def __init__(self, config: HypernetConfig, dtype=torch.float32):
         super().__init__()
@@ -299,10 +367,19 @@ class Hypernet(nn.Module):
             self.bias_projection = Dense(H, 1, dtype)
 
     def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
-                lang_index=None):
+                lang_index=None, deterministic: bool = True, inference=None, generator=None):
         """The JAX module's call signature; target_priors and lang_index feed
-        features that are not ported and are ignored."""
+        features that are not ported and are ignored. ``inference`` picks
+        the route (default: ``deterministic``); ``generator`` (a CPU
+        ``torch.Generator``) draws the dropout masks and seeds when
+        ``deterministic`` is False."""
         cfg = self.config
+        if inference is None:
+            inference = deterministic
+        if not deterministic and generator is None:
+            raise ValueError("dropout needs an explicit generator")
+        if inference and not deterministic:
+            raise ValueError("the inference route is deterministic")
         sf = target_surface_forms
         attention_mask = sf != cfg.pad_token_id
 
@@ -315,14 +392,18 @@ class Hypernet(nn.Module):
             fallback_ids = torch.clamp(
                 sf - cfg.original_vocab_size, 0, max(cfg.n_extra_tokens, 1) - 1
             )
-            source_embeds = source_embeddings[main_ids]
+            source_embeds = F.embedding(main_ids, source_embeddings)
             if cfg.rescale_embeddings:
                 source_embeds = self.in_scaler(source_embeds)
-            fallback = self.fallback_embeddings.weight.to(self.dtype)[fallback_ids]
+            # F.embedding's backward reduces duplicate ids by segment: the
+            # clipped ids of non-fallback positions all hit row 0
+            fallback = F.embedding(fallback_ids, self.fallback_embeddings.weight.to(self.dtype))
             inputs_embeds = torch.where(use_fallback[..., None], fallback, source_embeds)
             inputs_embeds = self.input_projection(inputs_embeds)
 
-        hidden = self.encoder(sf, attention_mask, inputs_embeds=inputs_embeds)
+        hidden = self.encoder(sf, attention_mask, inputs_embeds=inputs_embeds,
+                              inference=inference, deterministic=deterministic,
+                              generator=generator)
         pooled = hidden[:, 0]
 
         predicted = self.output_projection(pooled)
@@ -344,3 +425,30 @@ class Hypernet(nn.Module):
         else:
             predicted_bias = torch.zeros(sf.shape[0], dtype=self.dtype, device=sf.device)
         return predicted_in, predicted_out, predicted_bias
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every parameter from ``generator`` with flax's initializers
+        (hypernet.py): lecun_normal Dense kernels (truncated normal, std
+        sqrt(1/fan_in) / 0.8796), zero biases, normal(initializer_range)
+        embedding tables and position embeddings, LayerNorm ones/zeros,
+        rescalers ones/zeros. The values differ from a JAX init (another
+        random stream); the distributions are the same."""
+        std = self.config.initializer_range
+        with torch.no_grad():
+            for name, mod in self.named_modules():
+                if isinstance(mod, Dense):
+                    s = (1.0 / mod.in_features) ** 0.5 / 0.87962566103423978
+                    w = torch.empty(mod.weight.shape)
+                    nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s, generator=generator)
+                    mod.weight.copy_(w)
+                    mod.bias.zero_()
+                elif isinstance(mod, LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+                elif isinstance(mod, nn.Embedding):
+                    mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
+                elif isinstance(mod, Rescaler):
+                    mod.w.fill_(1.0)
+                    mod.b.zero_()
+            pos = self.encoder.position_embeddings
+            pos.copy_(torch.randn(pos.shape, generator=generator) * std)

@@ -42,3 +42,16 @@ def splice_embeddings(
     if tie_word_embeddings:
         new["lm_head.weight"] = embeddings_in
     return new
+
+
+def extract_embeddings(state_dict: Dict[str, torch.Tensor], model_type: str,
+                       pad_to_multiple_of: int = 128):
+    """(source_embeddings, original_vocab_size): the input table (tied
+    gpt2: no output table to append) padded with zero rows to a multiple of
+    ``pad_to_multiple_of`` (``zett_tpu/models/splice.py:78``)."""
+    check_supported(model_type)
+    emb_in = state_dict[IN_EMBEDDING_KEYS[model_type]]
+    n = emb_in.shape[0]
+    pad = (-n) % pad_to_multiple_of
+    source = torch.cat([emb_in, emb_in.new_zeros(pad, emb_in.shape[1])]) if pad else emb_in
+    return source, n

@@ -1,12 +1,21 @@
-"""Hand-written CUDA kernels of the transfer path and their plain versions."""
+"""Hand-written CUDA kernels of the port and their plain versions."""
 
-from .attention_core import attention_core, attention_core_reference
+from .attention_core import (
+    attention_core,
+    attention_core_bwd,
+    attention_core_bwd_reference,
+    attention_core_reference,
+    merged_attention_train,
+)
 from .encoder_layer import encoder_layer, encoder_layer_reference, layer_norm_flax_exact
 
 __all__ = [
     "attention_core",
+    "attention_core_bwd",
+    "attention_core_bwd_reference",
     "attention_core_reference",
     "encoder_layer",
     "encoder_layer_reference",
     "layer_norm_flax_exact",
+    "merged_attention_train",
 ]

@@ -1,77 +1,289 @@
-"""Kernel 2: the merged-head attention core forward at dropout rate 0, and
-its plain PyTorch version.
+"""Kernels 2 and 3: the merged-head attention core of the tier-4 route,
+forward (kernel 2) and backward (kernel 3), with seeded dropout of the
+softmax weights, and their plain PyTorch versions.
 
 Replaces ``zett_tpu/ops/pallas_attention.py`` ``_core_train_fwd_kernel`` /
-``_core_train_fwd_pallas`` (:215, :335), the tier-4 core the transfer path
-runs for the last, CLS-only encoder layer (``merged_attention_train`` at
-rate 0, ``hypernet.py:190-212``). The CUDA source is
-``zett_tpu_torch/csrc/attention_core.cu``; its header note gives the bound
-(memory: q/k/v/out bytes) and the design.
+``_core_train_fwd_pallas`` (:215, :335) and ``_core_train_bwd_kernel`` /
+``_core_train_bwd_pallas`` (:254, :369), under ``merged_attention_train``
+(:437). The CUDA sources are ``zett_tpu_torch/csrc/attention_core.cu`` and
+``attention_core_bwd.cu``; their header notes give the bounds (memory) and
+the design.
 
-``attention_core`` keeps the JAX function's operands: qm (B, Lq*h, d),
-km/vm (B, Lk*h, d) merged position-major (index = position*h + head),
-kmaskf (B, Lk*h) f32. Dropout (rate > 0) comes with the training slice and
-raises until then.
+Operands keep the JAX function's layout: qm (B, Lq*h, d), km/vm
+(B, Lk*h, d) merged position-major (index = position*h + head), kmaskf
+(B, Lk*h) f32. Transfer runs the forward at rate 0 (``attention_core``);
+training runs ``merged_attention_train``, an ``autograd.Function`` whose
+forward is kernel 2 and whose backward is kernel 3 on the card, and whose
+forward and backward are the plain versions on the CPU. Any other device
+raises.
+
+Dropout draws its keep mask from Philox4x32-10 keyed by (seed, 0) at the
+counter (b, merged query index, merged key index, 0), so every entry of the
+merged weight plane has its own bits whatever the tiling; the plain version
+computes the same Philox in int64 tensor arithmetic, so kernel and plain
+version drop the same entries. (The TPU kernel seeds the Mosaic PRNG per
+grid tile instead; its stream cannot be reproduced.)
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from .encoder_layer import merged_core_reference
 
-_NAME = "attention_core"
+_FWD = "attention_core"
+_BWD = "attention_core_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+_MASK_ROWS = 4096  # rows of the plain keep mask computed at a time
 
-def attention_core_reference(qm, km, vm, kmaskf, num_heads: int):
-    """Plain version of kernel 2: ``_core_train_fallback`` at rate 0
-    (pallas_attention.py:409)."""
-    return merged_core_reference(qm, km, vm, kmaskf > 0, num_heads)
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of the 64-bit product m * x, for x holding
+    32-bit values in int64: split x in 16-bit halves so no product leaves
+    int64."""
+    lo_p = m * (x & 0xFFFF)
+    mid = m * (x >> 16) + (lo_p >> 16)
+    hi = mid >> 16
+    lo = ((mid & 0xFFFF) << 16) | (lo_p & 0xFFFF)
+    return hi, lo
 
 
-def attention_core(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0):
+def philox_word0(c0, c1, c2, c3, k0: int, k1: int) -> torch.Tensor:
+    """First output word of Philox4x32-10 (Salmon et al., SC'11) at the
+    counters (c0, c1, c2, c3) (int64 tensors of 32-bit values, broadcast)
+    under the key (k0, k1); the arithmetic of ``attention.cuh``."""
+    c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0
+
+
+def keep_threshold(rate: float) -> int:
+    """Keep an entry when its 32 Philox bits are below this value."""
+    return int(min(2**32 - 1, round((1.0 - rate) * 2**32)))
+
+
+def keep_mask(seed: int, B: int, Lqh: int, Lkh: int, rate: float, device,
+              row_offset: int = 0) -> torch.Tensor:
+    """Bool (B, Lqh, Lkh): which merged weights of rows row_offset..+B
+    survive dropout at ``rate`` under ``seed`` (True everywhere at rate 0)."""
+    if rate <= 0.0:
+        return torch.ones(B, Lqh, Lkh, dtype=torch.bool, device=device)
+    thr = keep_threshold(rate)
+    qi = torch.arange(Lqh, device=device, dtype=torch.int64)[None, :, None]
+    kj = torch.arange(Lkh, device=device, dtype=torch.int64)[None, None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    out = []
+    for start in range(0, B, _MASK_ROWS):
+        n = min(_MASK_ROWS, B - start)
+        b = torch.arange(row_offset + start, row_offset + start + n, device=device,
+                         dtype=torch.int64)[:, None, None]
+        out.append(philox_word0(b, qi, kj, zero, int(seed) & _MASK32, 0) < thr)
+    return torch.cat(out) if out else torch.ones(0, Lqh, Lkh, dtype=torch.bool, device=device)
+
+
+def _acc_dtype(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _weights(qm, km, kmaskf, num_heads: int):
+    """The forward's softmax weights (B, Lq*h, Lk*h) in the compute dtype and
+    the valid-entry plane: scores accumulated wide, cast, divided by sqrt(d)
+    in the compute dtype, one select to finfo.min, softmax wide, cast
+    (pallas_attention.py:224-237)."""
+    dtype = qm.dtype
+    acc = _acc_dtype(dtype)
+    d = qm.shape[-1]
+    h = num_heads
+    scores = torch.einsum("bqd,bkd->bqk", qm.to(acc), km.to(acc)).to(dtype)
+    scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=qm.device)
+    same_head = ((torch.arange(qm.shape[1], device=qm.device) % h)[:, None]
+                 == (torch.arange(km.shape[1], device=qm.device) % h)[None, :])
+    valid = same_head[None] & (kmaskf > 0)[:, None, :]
+    scores = torch.where(valid, scores, torch.finfo(dtype).min)
+    return torch.softmax(scores.to(acc), dim=-1).to(dtype), valid
+
+
+def attention_core_reference(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0,
+                             seed: int = 0):
+    """Plain version of kernel 2: ``_core_train_fwd_kernel``'s arithmetic
+    with the Philox keep mask (kept weights divided by 1 - rate in the
+    compute dtype)."""
+    dtype = qm.dtype
+    w, _ = _weights(qm, km, kmaskf, num_heads)
+    if rate > 0.0:
+        keep = keep_mask(seed, *w.shape, rate, qm.device)
+        div = torch.tensor(1.0 - rate, dtype=dtype, device=qm.device)
+        w = torch.where(keep, w / div, torch.zeros((), dtype=dtype, device=qm.device))
+    acc = _acc_dtype(dtype)
+    return torch.einsum("bqk,bkd->bqd", w.to(acc), vm.to(acc)).to(dtype)
+
+
+def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
+                                 rate: float = 0.0, seed: int = 0):
+    """Plain version of kernel 3, hand-written after
+    ``_core_train_bwd_kernel`` (pallas_attention.py:254-317): (dqm, dkm,
+    dvm). ds is zero on masked entries (the gradient of the forward's
+    select), which the TPU kernel omits; see ``attention_core_bwd.cu``."""
+    dtype = qm.dtype
+    acc = _acc_dtype(dtype)
+    dev = qm.device
+    d = qm.shape[-1]
+    w, valid = _weights(qm, km, kmaskf, num_heads)
+    dwd = torch.einsum("bqd,bkd->bqk", dout.to(acc), vm.to(acc))
+    if rate > 0.0:
+        keep = keep_mask(seed, *w.shape, rate, dev)
+        scale = torch.tensor(1.0 / (1.0 - rate), dtype=dtype, device=dev)
+        wd = torch.where(keep, w * scale, torch.zeros((), dtype=dtype, device=dev))
+        scale32 = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).to(acc).item()
+        dw = torch.where(keep, dwd * scale32, torch.zeros((), dtype=acc, device=dev))
+    else:
+        wd, dw = w, dwd
+    dvm = torch.einsum("bqk,bqd->bkd", wd.to(acc), dout.to(acc)).to(dtype)
+    w32 = w.to(acc)
+    ds = w32 * (dw - (dw * w32).sum(-1, keepdim=True))
+    ds = torch.where(valid, ds, torch.zeros((), dtype=acc, device=dev))
+    inv_sqrt_d = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).to(acc).item()
+    ds = (ds * inv_sqrt_d).to(dtype)
+    dqm = torch.einsum("bqk,bkd->bqd", ds.to(acc), km.to(acc)).to(dtype)
+    dkm = torch.einsum("bqk,bqd->bkd", ds.to(acc), qm.to(acc)).to(dtype)
+    return dqm, dkm, dvm
+
+
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+
+
+def attention_core(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0, seed: int = 0):
     """Attention core forward. CPU tensors take the plain version; on the
     card this launches kernel 2."""
-    if rate > 0.0:
-        raise NotImplementedError("attention_core: in-kernel dropout is not ported")
+    _check_rate(rate)
     if qm.device.type == "cpu":
-        return attention_core_reference(qm, km, vm, kmaskf, num_heads)
-    return _launch(qm, km, vm, kmaskf, num_heads)
+        return attention_core_reference(qm, km, vm, kmaskf, num_heads, rate, seed)
+    return _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed)
 
 
-def _launch(qm, km, vm, kmaskf, num_heads):
-    lib = _build.load(_NAME)
-    if not qm.is_cuda:
-        raise ValueError(f"attention_core: no kernel for device {qm.device}")
+def attention_core_bwd(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0,
+                       seed: int = 0):
+    """Attention core backward: (dqm, dkm, dvm). CPU tensors take the plain
+    version; on the card this launches kernel 3."""
+    _check_rate(rate)
+    if qm.device.type == "cpu":
+        return attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
+    return _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
+
+
+class _MergedAttentionTrain(torch.autograd.Function):
+    """Saves only the operands and the seed, as the JAX custom VJP does
+    (pallas_attention.py:457): the weight plane is recomputed by the
+    backward, never kept."""
+
+    @staticmethod
+    def forward(ctx, qm, km, vm, kmaskf, seed, num_heads, rate):
+        ctx.save_for_backward(qm, km, vm, kmaskf)
+        ctx.seed, ctx.num_heads, ctx.rate = seed, num_heads, rate
+        return attention_core(qm, km, vm, kmaskf, num_heads, rate, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qm, km, vm, kmaskf = ctx.saved_tensors
+        dqm, dkm, dvm = attention_core_bwd(qm, km, vm, kmaskf, dout.contiguous(),
+                                           ctx.num_heads, ctx.rate, ctx.seed)
+        return dqm, dkm, dvm, None, None, None, None
+
+
+def merged_attention_train(qm, km, vm, kmaskf, seed: int, num_heads: int, rate: float):
+    """Differentiable merged-head attention core with in-core dropout
+    (``merged_attention_train``, pallas_attention.py:438). Gradients flow to
+    qm, km and vm only."""
+    return _MergedAttentionTrain.apply(qm, km, vm, kmaskf, int(seed), num_heads, float(rate))
+
+
+# ------------------------------------------------------------------ launches
+def _check(qm, km, vm, num_heads, what):
     dtype = qm.dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"attention_core: unsupported dtype {dtype}")
+        raise TypeError(f"{what}: unsupported dtype {dtype}")
     B, Lqh, d = qm.shape
     Lkh = km.shape[1]
     h = num_heads
     if d != 64 or Lqh % h or Lkh % h:
-        raise ValueError(f"attention_core: shapes {tuple(qm.shape)}/{tuple(km.shape)} "
+        raise ValueError(f"{what}: shapes {tuple(qm.shape)}/{tuple(km.shape)} "
                          f"need d = 64 and a whole number of positions per head")
     Lq, Lk = Lqh // h, Lkh // h
     if not (1 <= Lq <= 32 and 1 <= Lk <= 32):
-        raise ValueError(f"attention_core: lengths Lq={Lq}, Lk={Lk} outside 1..32")
+        raise ValueError(f"{what}: lengths Lq={Lq}, Lk={Lk} outside 1..32")
     if km.dtype != dtype or vm.dtype != dtype or vm.shape != km.shape:
-        raise TypeError("attention_core: km/vm must match qm's dtype and km's shape")
+        raise TypeError(f"{what}: km/vm must match qm's dtype and km's shape")
+    return B, Lq, Lk
+
+
+def _dropout_args(rate: float, seed: int, dtype):
+    """(dropout flag, seed, threshold, 1-rate in T, 1/(1-rate) in T,
+    1/(1-rate) in f32) for the C entry points."""
+    if rate == 0.0:
+        return 0, 0, 0, 1.0, 1.0, 1.0
+    div = torch.tensor(1.0 - rate, dtype=dtype).item()
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=dtype).item()
+    scale32 = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+    return 1, int(seed) & _MASK32, keep_threshold(rate), div, scale, scale32
+
+
+def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
+    lib = _build.load(_FWD)
+    if not qm.is_cuda:
+        raise ValueError(f"attention_core: no kernel for device {qm.device}")
+    B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core")
     qm, km, vm = qm.contiguous(), km.contiguous(), vm.contiguous()
     maskf = kmaskf.float().contiguous()
     out = torch.empty_like(qm)
-    p = ctypes.c_void_p
+    drop, seed32, thr, div, _, _ = _dropout_args(rate, seed, qm.dtype)
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = lib.zt_attention_core
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, p]
+    fn.restype = i
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, u, u, ctypes.c_float, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
-    err = fn(_DTYPES[dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
-             maskf.data_ptr(), out.data_ptr(), B, Lq, Lk, h, stream)
+    err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
+             maskf.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads,
+             drop, seed32, thr, div, stream)
     _build.check(err, "attention_core kernel launch")
-    _build.count_launch(_NAME)
+    _build.count_launch(_FWD)
     return out
+
+
+def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
+    lib = _build.load(_BWD)
+    if not qm.is_cuda:
+        raise ValueError(f"attention_core_bwd: no kernel for device {qm.device}")
+    B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core_bwd")
+    if dout.shape != qm.shape or dout.dtype != qm.dtype:
+        raise TypeError("attention_core_bwd: dout must match qm's shape and dtype")
+    qm, km, vm, dout = (t.contiguous() for t in (qm, km, vm, dout))
+    maskf = kmaskf.float().contiguous()
+    dqm, dkm, dvm = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
+    drop, seed32, thr, _, scale, scale32 = _dropout_args(rate, seed, qm.dtype)
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    fn = lib.zt_attention_core_bwd
+    fn.restype = i
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, f, f, p]
+    stream = torch.cuda.current_stream(qm.device).cuda_stream
+    err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
+             maskf.data_ptr(), dout.data_ptr(), dqm.data_ptr(), dkm.data_ptr(),
+             dvm.data_ptr(), B, Lq, Lk, num_heads, drop, seed32, thr, scale, scale32,
+             stream)
+    _build.check(err, "attention_core_bwd kernel launch")
+    _build.count_launch(_BWD)
+    return dqm, dkm, dvm

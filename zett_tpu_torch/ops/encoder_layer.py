@@ -8,7 +8,10 @@ the bound (tensor-core operations at the transfer's shapes) and the design.
 
 ``encoder_layer`` keeps the JAX function's signature. On CPU tensors it runs
 ``encoder_layer_reference``; on any other device it launches the kernel or
-raises.
+raises. The kernel is forward-only: its output has no ``grad_fn``, so the
+wrapper raises when grad mode is on and an input requires grad rather than
+silently stopping the gradient (training takes the tier-4 route,
+``attention_core.merged_attention_train``).
 """
 
 from __future__ import annotations
@@ -105,6 +108,13 @@ def encoder_layer(x, mask: Optional[torch.Tensor], wq, bq, wk, bk, wv, bv, wo, b
             ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b)
     if x.device.type == "cpu":
         return encoder_layer_reference(*args, num_heads, eps)
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in args
+    ):
+        raise RuntimeError(
+            "encoder_layer: the kernel is forward-only and an input requires grad; "
+            "differentiate through the tier-4 route (merged_attention_train)"
+        )
     return _launch(*args, num_heads=num_heads, eps=eps)
 
 

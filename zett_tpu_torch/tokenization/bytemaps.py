@@ -27,3 +27,15 @@ def _byte_to_char_map() -> dict:
 
 BYTES_TO_CHARS: dict = _byte_to_char_map()
 CHARS_TO_BYTES: dict = {c: b for b, c in BYTES_TO_CHARS.items()}
+
+# The 256-char byte alphabet in byte order.
+BYTE_ALPHABET = tuple(BYTES_TO_CHARS[b] for b in range(256))
+
+# latin-1 decode is the identity on bytes; one str.translate then maps each
+# unit through the table
+_B2C_TRANS = str.maketrans(dict(BYTES_TO_CHARS))
+
+
+def bytes_to_byte_chars(raw: bytes) -> str:
+    """Encode raw bytes as the printable byte-char representation."""
+    return raw.decode("latin-1").translate(_B2C_TRANS)

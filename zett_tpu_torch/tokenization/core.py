@@ -1,10 +1,11 @@
-"""The top-level Tokenizer of the transfer path: tokenizer.json load/save,
-vocab, added and special tokens.
+"""The top-level Tokenizer: tokenizer.json load/save, vocab, added and
+special tokens.
 
-Counterpart of ``zett_tpu/tokenization/core.py``. Transfer never encodes
-text, so the normalizer, pre-tokenizer, post-processor and decoder are kept
-as their tokenizer.json dicts and written back unchanged; ``encode`` is not
-ported.
+Counterpart of ``zett_tpu/tokenization/core.py``. The normalizer,
+pre-tokenizer, post-processor and decoder are kept as their tokenizer.json
+dicts and written back unchanged. Text is encoded only by the native fast
+path of canonical byte-level tokenizers (``fast_encode.py``); the general
+``encode`` pipeline needs ``regex`` and is not ported.
 """
 
 from __future__ import annotations
@@ -143,6 +144,9 @@ class Tokenizer:
         for at_json in data.get("added_tokens", []):
             tok.register_added_token(AddedToken.from_json(at_json), at_json["id"])
         return tok
+
+    def copy(self) -> "Tokenizer":
+        return Tokenizer.from_json(copy.deepcopy(self.to_json()))
 
     @staticmethod
     def from_str(s: str) -> "Tokenizer":

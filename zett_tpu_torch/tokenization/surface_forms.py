@@ -8,7 +8,7 @@ byte-char strings segmented by the hn tokenizer's model.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -16,10 +16,19 @@ from .core import Tokenizer
 
 
 def get_surface_form_matrix(
-    tok: Tokenizer, maxlen: int, hn_tokenizer: Tokenizer
+    tokenizer_or_tokens: Union[Tokenizer, Sequence[str]], maxlen: int,
+    hn_tokenizer: Tokenizer, cache: Optional[dict] = None,
 ) -> Tuple[np.ndarray, int]:
-    """Returns (surface_forms[vocab, maxlen] int32, n_truncated)."""
-    tokens = [tok.id_to_token(i) for i in range(len(tok))]
+    """Returns (surface_forms[vocab, maxlen] int32, n_truncated).
+
+    cache (optional): token -> tuple(ids) memo persisted by the caller
+    across calls (sampled vocabularies repeat pieces heavily, so each
+    distinct piece is segmented once)."""
+    if isinstance(tokenizer_or_tokens, Tokenizer):
+        tok = tokenizer_or_tokens
+        tokens = [tok.id_to_token(i) for i in range(len(tok))]
+    else:
+        tokens = list(tokenizer_or_tokens)
     pad_id = hn_tokenizer.token_to_id("<pad>")
     if pad_id is None:
         pad_id = 0
@@ -34,7 +43,13 @@ def get_surface_form_matrix(
         if token in special_set:
             out[i, 0] = hn_tokenizer.token_to_id(token)
             continue
-        ids = [tid for tid, _ in tokenize(token)]
+        if cache is not None:
+            ids = cache.get(token)
+            if ids is None:
+                ids = tuple(tid for tid, _ in tokenize(token))
+                cache[token] = ids
+        else:
+            ids = [tid for tid, _ in tokenize(token)]
         if len(ids) > maxlen:
             ids = ids[:maxlen]
             n_truncated += 1

@@ -1,0 +1,227 @@
+"""Training CLI: hypernetwork training end to end.
+
+Usage:
+  python -m zett_tpu_torch.training CONFIG.json [--device {cuda,cpu}]
+  python -m zett_tpu_torch.training --model MODEL_DIR --train-data DIR --output-dir OUT [...]
+
+The same JSON configs as ``python -m zett_tpu.training`` (``_base``
+inheritance included) map onto ``TrainingConfig``, ``DataConfig`` and
+``HypernetConfig``. Runs on the card unless ``--device cpu`` is given, and
+raises when there is none. Metrics stream to ``<output_dir>/metrics.jsonl``;
+the trained hypernet is written to ``<output_dir>/final/`` in the transfer
+CLI's checkpoint format (``hn_config.json``, ``params.npz``,
+``tokenizer.json``), so ``python -m zett_tpu_torch.transfer --checkpoint
+OUT/final`` reads it. Training text comes from ``<train_directory>/<lang>.txt``
+or an in-memory ``texts_by_lang``. Eval (``valid_directory``) is not ported
+and is skipped with a notice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def load_config_file(path: str) -> dict:
+    """A JSON config with its ``_base`` chain resolved."""
+    with open(path) as f:
+        config = json.load(f)
+    base_name = config.pop("_base", None)
+    config.pop("_diff_note", None)
+    if base_name:
+        base = load_config_file(os.path.join(os.path.dirname(path), base_name))
+        base.update(config)
+        config = base
+    return config
+
+
+def load_configs(config: dict):
+    from ..data import DataConfig
+    from ..models.hypernet import HypernetConfig
+    from .config import TrainingConfig
+
+    def pick(cls):
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in config.items() if k in known})
+
+    return pick(TrainingConfig), pick(DataConfig), pick(HypernetConfig)
+
+
+def load_language_list(path: str):
+    """One code per line, or "code,weight" lines whose weights become the
+    (normalized) sampling probabilities."""
+    with open(path) as f:
+        rows = [line.strip() for line in f if line.strip()]
+    if rows and "," in rows[0]:
+        langs = [r.split(",")[0].strip() for r in rows]
+        weights = np.asarray([float(r.split(",")[1]) for r in rows])
+        return langs, weights / weights.sum()
+    return rows, None
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    device_p = argparse.ArgumentParser(add_help=False)
+    device_p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    if argv and argv[0].endswith(".json"):
+        args, rest = device_p.parse_known_args(argv[1:])
+        if rest:
+            raise SystemExit(f"unknown arguments after config file: {rest}")
+        config = load_config_file(argv[0])
+        run_name = os.path.splitext(os.path.basename(argv[0]))[0]
+    else:
+        p = argparse.ArgumentParser(description=__doc__, parents=[device_p],
+                                    formatter_class=argparse.RawDescriptionHelpFormatter)
+        p.add_argument("--config", default=None)
+        p.add_argument("--model", dest="model_dir")
+        p.add_argument("--train-data", dest="train_directory")
+        p.add_argument("--valid-data", dest="valid_directory", default=None)
+        p.add_argument("--output-dir", dest="output_dir", default="out")
+        p.add_argument("--steps", type=int, default=None)
+        p.add_argument("--batch-size", dest="batch_size", type=int, default=128)
+        p.add_argument("--num-workers", type=int, default=0)
+        p.add_argument("--langs", nargs="*", default=["en"])
+        args = p.parse_args(argv)
+        config = {}
+        if args.config:
+            with open(args.config) as f:
+                config = json.load(f)
+        for k, v in vars(args).items():
+            if v is not None and k not in ("config", "device"):
+                config[k] = v
+        run_name = os.path.basename(config.get("output_dir", "run"))
+    return run_training(config, run_name, device=args.device)
+
+
+def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
+    """``zett_tpu/training/__main__.py:102`` without distributed init, eval,
+    trackers, cost analysis, resume, profiling and preemption. Returns
+    (trainer, history)."""
+    from ..data import Collator, TrainDataset
+    from ..models.backbones.gpt2 import GPT2Config
+    from ..models.backbones.hf_io import load_hf_state_dict
+    from ..models.backbones.registry import IN_EMBEDDING_KEYS, check_supported, is_output_tied
+    from ..tokenization.convert import convert_to_byte_level, is_byte_level
+    from ..tokenization.core import Tokenizer
+    from ..transfer.__main__ import resolve_device
+    from .engine import Trainer
+
+    dev = resolve_device(device)
+    train_cfg, data_cfg, hn_cfg = load_configs(config)
+    if data_cfg.use_passthrough_hypernet:
+        raise NotImplementedError("the passthrough hypernet (n-shot runs) is not ported")
+    os.makedirs(train_cfg.output_dir, exist_ok=True)
+
+    model_dir = config["model_dir"]
+    with open(os.path.join(model_dir, "config.json")) as f:
+        bb_config_json = json.load(f)
+    model_type = bb_config_json["model_type"]
+    check_supported(model_type)
+    bb_config = GPT2Config.from_hf(bb_config_json)
+    bb_state = load_hf_state_dict(model_dir)
+
+    reference = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    if not is_byte_level(reference.to_json()):
+        reference, _ = convert_to_byte_level(reference)
+    hn_tokenizer = reference.copy()
+
+    emb = bb_state[IN_EMBEDDING_KEYS[model_type]]
+    hn_cfg = dataclasses.replace(hn_cfg, n_embd=int(emb.shape[1]),
+                                 n_langs=max(len(data_cfg.langs), 1),
+                                 vocab_size=len(hn_tokenizer) + 256)
+    if "separate_out_embeddings" not in config:
+        hn_cfg = dataclasses.replace(
+            hn_cfg, separate_out_embeddings=not is_output_tied(model_type, bb_config_json))
+
+    langs_cfg = config.get("langs", data_cfg.langs)
+    if isinstance(langs_cfg, str):
+        langs, lang_probs = load_language_list(langs_cfg)
+    else:
+        langs, lang_probs = [lang for lang in langs_cfg if lang != "all"], None
+    if len(langs) == 1:
+        lang_probs = np.array([1.0])
+    elif lang_probs is None and config.get("language_metadata_csv"):
+        raise NotImplementedError("language_metadata_csv is not ported; give weights in langs")
+    mix_languages = bool(config.get("mix_languages", data_cfg.mix_languages))
+    data_cfg = dataclasses.replace(data_cfg, langs=(["all"] + langs) if mix_languages else langs,
+                                   mix_languages=mix_languages)
+    hn_cfg = dataclasses.replace(hn_cfg, n_langs=len(data_cfg.langs))
+
+    batch_size = config.get("batch_size", 128)
+    dataset = TrainDataset(
+        langs=langs, language_probs=lang_probs, batch_size=batch_size,
+        block_size=data_cfg.block_size, train_directory=config.get("train_directory"),
+        texts_by_lang=config.get("texts_by_lang"),
+        eos_token=reference.all_special_tokens[0] if reference.all_special_tokens else None,
+        mix_languages=mix_languages, seed=train_cfg.seed,
+    )
+    fixed_tokenizer = None
+    if not data_cfg.do_tokenizer_sampling:
+        target_tok_path = config.get("target_tokenizer")
+        if target_tok_path:
+            tok_file = (os.path.join(target_tok_path, "tokenizer.json")
+                        if os.path.isdir(target_tok_path) else target_tok_path)
+            fixed_tokenizer, _ = convert_to_byte_level(
+                Tokenizer.from_file(tok_file), match_special_tokens_to=reference,
+                make_whitespace_consistent=True)
+        else:
+            fixed_tokenizer = reference.copy()
+    n_initial = config.get("n_initial_texts", 256)
+    initial_texts = ({"all": dataset.get_texts(n_initial)} if mix_languages
+                     else dataset.get_texts_in_each_language(n_initial))
+    collator = Collator(reference=reference, hn_tokenizer=hn_tokenizer, data_config=data_cfg,
+                        batch_size=batch_size, initial_texts=initial_texts,
+                        fixed_tokenizer=fixed_tokenizer, seed=train_cfg.seed)
+    identity_collator = None
+    if train_cfg.identity_steps > 0:
+        id_data_cfg = dataclasses.replace(
+            data_cfg, do_tokenizer_sampling=False,
+            n_token_subsample=(data_cfg.identity_n_subsample
+                               if data_cfg.identity_n_subsample is not None
+                               else data_cfg.n_token_subsample))
+        identity_collator = Collator(reference=reference, hn_tokenizer=hn_tokenizer,
+                                     data_config=id_data_cfg, batch_size=batch_size,
+                                     fixed_tokenizer=reference.copy(),
+                                     lang_code=data_cfg.langs[0], seed=train_cfg.seed)
+
+    trainer = Trainer(hn_config=hn_cfg, backbone_config=bb_config, backbone_state=bb_state,
+                      model_type=model_type, train_config=train_cfg, device=dev,
+                      hn_pad_token_id=hn_cfg.pad_token_id)
+
+    num_workers = config.get("num_workers", 0)
+    if num_workers > 0:
+        from torch.utils.data import DataLoader
+
+        batch_iter = iter(DataLoader(dataset, batch_size=1, num_workers=num_workers,
+                                     collate_fn=collator, persistent_workers=True))
+    else:
+        batch_iter = (collator([item]) for item in dataset)
+    identity_iter = None
+    if identity_collator is not None:
+        identity_iter = (identity_collator(None, for_identity_step=True)
+                         for _ in itertools.count())
+
+    if config.get("valid_directory") or config.get("valid_texts_by_lang"):
+        print("eval is not ported: valid_directory / extra_valid_tokenizers are skipped")
+
+    metrics_path = os.path.join(train_cfg.output_dir, "metrics.jsonl")
+
+    def on_log(step, metrics):
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps({"run": run_name, **metrics}) + "\n")
+        print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
+                                          if isinstance(v, (int, float))), flush=True)
+
+    history = trainer.fit(batch_iter, identity_iter, on_log=on_log)
+    trainer.save_checkpoint(os.path.join(train_cfg.output_dir, "final"), tokenizer=hn_tokenizer)
+    return trainer, history
+
+
+if __name__ == "__main__":
+    main()

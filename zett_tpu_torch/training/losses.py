@@ -1,0 +1,72 @@
+"""Training losses (counterpart of ``zett_tpu/training/losses.py``): the
+causal LM loss and the lexical loss that anchors single-source-token
+predictions to the source embeddings. Chunked losses and the MLM loss are
+not ported."""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import EPSILON
+
+
+def _cross_entropy(logits, labels):
+    """optax.softmax_cross_entropy_with_integer_labels: logsumexp - logit."""
+    label_logits = logits.gather(-1, labels[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - label_logits
+
+
+def lm_loss(logits, labels, attention_mask, loss_mode: str):
+    """Mean next-token cross entropy over attended positions
+    (``losses.py:183``, clm). logits (B, L, V) f32."""
+    if loss_mode == "clm":
+        shift_logits = logits[..., :-1, :]
+        shift_labels = labels[..., 1:].long().clamp(min=0)
+        shift_mask = attention_mask[..., :-1].to(logits.dtype)
+        loss = _cross_entropy(shift_logits, shift_labels) * shift_mask
+        return loss.sum() / shift_mask.sum()
+    if loss_mode == "mlm":
+        raise NotImplementedError("the MLM loss is not ported")
+    raise ValueError(f"unknown loss mode {loss_mode}")
+
+
+HUBER_DELTA = 1e-3
+HUBER_CORRECTION = 30
+
+
+def _huber(x, y, delta):
+    """optax.huber_loss."""
+    abs_errors = (x - y).abs()
+    quadratic = torch.clamp(abs_errors, max=delta)
+    linear = abs_errors - quadratic
+    return 0.5 * quadratic * quadratic + delta * linear
+
+
+def _distance_fn(kind: str):
+    if kind == "mse":
+        return lambda x, y: torch.square(x - y).sum(dim=-1)
+    if kind == "rmse":
+        return lambda x, y: torch.linalg.vector_norm(x - y, dim=-1)
+    if kind == "huber":
+        return lambda x, y: (_huber(x, y, HUBER_DELTA).sum(dim=-1)
+                             / HUBER_DELTA / HUBER_CORRECTION)
+    raise ValueError(f"unknown lexical loss kind {kind}")
+
+
+def lexical_loss(predicted_in, predicted_out, target_in, target_out, overlap_mask,
+                 kind: str = "mse"):
+    """Distance of the predictions of single-source-token targets to their
+    source embeddings, normalized by the targets' mean norm
+    (``losses.py:231``)."""
+    distance = _distance_fn(kind)
+    mask = overlap_mask.to(predicted_in.dtype)
+
+    def one(pred, target):
+        loss = (distance(pred, target) * mask).sum()
+        return loss / (overlap_mask.sum() + EPSILON) / torch.linalg.vector_norm(
+            target, dim=1).mean()
+
+    loss_in = one(predicted_in, target_in)
+    if target_out is not None and predicted_out is not None:
+        return (loss_in + one(predicted_out, target_out)) / 2.0
+    return loss_in
