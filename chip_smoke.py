@@ -32,7 +32,26 @@ Phases (any failure exits non-zero and prints no result):
      seeded source model): finite losses, both kernels launched 3 times per
      step, frozen weights unchanged, a transfer from the written final/;
      times per step, host collate time, peak memory and a profile of one
-     train step.
+     train step;
+  8. kernels 4 and 5 (the tier-2 attention block and the tier-1 core with
+     key bias) against their plain versions, bf16 and f32, with and without
+     key bias, a ragged batch and all-padding rows, at the transfer's B =
+     16384 (L = 8 and the bucketed L = 5) and the eval's fixed vocab
+     (B = 32896, L = 8); times beside bounds, plain versions and the
+     library calls; attention_block_fused's backward card vs CPU;
+  9. the Hypernet at configs/zeroshot/gpt2_en_priors_inter_token_attn.json's
+     widths and at a hidden_act="gelu" variant of gpt2_en on 2048 rows, card
+     against CPU, f32: inference outputs (and which kernels ran), the
+     training route's loss and every parameter gradient;
+ 10. transfer through the CLI at the prior + inter-token-attention config
+     (bf16, gpt_neox0001, batch 16384): kernel 4 on every layer of every
+     batch, kernel 1 on none; the hypernet per 32k vocab, the device
+     breakdown;
+ 11. training through the CLI at that config with in-training eval (step 0
+     and the last step; gpt_neox0001 and en_raw as fixed tokenizers with
+     cached embeddings, sampled validation tokenizers, held-out paragraphs):
+     finite losses and eval rows, one embedding pass per fixed tokenizer per
+     eval, eval time per fixed tokenizer, peak memory.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -65,6 +84,14 @@ GPT2_EN = dict(
     n_extra_tokens=256, rescale_embeddings=True, predict_bias=True, n_embd=768,
     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
 )
+# configs/zeroshot/gpt2_en_priors_inter_token_attn.json's hypernet, and the
+# erf-gelu variant of gpt2_en (what reference checkpoints load with)
+PITA = dict(GPT2_EN, embed_target_priors=True, add_inter_token_attention=True,
+            inter_token_attention_bias_by_priors=True, n_inter_token_blocks=16)
+GPT2_EN_GELU = dict(GPT2_EN, hidden_act="gelu")
+# kernels that no main path runs: no JAX path reaches the tier-1 core (only
+# its tests call merged_attention_pallas); its row reports 0 launches
+OFF_PATH = ("merged_attention",)
 
 
 def log(*args):
@@ -413,10 +440,10 @@ def phase_train_kernels():
 
 
 # --------------------------------------------------------------------- phase 6
-def phase_hypernet_train():
+def phase_hypernet_train(config=GPT2_EN):
     """The hypernet's training route (inference=False: torch projections
-    around kernels 2 and 3) at gpt2_en's widths on 2048 rows, f32: loss and
-    every parameter gradient on the card against the CPU's (plain
+    around kernels 2 and 3) at ``config``'s widths on 2048 rows, f32: loss
+    and every parameter gradient on the card against the CPU's (plain
     versions), from the same weights and inputs."""
     from zett_tpu_torch.models import Hypernet, HypernetConfig
     from zett_tpu_torch.models.convert import flax_to_torch
@@ -424,7 +451,7 @@ def phase_hypernet_train():
 
     rng = np.random.default_rng(SEED + 2)
     vocab = 50001
-    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    cfg = HypernetConfig(**config, original_vocab_size=vocab)
     cpu_model = Hypernet(cfg, dtype=torch.float32)
     cpu_model.load_state_dict(flax_to_torch(flax_layout(cpu_model, rng)))
     gpu_model = Hypernet(cfg, dtype=torch.float32)
@@ -433,11 +460,12 @@ def phase_hypernet_train():
     src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
     sf = torch.from_numpy(hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen,
                                           cfg.n_extra_tokens))
+    priors = torch.from_numpy(hypernet_priors(rng, 2048))
     w_in = torch.from_numpy(rng.standard_normal((2048, 768), dtype=np.float32))
     w_b = torch.from_numpy(rng.standard_normal(2048, dtype=np.float32))
 
     def loss_of(model, dev):
-        e, _, b = model(sf.to(dev), None, torch.from_numpy(src).to(dev), None,
+        e, _, b = model(sf.to(dev), priors.to(dev), torch.from_numpy(src).to(dev), None,
                         deterministic=True, inference=False)
         return (e * w_in.to(dev)).sum() + (b * w_b.to(dev)).sum()
 
@@ -479,8 +507,12 @@ def phase_hypernet_train():
 TRAIN_TEXT_SOURCES = ("SURVEY.md", "PAPER.md", "PAPERS.md", "VERDICT.md")
 
 
-def write_training_text(directory):
-    """en.txt from Markdown files of the repo, one paragraph per line."""
+def write_training_text(directory, valid_directory=None, hold_out_every=0):
+    """en.txt from Markdown files of the repo, one paragraph per line; with
+    ``hold_out_every`` = k, every k-th paragraph goes to
+    ``valid_directory``/en.txt instead. Returns (paragraphs, characters) of
+    the training text, or (training, held-out) paragraph counts with a
+    hold-out."""
     import glob
 
     paths = [os.path.join(REPO, f) for f in TRAIN_TEXT_SOURCES]
@@ -492,9 +524,17 @@ def write_training_text(directory):
                 line = " ".join(part.strip() for part in block.splitlines() if part.strip())
                 if line:
                     paragraphs.append(line)
+    if hold_out_every:
+        held = paragraphs[hold_out_every - 1::hold_out_every]
+        paragraphs = [p for i, p in enumerate(paragraphs) if (i + 1) % hold_out_every]
+        os.makedirs(valid_directory, exist_ok=True)
+        with open(os.path.join(valid_directory, "en.txt"), "w") as f:
+            f.write("\n".join(held) + "\n")
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "en.txt"), "w") as f:
         f.write("\n".join(paragraphs) + "\n")
+    if hold_out_every:
+        return len(paragraphs), len(held)
     return len(paragraphs), sum(map(len, paragraphs))
 
 
@@ -534,7 +574,7 @@ def phase_training(model_dir):
     steps = config["steps"]
     n_layers = config["num_hidden_layers"]
     expected = {"attention_core": steps * n_layers, "attention_core_bwd": steps * n_layers,
-                "encoder_layer": 0}
+                "encoder_layer": 0, "attention_block": 0, "merged_attention": 0}
     kinds = [r["kind"] for r in trainer.records]
     log(f"  trained {steps} steps ({kinds.count('identity')} identity) in {wall:.3f} s wall, "
         f"launches {launches} (expected {expected})")
@@ -670,14 +710,30 @@ def hypernet_inputs(rng, n, vocab, maxlen, n_extra):
     return sf
 
 
-def phase_hypernet():
+def hypernet_priors(rng, n):
+    """Unigram-log-prob-like priors, the padding fill on every 97th row."""
+    from zett_tpu_torch.constants import NEGATIVE_INF_FILL_VALUE
+
+    priors = (rng.standard_normal(n) * 2.0 - 9.0).astype(np.float32)
+    priors[3::97] = NEGATIVE_INF_FILL_VALUE
+    return priors
+
+
+def phase_hypernet(config=GPT2_EN, launched=None):
+    """The Hypernet's inference route on 2048 rows at ``config``'s widths,
+    card against CPU, f32; ``launched`` maps each kernel to the launches the
+    forward must count (default: kernel 1 on the non-CLS layers, kernel 2
+    on the CLS layer)."""
     from zett_tpu_torch.models import Hypernet, HypernetConfig
     from zett_tpu_torch.models.convert import flax_to_torch
     from zett_tpu_torch.ops import _build
 
     rng = np.random.default_rng(SEED)
     vocab = 50001
-    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    cfg = HypernetConfig(**config, original_vocab_size=vocab)
+    n_layers = cfg.num_hidden_layers
+    if launched is None:
+        launched = {"encoder_layer": n_layers - 1, "attention_core": 1, "attention_block": 0}
     cpu_model = Hypernet(cfg, dtype=torch.float32)
     cpu_model.load_state_dict(flax_to_torch(flax_layout(cpu_model, rng)))
     gpu_model = Hypernet(cfg, dtype=torch.float32)
@@ -686,14 +742,16 @@ def phase_hypernet():
     src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
     sf = hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen, cfg.n_extra_tokens)
     sf_t, src_t = torch.from_numpy(sf), torch.from_numpy(src)
+    priors = torch.from_numpy(hypernet_priors(rng, 2048))
     before = dict(_build.launch_counts)
     with torch.inference_mode():
-        got = gpu_model(sf_t.cuda(), None, src_t.cuda())
+        got = gpu_model(sf_t.cuda(), priors.cuda(), src_t.cuda())
         torch.cuda.synchronize()
-        ref = cpu_model(sf_t, None, src_t)
-    if _build.launch_counts["encoder_layer"] == before["encoder_layer"] or \
-            _build.launch_counts["attention_core"] == before["attention_core"]:
-        raise AssertionError("the Hypernet on the card did not launch both kernels")
+        counts = {k: _build.launch_counts[k] - before[k] for k in launched}
+        ref = cpu_model(sf_t, priors, src_t)
+    log(f"  launches of one forward: {counts} (expected {launched})")
+    if counts != launched:
+        raise AssertionError(f"the Hypernet on the card launched {counts}, expected {launched}")
     for name, g, r in (("emb_in", got[0], ref[0]), ("bias", got[2], ref[2])):
         g, r = g.float().cpu().numpy(), r.float().numpy()
         err = np.abs(g - r).max()
@@ -742,10 +800,10 @@ def write_source_model(path, vocab, rng):
     return sd["transformer.wte.weight"]
 
 
-def write_checkpoint(path, vocab, rng):
+def write_checkpoint(path, vocab, rng, config=GPT2_EN):
     from zett_tpu_torch.models import Hypernet, HypernetConfig
 
-    cfg = HypernetConfig(**GPT2_EN, original_vocab_size=vocab)
+    cfg = HypernetConfig(**config, original_vocab_size=vocab)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "hn_config.json"), "w") as f:
         json.dump({**cfg.to_dict(), "dtype": "bfloat16"}, f)
@@ -759,9 +817,11 @@ def write_checkpoint(path, vocab, rng):
 def hypernet_batches(ckpt, model_dir, target_path, batch_size):
     """The hypernet and its inputs for the target's whole vocab, batched and
     length-bucketed as the transfer runs it."""
+    from zett_tpu_torch.constants import NEGATIVE_INF_FILL_VALUE
     from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
     from zett_tpu_torch.tokenization.convert import convert_to_byte_level
     from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.tokenization.models import Unigram
     from zett_tpu_torch.tokenization.surface_forms import get_surface_form_matrix
     from zett_tpu_torch.transfer.__main__ import load_hypernet
 
@@ -771,6 +831,11 @@ def hypernet_batches(ckpt, model_dir, target_path, batch_size):
                                       match_special_tokens_to=source_tok,
                                       make_whitespace_consistent=True)
     sf, _ = get_surface_form_matrix(target, hypernet.config.hn_surface_maxlen, source_tok)
+    priors = np.zeros(len(target), dtype=np.float32)
+    if isinstance(target.model, Unigram):  # as transfer/core.py computes them
+        scores = np.asarray(target.model.get_scores(), dtype=np.float32)
+        priors[:] = NEGATIVE_INF_FILL_VALUE
+        priors[: len(scores)] = scores
     wte = load_hf_state_dict(model_dir)["transformer.wte.weight"]
     src = torch.cat([wte, wte.new_zeros((-len(wte)) % 128, wte.shape[1])]).cuda()
     maxlen = sf.shape[1]
@@ -781,16 +846,17 @@ def hypernet_batches(ckpt, model_dir, target_path, batch_size):
     batches = []
     for chunk in order:
         w = min(-(-int(eff[chunk].max()) // 4) * 4, maxlen)
-        batches.append(torch.from_numpy(sf[chunk][:, :w].astype(np.int64)).cuda())
+        batches.append((torch.from_numpy(sf[chunk][:, :w].astype(np.int64)).cuda(),
+                        torch.from_numpy(priors[chunk]).cuda()))
 
     def run():
         with torch.inference_mode():
-            for b in batches:
-                hypernet(b, None, src)
+            for b, p in batches:
+                hypernet(b, p, src)
 
     with torch.inference_mode():
-        hypernet(batches[0], None, src)  # warm-up
-    return run, len(target), [tuple(b.shape) for b in batches]
+        hypernet(*batches[0], src)  # warm-up
+    return run, len(target), [tuple(b.shape) for b, _ in batches]
 
 
 def device_breakdown(run, top=12):
@@ -834,7 +900,10 @@ def device_breakdown(run, top=12):
     return busy_ms, wall_ms, by_name
 
 
-def phase_transfer():
+def phase_transfer(config=GPT2_EN, tag="ckpt"):
+    """Zero-shot transfer through the CLI at ``config`` (bf16 checkpoint,
+    gpt_neox0001 target, batch 16384) from phase 4's seeded source model.
+    Returns (launches, wall s, hypernet ms for the whole vocab, vocab)."""
     from zett_tpu_torch.models.backbones.hf_io import load_safetensors
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.tokenization.core import Tokenizer
@@ -844,11 +913,11 @@ def phase_transfer():
     source_tok = Tokenizer.from_file(
         os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json"))
     vocab = len(source_tok)
-    model_dir, ckpt, out = (os.path.join(WORK, d) for d in ("gpt2", "ckpt", "out"))
+    model_dir, ckpt, out = (os.path.join(WORK, d) for d in ("gpt2", tag, f"{tag}_out"))
     target_path = os.path.join(REPO, "artifacts", "tokenizers", "gpt_neox0001", "tokenizer.json")
     batch = 16384
     wte = write_source_model(model_dir, vocab, rng)
-    cfg = write_checkpoint(ckpt, vocab, rng)
+    cfg = write_checkpoint(ckpt, vocab, rng, config)
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -878,8 +947,13 @@ def phase_transfer():
         if not torch.equal(emb[target.token_to_id(token)], wte[source_tok.token_to_id(token)]):
             raise AssertionError(f"special token {token!r} row is not the source row")
     n_batches = -(-len(target) // batch)
-    expected = {"encoder_layer": n_batches * (cfg.num_hidden_layers - 1),
-                "attention_core": n_batches, "attention_core_bwd": 0}
+    n_layers = cfg.num_hidden_layers
+    expected = dict.fromkeys(_build.SOURCES, 0)
+    if cfg.add_inter_token_attention:  # no CLS-only layer: kernel 4 on every layer
+        expected["attention_block"] = n_batches * n_layers
+    else:
+        expected["encoder_layer"] = n_batches * (n_layers - 1)
+        expected["attention_core"] = n_batches
     log(f"  transfer: {len(target)} tokens in {wall:.3f} s wall, launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -899,7 +973,284 @@ def phase_transfer():
         f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
         f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
     device_breakdown(run)
-    return launches, wall, ms
+    return launches, wall, ms, n_vocab
+
+
+# --------------------------------------------------------------------- phase 8
+def block_bias(B, L, dtype, gen):
+    """Prior-like key bias (B, L): Unigram log-probs, the padding fill on
+    the last key of every 13th row."""
+    kb = torch.randn(B, L, generator=gen) * 2.0 - 9.0
+    kb[::13, -1] = -100000.0
+    return kb.to(dtype).cuda()
+
+
+def check_kernel4(B, L, dtype, with_bias, gen, timed):
+    """Kernel 4 (the tier-2 block) against its plain version; with
+    ``timed``, its median time beside the plain version's, the library
+    calls' (F.linear x3 + SDPA + F.linear) and the bound."""
+    import torch.nn.functional as F
+
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.attention_block import attention_block, attention_block_reference
+
+    h, H = 12, 768
+    args = layer_inputs(B, L, dtype, gen)
+    x, mask, w = args[0], args[1], args[2:10]
+    kb = block_bias(B, L, dtype, gen) if with_bias else None
+    tag = f"kernel 4 B={B} L={L} {str(dtype)[6:]} {'key bias' if with_bias else 'no bias'}"
+    before = _build.launch_counts["attention_block"]
+    got = attention_block(x, mask, kb, *w, num_heads=h)
+    torch.cuda.synchronize()
+    if _build.launch_counts["attention_block"] != before + 1:
+        raise AssertionError("attention_block did not count its launch")
+    with torch.no_grad():
+        ref = attention_block_reference(x, mask, kb, *w, h)
+    err = compare(got, ref, dtype, tag)
+    del got, ref
+    if not timed:
+        return None
+    ms = median_ms(lambda: attention_block(x, mask, kb, *w, num_heads=h))
+    with torch.no_grad():
+        plain_ms = median_ms(lambda: attention_block_reference(x, mask, kb, *w, h), reps=5)
+    wq, bq, wk, bk, wv, bv, wo, bo = w
+    wt = [t.t().contiguous() for t in (wq, wk, wv, wo)]
+    amask = sdpa_mask(mask, kb, dtype)
+    sdpa = F.scaled_dot_product_attention
+
+    def library():
+        q, k, v = (F.linear(x, wi, bi).view(B, L, h, 64).transpose(1, 2)
+                   for wi, bi in zip(wt[:3], (bq, bk, bv)))
+        ctx = sdpa(q, k, v, attn_mask=amask).transpose(1, 2).reshape(B, L, H)
+        return F.linear(ctx, wt[3], bo)
+
+    with torch.no_grad():
+        library_ms = median_ms(library)
+    size = torch.finfo(dtype).bits // 8
+    M = B * L
+    flops = 2 * M * 4 * H * H + 2 * 2 * B * h * L * L * 64
+    nbytes = (2 * M * H + 4 * H * H + 4 * H + (B * L if with_bias else 0)) * size + B * L * 4
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear x3 + SDPA + F.linear "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def sdpa_mask(mask, kb, dtype):
+    """The key mask (and bias) as SDPA's float mask (B, 1, 1, L); a masked
+    key gets the lowest finite value, as the port's select does."""
+    low = torch.finfo(dtype).min
+    add = kb if kb is not None else torch.zeros(mask.shape, dtype=dtype, device=mask.device)
+    return torch.where(mask, add, torch.tensor(low, dtype=dtype, device=mask.device))[:, None, None, :]
+
+
+def check_kernel5(B, L, dtype, with_bias, gen, timed):
+    """Kernel 5 (the tier-1 core with key bias) against its plain version;
+    with ``timed``, times beside the plain version, SDPA with the same float
+    mask, and the bound."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.attention_core import merged_attention, merged_attention_reference
+
+    h, d = 12, 64
+    qm, km, vm = (torch.randn(B, L * h, d, generator=gen).to(dtype).cuda() for _ in range(3))
+    mask = torch.rand(B, L, generator=gen) > 0.3
+    mask[:, 0] = True
+    mask[1::97] = False  # all-padding surface forms
+    mask = mask.cuda()
+    kb = block_bias(B, L, dtype, gen) if with_bias else None
+    kmask = mask.repeat_interleave(h, dim=-1)
+    kbm = kb.repeat_interleave(h, dim=-1) if with_bias else None
+    tag = f"kernel 5 B={B} Lq*h=Lk*h={L * h} {str(dtype)[6:]} {'key bias' if with_bias else 'no bias'}"
+    before = _build.launch_counts["merged_attention"]
+    got = merged_attention(qm, km, vm, kmask, kbm, num_heads=h)
+    torch.cuda.synchronize()
+    if _build.launch_counts["merged_attention"] != before + 1:
+        raise AssertionError("merged_attention did not count its launch")
+    ref = merged_attention_reference(qm, km, vm, kmask, kbm, num_heads=h)
+    err = compare(got, ref, dtype, tag)
+    del got, ref
+    if not timed:
+        return None
+    ms = median_ms(lambda: merged_attention(qm, km, vm, kmask, kbm, num_heads=h))
+    plain_ms = median_ms(lambda: merged_attention_reference(qm, km, vm, kmask, kbm, num_heads=h),
+                         reps=5)
+    q4, k4, v4, _ = sdpa_layout(qm, km, vm, mask, L, L)
+    amask = sdpa_mask(mask, kb, dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = median_ms(lambda: sdpa(q4, k4, v4, attn_mask=amask))
+    size = torch.finfo(dtype).bits // 8
+    flops = 2 * 2 * B * h * L * L * d
+    nbytes = 4 * B * L * h * d * size + B * L * h * 4 + (B * L * h * size if with_bias else 0)
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_block_backward(gen, B=2048, L=8, h=12):
+    """attention_block_fused's backward without key bias on the card (torch
+    matmuls around kernels 2 and 3) against the CPU's (the same around their
+    plain versions), f32, ragged mask with all-padding rows: every input's
+    gradient within 2e-4 of its scale (the key bias's, whose exact value is
+    0, judged at 1% of the largest)."""
+    from zett_tpu_torch.ops.attention_block import attention_block_fused
+
+    args = layer_inputs(B, L, torch.float32, gen)
+    x, mask, w = args[0], args[1], args[2:10]
+    cot = torch.randn(B, L, x.shape[-1], generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).clone().requires_grad_() for t in (x, *w)]
+        out = attention_block_fused(leaves[0], mask.float().to(dev), None, *leaves[1:], h, True,
+                                    False)
+        (out * cot.to(dev)).sum().backward()
+        grads[dev] = [leaf.grad.cpu() for leaf in leaves]
+    top = max(float(g.abs().max()) for g in grads["cpu"])
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-2 * top)
+                for a, b in zip(grads["cuda"], grads["cpu"]))
+    log(f"  attention_block_fused backward B={B} L={L} float32, card vs CPU: worst max abs "
+        f"error / scale {worst:.3g} over x and the 8 weights (tol 2e-4)")
+    if worst > 2e-4:
+        raise AssertionError(f"attention_block_fused gradients differ: {worst}")
+
+
+def phase_block_kernels():
+    """Kernels 4 and 5 at the transfer's B = 16384 (L = 8, and L = 5, the
+    bucketed width below it) and the eval's fixed vocab (gpt_neox0001's
+    32769 tokens padded to 32896 rows, L = 8), plus a ragged batch."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, L in ((16384, 8), (16384, 5), (32896, 8)):
+            for with_bias in (False, True):
+                timed = dtype == torch.bfloat16
+                r4 = check_kernel4(B, L, dtype, with_bias, gen, timed)
+                r5 = check_kernel5(B, L, dtype, with_bias, gen, timed)
+                if timed and (B, L) == (16384, 8):
+                    # the path's block has a mask and no key bias; the tier-1
+                    # core's row is the one with its key bias
+                    if not with_bias:
+                        results["attention_block"] = r4
+                    else:
+                        results["merged_attention"] = r5
+            torch.cuda.empty_cache()
+        for with_bias in (False, True):
+            check_kernel4(1001, 7, dtype, with_bias, gen, timed=False)
+            check_kernel5(1001, 7, dtype, with_bias, gen, timed=False)
+    check_block_backward(gen)
+    return results
+
+
+# -------------------------------------------------------------------- phase 11
+def phase_training_eval(model_dir):
+    """python -m zett_tpu_torch.training at the prior + inter-token-attention
+    config with phase 7's widths and text (every 8th paragraph held out as
+    the validation set), eval at step 0 and at the last step."""
+    import zett_tpu_torch.evaluation as evaluation
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.training import engine
+    from zett_tpu_torch.training.__main__ import load_config_file
+    from zett_tpu_torch.training.__main__ import main as train_main
+
+    train_dir, valid_dir = os.path.join(WORK, "pita_train"), os.path.join(WORK, "pita_valid")
+    out = os.path.join(WORK, "pita_out")
+    shutil.rmtree(out, ignore_errors=True)  # metrics.jsonl is appended to
+    n_train, n_valid = write_training_text(train_dir, valid_dir, hold_out_every=8)
+    config = load_config_file(os.path.join(REPO, "configs", "zeroshot",
+                                           "gpt2_en_priors_inter_token_attn.json"))
+    tokenizers = [os.path.join(REPO, "artifacts", "tokenizers", t)
+                  for t in ("gpt_neox0001", "en_raw")]
+    steps = 4
+    # batch_size 64 (not 128): at 128 the train step's backward ran out of
+    # the card's 80 GB (74.5 GiB allocated when the CLM loss's gradient
+    # asked for 1.99 GiB more)
+    reduced = dict(model_dir=model_dir, train_directory=train_dir, valid_directory=valid_dir,
+                   output_dir=out, steps=steps, identity_steps=1, warmup_steps=[1, 2],
+                   batch_size=64,
+                   random_warmup_steps=0, logging_steps=1, save_steps=0, num_workers=0,
+                   eval_steps=steps, eval_at_step_zero=True, extra_valid_tokenizers=tokenizers)
+    config.update(reduced)
+    config_path = os.path.join(WORK, "gpt2_en_pita_smoke.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+    log(f"  {n_train} training and {n_valid} held-out paragraphs; overrides "
+        f"{ {k: v for k, v in reduced.items() if k != 'extra_valid_tokenizers'} }, "
+        f"extra_valid_tokenizers {[os.path.basename(t) for t in tokenizers]}")
+
+    evals = []  # (name, wall s, embedding passes, kernel 4 launches)
+    passes = [0]
+    orig_loop, orig_embed = evaluation.eval_loop, engine.Trainer.compute_embeddings
+
+    def timed_loop(trainer, batches, name="eval", **kw):
+        torch.cuda.synchronize()
+        t0, p0 = time.perf_counter(), passes[0]
+        k0 = _build.launch_counts["attention_block"]
+        result = orig_loop(trainer, batches, name=name, **kw)
+        torch.cuda.synchronize()
+        evals.append((name, time.perf_counter() - t0, passes[0] - p0,
+                      _build.launch_counts["attention_block"] - k0))
+        return result
+
+    def counted_embed(self, b):
+        passes[0] += 1
+        return orig_embed(self, b)
+
+    evaluation.eval_loop, engine.Trainer.compute_embeddings = timed_loop, counted_embed
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer, history = train_main([config_path])
+    finally:
+        evaluation.eval_loop, engine.Trainer.compute_embeddings = orig_loop, orig_embed
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    n_layers = config["num_hidden_layers"]
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    eval_rows = [r for r in rows if any(k.startswith("eval") for k in r)]
+    train_rows = [r for r in rows if r not in eval_rows]
+    losses = [r.get("loss", r.get("identity_loss")) for r in train_rows]
+    log(f"  trained {steps} steps in {wall:.3f} s wall (evals included); logged losses "
+        f"{['%.4f' % x for x in losses]}; peak memory {peak_gb:.2f} GiB")
+    if len(train_rows) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad training rows {train_rows}")
+    names = [f"eval_{os.path.basename(t)}" for t in tokenizers] + ["eval"]
+    # the step-0 row carries no "step" key (as in the JAX CLI)
+    if [r.get("step", 0) for r in eval_rows] != [0, steps]:
+        raise AssertionError(f"eval rows at steps {[r.get('step') for r in eval_rows]}")
+    for r in eval_rows:
+        for name in names:
+            for metric in ("eval_loss", "eval_bpb"):
+                v = r.get(f"{name}/{metric}")
+                if v is None or not math.isfinite(v):
+                    raise AssertionError(f"eval row {r.get('step', 0)}: {name}/{metric} = {v}")
+        log(f"  eval at step {r.get('step', 0)}: " + ", ".join(
+            f"{n} loss {r[n + '/eval_loss']:.4f} bpb {r[n + '/eval_bpb']:.4f}" for n in names))
+    n_sampled = None
+    for name, secs, n_pass, k4 in evals:
+        log(f"  {name}: {secs:.3f} s wall, {n_pass} embedding passes, kernel 4 launches {k4}")
+        if name == "eval":
+            n_sampled = n_pass
+        elif n_pass != 1:
+            raise AssertionError(f"{name}: {n_pass} embedding passes, expected 1 (cached)")
+        if k4 != n_pass * n_layers:
+            raise AssertionError(f"{name}: kernel 4 launched {k4} times for {n_pass} passes")
+    n_evals = len(eval_rows)
+    expected = dict.fromkeys(_build.SOURCES, 0)
+    expected["attention_core"] = expected["attention_core_bwd"] = steps * n_layers
+    expected["attention_block"] = n_evals * (len(tokenizers) + n_sampled) * n_layers
+    log(f"  launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    per_tok = {name: [secs for n, secs, _, _ in evals if n == name] for name in names[:-1]}
+    log(f"  on {CARD}: eval wall per fixed tokenizer (s, step 0 then step {steps}): "
+        + ", ".join(f"{n} {['%.3f' % t for t in ts]}" for n, ts in per_tok.items()))
+    return launches, wall, peak_gb
 
 
 def main():
@@ -936,13 +1287,30 @@ def main():
         log("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet()
         log("phase 4: transfer through the CLI on its default device")
-        transfer_launches, wall, hn_ms = phase_transfer()
+        transfer_launches, wall, hn_ms, _ = phase_transfer()
         log("phase 5: kernels 2 and 3 against their plain versions at the training shapes")
         kernels.update(phase_train_kernels())
         log("phase 6: the hypernet's training route at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet_train()
         log("phase 7: training through the CLI on its default device")
-        train_launches, step_ms, train_wall = phase_training(os.path.join(WORK, "gpt2"))
+        model_dir = os.path.join(WORK, "gpt2")
+        train_launches, step_ms, train_wall = phase_training(model_dir)
+        log("phase 8: kernels 4 and 5 against their plain versions")
+        kernels.update(phase_block_kernels())
+        log("phase 9: hypernet at the prior + inter-token-attention config and at erf-gelu, "
+            "card vs CPU (f32)")
+        n_layers = GPT2_EN["num_hidden_layers"]
+        phase_hypernet(PITA, launched={"attention_block": n_layers, "encoder_layer": 0,
+                                       "attention_core": 0})
+        phase_hypernet_train(PITA)
+        phase_hypernet(GPT2_EN_GELU, launched={"attention_block": n_layers - 1,
+                                               "encoder_layer": 0, "attention_core": 1})
+        phase_hypernet_train(GPT2_EN_GELU)
+        log("phase 10: transfer through the CLI at the prior + inter-token-attention config")
+        pita_launches, pita_wall, pita_ms, pita_vocab = phase_transfer(PITA, tag="pita_ckpt")
+        log("phase 11: training with eval through the CLI at the prior + "
+            "inter-token-attention config")
+        eval_launches, eval_wall, eval_peak = phase_training_eval(model_dir)
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -956,18 +1324,27 @@ def main():
                            "zett_tpu/ops/pallas_attention.py:215"),
         "attention_core_bwd": ("zett_tpu_torch/csrc/attention_core_bwd.cu",
                                "zett_tpu/ops/pallas_attention.py:254"),
+        "attention_block": ("zett_tpu_torch/csrc/attention_block.cu",
+                            "zett_tpu/ops/pallas_attention.py:530"),
+        "merged_attention": ("zett_tpu_torch/csrc/merged_attention.cu",
+                             "zett_tpu/ops/pallas_attention.py:87"),
     }
     rows = []
     for name, (source, replaces) in sources.items():
-        # launches: the main paths' runs, transfer (phase 4) and training (phase 7)
-        n = transfer_launches.get(name, 0) + train_launches.get(name, 0)
-        if n == 0:
+        # launches: the main paths' runs, transfer (phases 4 and 10) and
+        # training (phases 7 and 11)
+        n = sum(run.get(name, 0) for run in (transfer_launches, train_launches, pita_launches,
+                                              eval_launches))
+        if n == 0 and name not in OFF_PATH:
             log(f"{name} never launched on the main paths")
             return 1
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": n, **kernels[name]})
     log(f"transfer_wall_s {wall:.3f} hypernet_ms_per_vocab {hn_ms:.3f} "
-        f"train_step_ms {step_ms:.3f} train_wall_s {train_wall:.3f}")
+        f"train_step_ms {step_ms:.3f} train_wall_s {train_wall:.3f} "
+        f"pita_transfer_wall_s {pita_wall:.3f} pita_hypernet_ms_per_32k "
+        f"{pita_ms * 32768 / pita_vocab:.3f} pita_train_eval_wall_s {eval_wall:.3f} "
+        f"pita_train_eval_peak_gib {eval_peak:.2f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,14 @@ import sys
 import pytest
 import torch
 
-from zett_tpu_torch.ops import _build, attention_core, encoder_layer
+from zett_tpu_torch.ops import (
+    _build,
+    attention_block,
+    attention_block_fused,
+    attention_core,
+    encoder_layer,
+    merged_attention,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "regex", "safetensors",
@@ -46,7 +53,8 @@ def test_port_imports_nothing_forbidden(path):
 @pytest.mark.parametrize("module", ["zett_tpu_torch.transfer.__main__",
                                     "zett_tpu_torch.training.__main__"])
 def test_cli_import_leaves_jax_out(module):
-    code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine; "
+    code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine, "
+            "zett_tpu_torch.evaluation.loop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets')]; "
             "assert not bad, bad")
@@ -97,4 +105,46 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     q = torch.randn(3, 2, 64)
     out = attention_core(q, q, q, torch.ones(3, 2), 2)
     assert out.shape == q.shape
+    assert _build.launch_counts == before
+
+
+@pytest.mark.parametrize("wrapper", ["attention_block", "attention_block_fused",
+                                     "merged_attention"])
+def test_block_and_core_wrappers_raise_off_the_cpu(no_built_kernels, wrapper):
+    """Kernels 4 and 5: a tensor that is not on the CPU goes for the kernel
+    and, with none built, raises without counting a launch."""
+    H, L, B = 128, 4, 2
+    x = torch.empty(B, L, H, device="meta")
+    w, b = torch.empty(H, H, device="meta"), torch.empty(H, device="meta")
+    mask = torch.empty(B, L, device="meta")
+    before = dict(_build.launch_counts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if wrapper == "attention_block":
+            attention_block(x, mask > 0, mask, w, b, w, b, w, b, w, b, num_heads=2)
+        elif wrapper == "attention_block_fused":
+            attention_block_fused(x, mask, None, w, b, w, b, w, b, w, b, 2, True, False)
+        else:
+            q = torch.empty(B, L * 2, 64, device="meta")
+            merged_attention(q, q, q, None, torch.empty(B, L * 2, device="meta"), num_heads=2)
+    assert _build.launch_counts == before
+
+
+def test_block_and_core_take_the_plain_version_on_cpu():
+    """Kernels 4 and 5 on CPU tensors: the plain versions' values, no launch
+    counted."""
+    from zett_tpu_torch.ops import attention_block_reference, merged_attention_reference
+
+    before = dict(_build.launch_counts)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 4, 128, generator=g)
+    mask = torch.rand(3, 4, generator=g) > 0.3
+    kb = torch.randn(3, 4, generator=g)
+    wb = [torch.randn(128, 128, generator=g) * 0.05 if i % 2 == 0 else torch.zeros(128)
+          for i in range(8)]
+    assert torch.equal(attention_block(x, mask, kb, *wb, num_heads=2),
+                       attention_block_reference(x, mask, kb, *wb, 2))
+    q = torch.randn(3, 8, 64, generator=g)
+    km = mask.repeat_interleave(2, -1)
+    assert torch.equal(merged_attention(q, q, q, km, None, num_heads=2),
+                       merged_attention_reference(q, q, q, km, None, num_heads=2))
     assert _build.launch_counts == before

@@ -116,9 +116,9 @@ def test_flax_to_torch_covers_every_parameter():
 
 
 @pytest.mark.parametrize("override", [
-    {"embed_target_priors": True},
-    {"add_inter_token_attention": True},
-    {"hidden_act": "gelu"},
+    {"embed_lang_id": True},
+    {"language_adapter_bottleneck_dim": 8},
+    {"encoder_type": "t5"},
     {"position_embedding_type": "relative"},
     {"num_attention_heads": 4},
 ])

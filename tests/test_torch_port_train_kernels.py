@@ -20,7 +20,7 @@ from zett_tpu.ops.pallas_attention import (
 )
 from zett_tpu_torch.ops import _build
 from zett_tpu_torch.ops.attention_core import (
-    _weights,
+    softmax_weights,
     attention_core_bwd_reference,
     attention_core_reference,
     keep_mask,
@@ -130,7 +130,7 @@ def test_dropout_forward_and_backward_share_the_mask(dtype_name):
     tq, tk, tv, _, tm = tx
     out = attention_core_reference(tq, tk, tv, tm, H, rate, seed)
     keep = keep_mask(seed, 5, 7 * H, 7 * H, rate, "cpu")
-    w, _ = _weights(tq, tk, tm, H)
+    w, _ = softmax_weights(tq, tk, tm, H)
     div = torch.tensor(1 - rate, dtype=tq.dtype)
     manual = torch.einsum("bqk,bkd->bqd", torch.where(keep, w / div, 0).float(),
                           tv.float()).to(tq.dtype)

@@ -2,8 +2,9 @@
 // surface forms: at most 32 query and 32 key positions, head width 64).
 //
 // Shared by encoder_layer.cu (kernel 1, the attention inside a whole encoder
-// layer) and attention_core.cu (kernel 2, the CLS-only core of the last
-// layer). One warp owns one (row, head) pair: it stages that head's q, k and
+// layer), attention_core.cu (kernel 2, the tier-4 core), attention_block.cu
+// (kernel 4, the attention inside the tier-2 block) and merged_attention.cu
+// (kernel 5, the tier-1 core). One warp owns one (row, head) pair: it stages that head's q, k and
 // v rows in shared memory as f32, computes every query-key score, runs the
 // softmax per query and writes the context. Nothing of a row leaves the SM
 // between the score and the context: the score plane never touches device
@@ -12,6 +13,7 @@
 // Numerics follow zett_tpu/ops/pallas_attention.py:39-45 and its merged-head
 // formulation exactly:
 //   scores: f32 accumulation, cast to T, then divided by sqrt(d) in T;
+//   key bias (kernels 4 and 5, when given): added in T after the division;
 //   masking: one select to the lowest finite value of T (never -inf);
 //   softmax in f32 with max subtraction, weights cast to T before PV;
 //   PV: f32 accumulation, cast to T.
@@ -67,10 +69,13 @@ struct AttnArgs {
   const void* k;
   const void* v;
   void* out;
-  const float* mask;  // > 0 means the key is valid
+  const float* mask;  // > 0 means the key is valid; null: every key is valid
   int B, Lq, Lk, h;
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
   long long m_sb, m_sl, m_sh;
+  // additive key bias in T (null: none), indexed like the mask
+  const void* kbias = nullptr;
+  long long kb_sb = 0, kb_sl = 0, kb_sh = 0;
   // dropout of the weights (dropout != 0): see the header note
   int dropout = 0;
   unsigned int seed = 0;
@@ -140,7 +145,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
     sv[j * kRowPad + lane + 32] = Num<T>::to_f(vb[j * a.v_sl + lane + 32]);
   }
   const bool key_ok =
-      lane < Lk && a.mask[b * a.m_sb + lane * a.m_sl + hd * a.m_sh] > 0.0f;
+      lane < Lk && (a.mask == nullptr || a.mask[b * a.m_sb + lane * a.m_sl + hd * a.m_sh] > 0.0f);
   const unsigned valid = __ballot_sync(0xffffffffu, key_ok);
   __syncwarp();
 
@@ -179,13 +184,15 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
 
   const float sqrt_d = sqrtf((float)kHeadDim);
   const float lowest = Num<T>::lowest();
+  const T* kbias = a.kbias ? (const T*)a.kbias + b * a.kb_sb + hd * a.kb_sh : nullptr;
   for (int idx = lane; idx < Lq * Lk; idx += 32) {
     const int i = idx / Lk;
     const int j = idx % Lk;
     float acc = 0.0f;
 #pragma unroll 16
     for (int t = 0; t < kHeadDim; ++t) acc = fmaf(sq[i * kRowPad + t], sk[j * kRowPad + t], acc);
-    const float s = Num<T>::round(Num<T>::round(acc) / sqrt_d);
+    float s = Num<T>::round(Num<T>::round(acc) / sqrt_d);
+    if (kbias) s = Num<T>::round(s + Num<T>::to_f(kbias[j * a.kb_sl]));
     sp[i * (Lk + 1) + j] = ((valid >> j) & 1u) ? s : lowest;
   }
   __syncwarp();

@@ -2,7 +2,7 @@
 
 from .collator import Collator, build_sampled_tokenizer
 from .config import DataConfig
-from .datasets import LanguageStream, TrainDataset
+from .datasets import LanguageStream, TrainDataset, ValidDataset
 
-__all__ = ["Collator", "DataConfig", "LanguageStream", "TrainDataset",
+__all__ = ["Collator", "DataConfig", "LanguageStream", "TrainDataset", "ValidDataset",
            "build_sampled_tokenizer"]

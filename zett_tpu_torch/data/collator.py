@@ -106,6 +106,7 @@ class Collator:
         fixed_tokenizer: Optional[Tokenizer] = None,
         initial_texts: Optional[Dict[str, List[str]]] = None,
         lang_code: Optional[str] = None,
+        is_validation: bool = False,
         seed: Optional[int] = None,
     ):
         self.reference = reference
@@ -113,6 +114,9 @@ class Collator:
         self.cfg = data_config
         self.batch_size = batch_size
         self.lang_code = lang_code
+        # a validation collator samples tokenizers without feeding the
+        # sampler's pool (collator.py:214)
+        self.is_validation = is_validation
         # per-batch rng: each __call__ reseeds from (seed, batch counter) so
         # the randomness of batch k is a pure function of the collator seed
         self._seed = (
@@ -205,7 +209,7 @@ class Collator:
 
         sampled = sampler.sample_tokenizer(
             {t: 1 for t in texts}, n_total, 16, 4, noise_std,
-            pop_prev=True, push_current=True, rng=self.rng,
+            pop_prev=True, push_current=not self.is_validation, rng=self.rng,
         )
         pieces = [p for p, _ in sampled]
         scores = [s for _, s in sampled]

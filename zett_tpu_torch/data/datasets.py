@@ -1,6 +1,6 @@
-"""Training text streams (counterpart of ``zett_tpu/data/datasets.py``):
-per-language infinite packed streams and single-language (or mixed) text
-batches.
+"""Text streams (counterpart of ``zett_tpu/data/datasets.py``): per-language
+infinite packed streams, single-language (or mixed) training batches, and
+the deterministic validation batches.
 
 Sources are ``<lang>.txt`` files (one text per line) under a training
 directory, or in-memory ``texts_by_lang``. The JAX package also reads HF
@@ -11,10 +11,10 @@ does not use: such sources raise.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-from torch.utils.data import IterableDataset, get_worker_info
+from torch.utils.data import Dataset, IterableDataset, get_worker_info
 
 from ..constants import MAX_CHARS_PER_TOKEN
 
@@ -161,3 +161,42 @@ class TrainDataset(IterableDataset):
                 lang = self.langs[int(rng.choice(len(self.langs), p=self.language_probs))]
                 yield {"texts": [next(streams[lang]) for _ in range(self.batch_size)],
                        "lang_code": lang}
+
+
+class ValidDataset(Dataset):
+    """Deterministic map-style dataset of per-language text batches
+    (``datasets.py:254``): the index is a (language, offset) table over
+    each language's full batches in order; a language with fewer texts than
+    one batch keeps one partial batch, padded with empty texts (all-padding
+    rows that count in no loss or bits-per-byte denominator)."""
+
+    def __init__(self, langs: Sequence[str], batch_size: int, n_subsample: Optional[int] = None,
+                 valid_directory: Optional[str] = None,
+                 texts_by_lang: Optional[Dict[str, List[str]]] = None):
+        self.langs = [l for l in langs if l != "all"]
+        self.batch_size = batch_size
+        self.dataset: Dict[str, List[str]] = {}
+        self._index: List[Tuple[str, int]] = []
+        for lang in self.langs:
+            if texts_by_lang is not None and lang in texts_by_lang:
+                texts = list(texts_by_lang[lang])
+            else:
+                if valid_directory is None:
+                    raise ValueError(f"no validation data for {lang}")
+                texts = open_text_source(valid_directory, lang)
+            if n_subsample is not None:
+                texts = texts[:n_subsample]
+            self.dataset[lang] = texts
+            n_batches = len(texts) // batch_size
+            self._index.extend((lang, b * batch_size) for b in range(n_batches))
+            if n_batches == 0 and texts:
+                self._index.append((lang, 0))
+
+    def __len__(self):
+        return len(self._index)
+
+    def __getitem__(self, idx):
+        lang, start = self._index[idx]
+        texts = self.dataset[lang][start:start + self.batch_size]
+        texts = texts + [""] * (self.batch_size - len(texts))
+        return {"texts": texts, "lang_code": lang}

@@ -5,36 +5,46 @@ encoder runs over each target token's surface form, pools the first
 position and projects to the frozen LM's embeddings (+ an lm-head bias).
 
 Kept features: source-embedding input with the fallback table (or the hn
-vocab's own embedding table), absolute positions, affine rescalers,
-single/dual heads, the bias head and CLS pooling. Two routes, chosen as
-the JAX module chooses them (``inference``, defaulting to
-``deterministic``):
+vocab's own embedding table), absolute positions, the target-prior token,
+inter-token attention (with the prior bias and the residual LayerNorms),
+tanh- and erf-gelu, affine rescalers, single/dual heads, the bias head and
+CLS pooling. Two routes, chosen as the JAX module chooses them
+(``inference``, defaulting to ``deterministic``):
 
-- inference: every layer except the last runs kernel 1
-  (``ops.encoder_layer``, the tier-3 layer); the last, CLS-only layer
-  computes its projections and FFN with torch matmuls and its attention core
-  with kernel 2 (``ops.attention_core``, the tier-4 core). Forward only.
+- inference: a layer runs kernel 1 (``ops.encoder_layer``, the tier-3
+  layer) where the JAX module would fuse the whole layer (no inter-token
+  attention, tanh-gelu); every other layer that is not CLS-only runs its
+  self-attention through kernel 4 (``ops.attention_block``, the tier-2
+  block) and its LayerNorms, inter-token exchange and FFN with torch ops;
+  the last, CLS-only layer (absent with inter-token attention) computes its
+  projections and FFN with torch matmuls and its attention core with
+  kernel 2 (``ops.attention_core``, the tier-4 core). Forward only.
 - training (``inference=False``, what the Trainer runs): every layer
   computes its projections, LayerNorms and FFN with torch ops (XLA in the
-  JAX package) and its attention core with ``merged_attention_train``,
+  JAX package) and its self-attention core with ``merged_attention_train``,
   kernel 2 forward and kernel 3 backward with in-kernel dropout; the last
-  layer stays CLS-only. Hidden dropout follows flax's ``nn.Dropout`` with
-  masks drawn from an explicit generator.
+  layer stays CLS-only where the JAX module makes it so. Hidden dropout
+  follows flax's ``nn.Dropout`` with masks drawn from an explicit generator.
 
-Configurations that leave this route (target priors, language ids,
-inter-token attention, adapters, relative positions, the t5 encoder,
-erf-gelu, concat pooling, head widths other than 64) raise
+The inter-token exchange (cross-attention between the batch's rows and a
+few learned blocks) takes the JAX module's plain attention (``_attention``)
+on both routes, as the JAX package leaves it to XLA.
+
+Configurations that leave these routes (language ids, adapters, relative
+positions, the t5 encoder, concat pooling, head widths other than 64) raise
 ``NotImplementedError``.
 
 Parameters are stored as torch's ``nn.Linear`` layout; ``models.convert``
 maps a Flax parameter tree onto them. Weights are f32 and cast to the
 compute dtype at use, as flax's ``param_dtype``/``dtype`` split does; the
-rescalers and position embeddings carry the compute dtype themselves.
+rescalers, position embeddings and inter-token blocks carry the compute
+dtype themselves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -42,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention_core import attention_core, merged_attention_train
+from ..ops.attention_block import attention_block_fused
+from ..ops.attention_core import attention_core, merged_attention_train, softmax_weights
 from ..ops.encoder_layer import encoder_layer, gelu, layer_norm_flax_exact
 
 MERGED_ATTENTION_MAX = 256  # widest merged (L*h) row on the kernel route
@@ -105,19 +116,29 @@ class HypernetConfig:
 
 def _check_supported(cfg: HypernetConfig) -> None:
     unsupported = {
-        "embed_target_priors": cfg.embed_target_priors,
         "embed_lang_id": cfg.embed_lang_id,
-        "add_inter_token_attention": cfg.add_inter_token_attention,
         "language_adapter_bottleneck_dim": cfg.language_adapter_bottleneck_dim > 0,
         "position_embedding_type=relative": cfg.position_embedding_type != "absolute",
         "encoder_type=t5": cfg.encoder_type != "roberta",
-        "hidden_act=gelu (the tier-2 block route)": cfg.hidden_act == "gelu",
+        "hidden_act other than gelu_new/gelu": cfg.hidden_act not in ("gelu_new", "gelu"),
         "head width other than 64": cfg.hidden_size != 64 * cfg.num_attention_heads,
         "concat_last_hidden_state": cfg.concat_last_hidden_state,
     }
     missing = [name for name, on in unsupported.items() if on]
     if missing:
         raise NotImplementedError(f"hypernet features not ported: {', '.join(missing)}")
+
+
+def gelu_exact(x):
+    """erf gelu (flax ``nn.gelu(approximate=False)``, 0.5 x erfc(-x /
+    sqrt 2)), computed in f32 on the compute-dtype value and cast once."""
+    xf = x.float()
+    return (0.5 * xf * torch.erfc(-xf * math.sqrt(0.5))).to(x.dtype)
+
+
+def activation(cfg: HypernetConfig):
+    """The encoder FFN's activation (hypernet.py:128-129)."""
+    return gelu_exact if cfg.hidden_act == "gelu" else gelu
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -196,19 +217,87 @@ class ProjectorBlock(nn.Module):
         return self.ln(gelu(h) + x)
 
 
+def _attention(q, k, v, key_bias, key_mask, num_heads: int, rate: float = 0.0,
+               generator=None):
+    """The JAX module's plain attention core (hypernet.py:158-287 without
+    the Pallas branches), on (B, L, H) projections: the merged-head form
+    when both merged widths fit ``MERGED_ATTENTION_MAX``, else per head.
+    key_bias (B', Lk) additive, key_mask (B, Lk) bool, either None. Scores
+    accumulate wide and are cast, divided by sqrt(d) in the compute dtype,
+    biased, masked with one select to finfo.min; softmax wide, weights cast,
+    dropped at ``rate`` with masks from ``generator``."""
+    B, Lq, H = q.shape
+    Lk = k.shape[1]
+    h = num_heads
+    d = H // h
+    dtype = q.dtype
+    if Lq * h <= MERGED_ATTENTION_MAX and Lk * h <= MERGED_ATTENTION_MAX:
+        kmask = key_mask.repeat_interleave(h, dim=-1) if key_mask is not None else None
+        kb = key_bias.repeat_interleave(h, dim=-1) if key_bias is not None else None
+        weights, _ = softmax_weights(q.reshape(B, Lq * h, d), k.reshape(B, Lk * h, d), kmask,
+                                     h, kb)
+        vs, pv = v.reshape(B, Lk * h, d), "bqk,bkd->bqd"
+    else:
+        vs, pv = v.reshape(B, Lk, h, d), "bhqk,bkhd->bqhd"
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.reshape(B, Lq, h, d).float(),
+                              k.reshape(B, Lk, h, d).float()).to(dtype)
+        scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=q.device)
+        if key_bias is not None:
+            scores = scores + key_bias.to(dtype)[:, None, None, :]
+        if key_mask is not None:
+            scores = torch.where(key_mask[:, None, None, :], scores, torch.finfo(dtype).min)
+        weights = torch.softmax(scores.float(), dim=-1).to(dtype)
+    if rate > 0.0:
+        weights = dropout(weights, rate, generator)
+    return torch.einsum(pv, weights.float(), vs.float()).to(dtype).reshape(B, Lq, H)
+
+
 class Attention(nn.Module):
-    """Holds the query/key/value/out projections of a layer. Only the
-    CLS-only last layer computes through this module (the other layers hand
-    the weights to kernel 1)."""
+    """Self/cross attention with an optional additive key bias: the
+    query/key/value/out projections of a layer and the routes through them
+    (hypernet.py:343-447)."""
 
     def __init__(self, cfg: HypernetConfig, dtype):
         super().__init__()
         H = cfg.hidden_size
+        self.cfg = cfg
+        self.dtype = dtype
         self.num_heads = cfg.num_attention_heads
         self.query = Dense(H, H, dtype)
         self.key = Dense(H, H, dtype)
         self.value = Dense(H, H, dtype)
         self.out = Dense(H, H, dtype)
+
+    def weights(self):
+        """(wq, bq, wk, bk, wv, bv, wo, bo) in the compute dtype, kernels
+        (in, out)."""
+        dt = self.dtype
+        return tuple(t for m in (self.query, self.key, self.value, self.out)
+                     for t in (m.kernel(), m.bias.to(dt)))
+
+    def forward(self, hidden, mask=None, key_value_states=None, attention_bias=None,
+                deterministic: bool = True, generator=None):
+        """The plain route (``_attention``): cross-attention over
+        ``key_value_states`` and wide rows. A mask (B, Lk) wins over
+        ``attention_bias`` (B', Lk), as in the JAX module. Attention and
+        hidden dropout apply when not ``deterministic``."""
+        cfg = self.cfg
+        kv = key_value_states if key_value_states is not None else hidden
+        key_mask = mask.bool() if mask is not None else None
+        key_bias = attention_bias if mask is None else None
+        rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
+        ctx = _attention(self.query(hidden), self.key(kv), self.value(kv), key_bias, key_mask,
+                         self.num_heads, rate, generator)
+        out = self.out(ctx)
+        if not deterministic and cfg.hidden_dropout_prob > 0.0:
+            out = dropout(out, cfg.hidden_dropout_prob, generator)
+        return out
+
+    def forward_block(self, hidden, mask):
+        """Self-attention on the inference route: kernel 4 through
+        ``attention_block_fused`` (hypernet.py:394-428)."""
+        return attention_block_fused(hidden, mask.float(), None, *self.weights(),
+                                     self.num_heads, True, False)
 
     def forward_cls(self, hidden, mask):
         """Output for position 0 only: q projects the CLS position, keys and
@@ -247,34 +336,61 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        H = cfg.hidden_size
         eps = cfg.layer_norm_eps
         self.attention = Attention(cfg, dtype)
-        self.attention_ln = LayerNorm(cfg.hidden_size, eps, dtype)
-        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, dtype)
-        self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype)
-        self.output_ln = LayerNorm(cfg.hidden_size, eps, dtype)
+        self.attention_ln = LayerNorm(H, eps, dtype)
+        if cfg.add_inter_token_attention:
+            self.inter_token_down = Attention(cfg, dtype)
+            self.inter_token_up = Attention(cfg, dtype)
+            if cfg.inter_token_residual_ln:
+                self.inter_token_down_ln = LayerNorm(H, eps, dtype)
+                self.inter_token_up_ln = LayerNorm(H, eps, dtype)
+        self.intermediate = Dense(H, cfg.intermediate_size, dtype)
+        self.output = Dense(cfg.intermediate_size, H, dtype)
+        self.output_ln = LayerNorm(H, eps, dtype)
+        self.act = activation(cfg)
 
-    def forward(self, hidden, mask, cls_only: bool = False, inference: bool = True,
-                deterministic: bool = True, generator=None):
+    def forward(self, hidden, mask, target_priors=None, inter_token_blocks=None,
+                cls_only: bool = False, inference: bool = True, deterministic: bool = True,
+                generator=None):
+        """hypernet.py:454-582. On the inference route a layer takes kernel 1
+        exactly where the JAX module fuses the whole layer (``fused_layer``,
+        :480-492); else its self-attention takes kernel 4 where the JAX
+        module fuses the block (``fused_ok``, :394-405), kernel 2 when
+        CLS-only, and the plain route otherwise."""
         cfg = self.cfg
+        wide = hidden.shape[1] * cfg.num_attention_heads > MERGED_ATTENTION_MAX
+        if inference and not cls_only and not wide and not cfg.add_inter_token_attention \
+                and cfg.hidden_act != "gelu":
+            return self._fused_layer(hidden, mask)
+        hidden_drop = not deterministic and cfg.hidden_dropout_prob > 0.0
         if not inference:
-            return self._forward_train(hidden, mask, cls_only, deterministic, generator)
-        if cls_only:
+            rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
+            attn = self.attention.forward_train(hidden, mask, cls_only, rate, generator)
+            if hidden_drop:
+                attn = dropout(attn, cfg.hidden_dropout_prob, generator)
+        elif cls_only:
             attn = self.attention.forward_cls(hidden, mask)
-            attn = self.attention_ln(attn + hidden[:, :1])
-            mid = gelu(self.intermediate(attn))
-            return self.output_ln(self.output(mid) + attn)
-        if hidden.shape[1] * cfg.num_attention_heads > MERGED_ATTENTION_MAX:
-            raise NotImplementedError(
-                f"surface width {hidden.shape[1]} x {cfg.num_attention_heads} heads is "
-                f"off the kernel route (merged width > {MERGED_ATTENTION_MAX})"
-            )
-        a = self.attention
+        elif not wide:
+            attn = self.attention.forward_block(hidden, mask)
+        else:
+            attn = self.attention(hidden, mask)
+        residual = hidden[:, :1] if cls_only else hidden
+        attn = self.attention_ln(attn + residual)
+        if cfg.add_inter_token_attention:
+            attn = self._inter_token(attn, target_priors, inter_token_blocks, deterministic,
+                                     generator)
+        h = self.output(self.act(self.intermediate(attn)))
+        if hidden_drop:
+            h = dropout(h, cfg.hidden_dropout_prob, generator)
+        return self.output_ln(h + attn)
+
+    def _fused_layer(self, hidden, mask):
+        cfg = self.cfg
         dt = self.dtype
         return encoder_layer(
-            hidden, mask,
-            a.query.kernel(), a.query.bias.to(dt), a.key.kernel(), a.key.bias.to(dt),
-            a.value.kernel(), a.value.bias.to(dt), a.out.kernel(), a.out.bias.to(dt),
+            hidden, mask, *self.attention.weights(),
             self.attention_ln.weight, self.attention_ln.bias,
             self.intermediate.kernel(), self.intermediate.bias.to(dt),
             self.output.kernel(), self.output.bias.to(dt),
@@ -282,54 +398,82 @@ class EncoderLayer(nn.Module):
             num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
         )
 
-    def _forward_train(self, hidden, mask, cls_only, deterministic, generator):
-        """hypernet.py:528-582 with ``inference=False``."""
+    def _inter_token(self, attn_out, target_priors, blocks, deterministic, generator):
+        """Rows exchange information through the learned blocks
+        (hypernet.py:541-574): the blocks attend over every row's position 0
+        (biased by the priors when so configured), then every position of
+        every row attends over the blocks. The batch axis is the sequence
+        axis of a one-element batch."""
         cfg = self.cfg
-        rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
-        attn = self.attention.forward_train(hidden, mask, cls_only, rate, generator)
-        hidden_drop = not deterministic and cfg.hidden_dropout_prob > 0.0
-        if hidden_drop:
-            attn = dropout(attn, cfg.hidden_dropout_prob, generator)
-        residual = hidden[:, :1] if cls_only else hidden
-        attn = self.attention_ln(attn + residual)
-        h = self.output(gelu(self.intermediate(attn)))
-        if hidden_drop:
-            h = dropout(h, cfg.hidden_dropout_prob, generator)
-        return self.output_ln(h + attn)
+        bias = None
+        if cfg.inter_token_attention_bias_by_priors:
+            bias = target_priors[None] * cfg.inter_token_attention_bias_scaler
+        blocks_in = blocks[None]
+        down = self.inter_token_down(blocks_in, key_value_states=attn_out[None, :, 0],
+                                     attention_bias=bias, deterministic=deterministic,
+                                     generator=generator)
+        if cfg.inter_token_residual_ln:
+            down = self.inter_token_down_ln(down + blocks_in)
+        V, L, H = attn_out.shape
+        flat = attn_out.reshape(1, V * L, H)
+        up = self.inter_token_up(flat, key_value_states=down, deterministic=deterministic,
+                                 generator=generator)
+        if cfg.inter_token_residual_ln:
+            up = self.inter_token_up_ln(up + flat)
+        return up.reshape(V, L, H)
 
 
 class HypernetEncoder(nn.Module):
-    """Embeddings and the layer stack."""
+    """Embeddings (+ the prior token) and the layer stack."""
 
     def __init__(self, cfg: HypernetConfig, dtype):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        H = cfg.hidden_size
         if not cfg.embed_using_source_embeddings:
-            self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.word_embeddings = nn.Embedding(cfg.vocab_size, H)
         self.position_embeddings = nn.Parameter(
-            torch.zeros(cfg.max_position_embeddings, cfg.hidden_size, dtype=dtype)
+            torch.zeros(cfg.max_position_embeddings, H, dtype=dtype)
         )
-        self.embeddings_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+        if cfg.embed_target_priors:
+            self.prior_projection = Dense(1, H, dtype)
+        self.embeddings_ln = LayerNorm(H, cfg.layer_norm_eps, dtype)
+        if cfg.add_inter_token_attention:
+            self.inter_token_blocks = nn.Parameter(
+                torch.zeros(cfg.n_inter_token_blocks, H, dtype=dtype)
+            )
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)
         )
 
-    def forward(self, input_ids, attention_mask, inputs_embeds=None, inference: bool = True,
-                deterministic: bool = True, generator=None):
+    def forward(self, input_ids, attention_mask, inputs_embeds=None, target_priors=None,
+                inference: bool = True, deterministic: bool = True, generator=None):
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = F.embedding(input_ids, self.word_embeddings.weight.to(self.dtype))
         L = inputs_embeds.shape[1]
-        hidden = self.embeddings_ln(inputs_embeds + self.position_embeddings[:L])
+        hidden = inputs_embeds + self.position_embeddings[:L]
+        if cfg.embed_target_priors:
+            # one more position, always attended (hypernet.py:669-677)
+            prior_tok = self.prior_projection(target_priors[..., None])
+            hidden = torch.cat([hidden, prior_tok[:, None, :].to(hidden.dtype)], dim=1)
+            attention_mask = torch.cat(
+                [attention_mask, attention_mask.new_ones(hidden.shape[0], 1)], dim=1)
+        hidden = self.embeddings_ln(hidden)
         if not deterministic and cfg.hidden_dropout_prob > 0.0:
             hidden = dropout(hidden, cfg.hidden_dropout_prob, generator)
+        blocks = self.inter_token_blocks if cfg.add_inter_token_attention else None
         # the last layer's non-CLS outputs are dead when the caller pools
-        # hidden[:, 0]: it computes position 0 only (exact)
+        # hidden[:, 0]: it computes position 0 only (exact), unless the
+        # inter-token exchange reads every position (hypernet.py:726-728)
+        cls_only_last = not cfg.add_inter_token_attention
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, attention_mask, cls_only=i == n - 1, inference=inference,
-                           deterministic=deterministic, generator=generator)
+            hidden = layer(hidden, attention_mask, target_priors=target_priors,
+                           inter_token_blocks=blocks, cls_only=cls_only_last and i == n - 1,
+                           inference=inference, deterministic=deterministic,
+                           generator=generator)
         return hidden
 
 
@@ -368,11 +512,12 @@ class Hypernet(nn.Module):
 
     def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
                 lang_index=None, deterministic: bool = True, inference=None, generator=None):
-        """The JAX module's call signature; target_priors and lang_index feed
-        features that are not ported and are ignored. ``inference`` picks
-        the route (default: ``deterministic``); ``generator`` (a CPU
-        ``torch.Generator``) draws the dropout masks and seeds when
-        ``deterministic`` is False."""
+        """The JAX module's call signature. ``target_priors`` (B,) feed the
+        prior token and the inter-token prior bias where the config asks for
+        them; ``lang_index`` feeds features that are not ported and is
+        ignored. ``inference`` picks the route (default: ``deterministic``);
+        ``generator`` (a CPU ``torch.Generator``) draws the dropout masks and
+        seeds when ``deterministic`` is False."""
         cfg = self.config
         if inference is None:
             inference = deterministic
@@ -380,6 +525,9 @@ class Hypernet(nn.Module):
             raise ValueError("dropout needs an explicit generator")
         if inference and not deterministic:
             raise ValueError("the inference route is deterministic")
+        if target_priors is None and (cfg.embed_target_priors
+                                      or cfg.inter_token_attention_bias_by_priors):
+            raise ValueError("this config reads target_priors")
         sf = target_surface_forms
         attention_mask = sf != cfg.pad_token_id
 
@@ -402,8 +550,8 @@ class Hypernet(nn.Module):
             inputs_embeds = self.input_projection(inputs_embeds)
 
         hidden = self.encoder(sf, attention_mask, inputs_embeds=inputs_embeds,
-                              inference=inference, deterministic=deterministic,
-                              generator=generator)
+                              target_priors=target_priors, inference=inference,
+                              deterministic=deterministic, generator=generator)
         pooled = hidden[:, 0]
 
         predicted = self.output_projection(pooled)
@@ -430,7 +578,8 @@ class Hypernet(nn.Module):
         """Draw every parameter from ``generator`` with flax's initializers
         (hypernet.py): lecun_normal Dense kernels (truncated normal, std
         sqrt(1/fan_in) / 0.8796), zero biases, normal(initializer_range)
-        embedding tables and position embeddings, LayerNorm ones/zeros,
+        embedding tables, position embeddings and inter-token blocks,
+        LayerNorm ones/zeros,
         rescalers ones/zeros. The values differ from a JAX init (another
         random stream); the distributions are the same."""
         std = self.config.initializer_range
@@ -452,3 +601,6 @@ class Hypernet(nn.Module):
                     mod.b.zero_()
             pos = self.encoder.position_embeddings
             pos.copy_(torch.randn(pos.shape, generator=generator) * std)
+            if self.config.add_inter_token_attention:
+                blocks = self.encoder.inter_token_blocks
+                blocks.copy_(torch.randn(blocks.shape, generator=generator) * std)

@@ -1,13 +1,17 @@
-"""Kernels 2 and 3: the merged-head attention core of the tier-4 route,
-forward (kernel 2) and backward (kernel 3), with seeded dropout of the
-softmax weights, and their plain PyTorch versions.
+"""The merged-head attention cores: kernels 2 and 3, the tier-4 core forward
+(kernel 2) and backward (kernel 3) with seeded dropout of the softmax
+weights, and kernel 5, the tier-1 core forward with an optional additive
+key bias; each with its plain PyTorch version.
 
 Replaces ``zett_tpu/ops/pallas_attention.py`` ``_core_train_fwd_kernel`` /
 ``_core_train_fwd_pallas`` (:215, :335) and ``_core_train_bwd_kernel`` /
 ``_core_train_bwd_pallas`` (:254, :369), under ``merged_attention_train``
 (:437). The CUDA sources are ``zett_tpu_torch/csrc/attention_core.cu`` and
 ``attention_core_bwd.cu``; their header notes give the bounds (memory) and
-the design.
+the design. Kernel 5 replaces ``_core_kernel`` / ``merged_attention_pallas``
+(:87, :131); its source is ``csrc/merged_attention.cu``. No JAX path calls
+tier 1 (only its tests do); the port's tier-2 block (kernel 4) runs the same
+core with key bias inside its own launch sequence.
 
 Operands keep the JAX function's layout: qm (B, Lq*h, d), km/vm
 (B, Lk*h, d) merged position-major (index = position*h + head), kmaskf
@@ -36,6 +40,7 @@ from . import _build
 
 _FWD = "attention_core"
 _BWD = "attention_core_bwd"
+_MERGED = "merged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -98,20 +103,26 @@ def _acc_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def _weights(qm, km, kmaskf, num_heads: int):
+def softmax_weights(qm, km, kmaskf, num_heads: int, kbias=None):
     """The forward's softmax weights (B, Lq*h, Lk*h) in the compute dtype and
     the valid-entry plane: scores accumulated wide, cast, divided by sqrt(d)
-    in the compute dtype, one select to finfo.min, softmax wide, cast
-    (pallas_attention.py:224-237)."""
+    in the compute dtype, the key bias (B, Lk*h) added in it, one select to
+    finfo.min over other heads' and masked keys (kmaskf (B, Lk*h), > 0 where
+    valid; None: all valid), softmax wide, cast (pallas_attention.py:95-110,
+    224-237)."""
     dtype = qm.dtype
     acc = _acc_dtype(dtype)
     d = qm.shape[-1]
     h = num_heads
+    dev = qm.device
     scores = torch.einsum("bqd,bkd->bqk", qm.to(acc), km.to(acc)).to(dtype)
-    scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=qm.device)
-    same_head = ((torch.arange(qm.shape[1], device=qm.device) % h)[:, None]
-                 == (torch.arange(km.shape[1], device=qm.device) % h)[None, :])
-    valid = same_head[None] & (kmaskf > 0)[:, None, :]
+    scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=dev)
+    if kbias is not None:
+        scores = scores + kbias.to(dtype)[:, None, :]
+    valid = ((torch.arange(qm.shape[1], device=dev) % h)[:, None]
+             == (torch.arange(km.shape[1], device=dev) % h)[None, :])[None]
+    if kmaskf is not None:
+        valid = valid & (kmaskf > 0)[:, None, :]
     scores = torch.where(valid, scores, torch.finfo(dtype).min)
     return torch.softmax(scores.to(acc), dim=-1).to(dtype), valid
 
@@ -122,7 +133,7 @@ def attention_core_reference(qm, km, vm, kmaskf, num_heads: int, rate: float = 0
     with the Philox keep mask (kept weights divided by 1 - rate in the
     compute dtype)."""
     dtype = qm.dtype
-    w, _ = _weights(qm, km, kmaskf, num_heads)
+    w, _ = softmax_weights(qm, km, kmaskf, num_heads)
     if rate > 0.0:
         keep = keep_mask(seed, *w.shape, rate, qm.device)
         div = torch.tensor(1.0 - rate, dtype=dtype, device=qm.device)
@@ -141,7 +152,7 @@ def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
     acc = _acc_dtype(dtype)
     dev = qm.device
     d = qm.shape[-1]
-    w, valid = _weights(qm, km, kmaskf, num_heads)
+    w, valid = softmax_weights(qm, km, kmaskf, num_heads)
     dwd = torch.einsum("bqd,bkd->bqk", dout.to(acc), vm.to(acc))
     if rate > 0.0:
         keep = keep_mask(seed, *w.shape, rate, dev)
@@ -160,6 +171,27 @@ def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
     dqm = torch.einsum("bqk,bkd->bqd", ds.to(acc), km.to(acc)).to(dtype)
     dkm = torch.einsum("bqk,bqd->bkd", ds.to(acc), qm.to(acc)).to(dtype)
     return dqm, dkm, dvm
+
+
+def merged_attention_reference(qm, km, vm, kmask=None, kbias=None, *, num_heads: int):
+    """Plain version of kernel 5 (``merged_attention_reference``,
+    pallas_attention.py:61): scores accumulated wide, cast, divided by
+    sqrt(d) in the compute dtype, the key bias added in it, one select to
+    finfo.min over other heads' and masked keys, softmax wide, weights cast
+    before PV. qm (B, Lq*h, d), km/vm (B, Lk*h, d); kmask (B, Lk*h) bool or
+    None (all valid); kbias (B, Lk*h) or None."""
+    acc = _acc_dtype(qm.dtype)
+    w, _ = softmax_weights(qm, km, kmask, num_heads, kbias)
+    return torch.einsum("bqk,bkd->bqd", w.to(acc), vm.to(acc)).to(qm.dtype)
+
+
+def merged_attention(qm, km, vm, kmask=None, kbias=None, *, num_heads: int):
+    """The tier-1 masked merged-head core with an optional key bias
+    (``merged_attention_pallas``): (B, Lq*h, d). CPU tensors take the plain
+    version; on the card this launches kernel 5."""
+    if qm.device.type == "cpu":
+        return merged_attention_reference(qm, km, vm, kmask, kbias, num_heads=num_heads)
+    return _launch_merged(qm, km, vm, kmask, kbias, num_heads)
 
 
 def _check_rate(rate: float) -> None:
@@ -287,3 +319,30 @@ def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
     _build.check(err, "attention_core_bwd kernel launch")
     _build.count_launch(_BWD)
     return dqm, dkm, dvm
+
+
+def _launch_merged(qm, km, vm, kmask, kbias, num_heads):
+    lib = _build.load(_MERGED)
+    if not qm.is_cuda:
+        raise ValueError(f"merged_attention: no kernel for device {qm.device}")
+    B, Lq, Lk = _check(qm, km, vm, num_heads, "merged_attention")
+    Lkh = Lk * num_heads
+    for name, t in (("kmask", kmask), ("kbias", kbias)):
+        if t is not None and (tuple(t.shape) != (B, Lkh) or t.device != qm.device):
+            raise ValueError(f"merged_attention: {name} must be ({B}, {Lkh}) on {qm.device}")
+    qm, km, vm = qm.contiguous(), km.contiguous(), vm.contiguous()
+    maskf = kmask.float().contiguous() if kmask is not None else None
+    kb = kbias.to(qm.dtype).contiguous() if kbias is not None else None
+    out = torch.empty_like(qm)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.zt_merged_attention
+    fn.restype = i
+    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    stream = torch.cuda.current_stream(qm.device).cuda_stream
+    err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
+             maskf.data_ptr() if maskf is not None else None,
+             kb.data_ptr() if kb is not None else None, out.data_ptr(), B, Lq, Lk,
+             num_heads, stream)
+    _build.check(err, "merged_attention kernel launch")
+    _build.count_launch(_MERGED)
+    return out

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .attention_core import merged_attention_reference
 
 _NAME = "encoder_layer"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,25 +56,6 @@ def dense_exact(x, w, b):
     return (x.float() @ w.float()).to(x.dtype) + b
 
 
-def merged_core_reference(qm, km, vm, kmask, num_heads: int):
-    """Merged-head attention core (``merged_attention_reference``,
-    pallas_attention.py:61, without key bias). qm (B, Lq*h, d), km/vm
-    (B, Lk*h, d) position-major; kmask (B, Lk*h) bool."""
-    dtype = qm.dtype
-    d = qm.shape[-1]
-    h = num_heads
-    scores = torch.einsum("bqd,bkd->bqk", qm.float(), km.float()).to(dtype)
-    scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=qm.device)
-    same_head = (
-        (torch.arange(qm.shape[1], device=qm.device) % h)[:, None]
-        == (torch.arange(km.shape[1], device=qm.device) % h)[None, :]
-    )
-    valid = same_head[None] & kmask[:, None, :]
-    scores = torch.where(valid, scores, torch.finfo(dtype).min)
-    weights = torch.softmax(scores.float(), dim=-1).to(dtype)
-    return torch.einsum("bqk,bkd->bqd", weights.float(), vm.float()).to(dtype)
-
-
 def encoder_layer_reference(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
                             ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
                             num_heads: int, eps: float):
@@ -89,8 +71,9 @@ def encoder_layer_reference(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     if mask is None:
         mask = torch.ones(B, L, dtype=torch.bool, device=x.device)
     kmask = mask.bool().repeat_interleave(h, dim=-1)
-    ctx = merged_core_reference(
-        q.reshape(B, L * h, d), k.reshape(B, L * h, d), v.reshape(B, L * h, d), kmask, h
+    ctx = merged_attention_reference(
+        q.reshape(B, L * h, d), k.reshape(B, L * h, d), v.reshape(B, L * h, d), kmask,
+        num_heads=h,
     ).reshape(B, L, H)
     attn = dense_exact(ctx, wo, bo)
     y1 = layer_norm_flax_exact(attn + x, ln1_s, ln1_b, eps, x.dtype)

@@ -12,8 +12,11 @@ the trained hypernet is written to ``<output_dir>/final/`` in the transfer
 CLI's checkpoint format (``hn_config.json``, ``params.npz``,
 ``tokenizer.json``), so ``python -m zett_tpu_torch.transfer --checkpoint
 OUT/final`` reads it. Training text comes from ``<train_directory>/<lang>.txt``
-or an in-memory ``texts_by_lang``. Eval (``valid_directory``) is not ported
-and is skipped with a notice.
+or an in-memory ``texts_by_lang``. With ``valid_directory`` (``<lang>.txt``)
+or ``valid_texts_by_lang``, eval runs every ``eval_steps`` steps (and at
+step 0 with ``eval_at_step_zero``): each of ``extra_valid_tokenizers`` with
+its embeddings computed once per eval, then sampled tokenizers; the rows
+(``eval_<tokenizer>/...`` and ``eval/...``) go to ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -99,8 +102,54 @@ def main(argv=None):
     return run_training(config, run_name, device=args.device)
 
 
+def build_eval_fn(config: dict, data_cfg, reference, hn_tokenizer, batch_size: int, seed: int):
+    """The in-training eval (``zett_tpu/training/__main__.py:323-377``), or
+    None without validation text: one fixed-tokenizer collator per
+    ``extra_valid_tokenizers`` entry (no vocab subsampling, no span
+    sampling), evaluated with cached embeddings, then the sampled-tokenizer
+    validation collator at ``seed + 1``."""
+    valid_dir = config.get("valid_directory")
+    if not (valid_dir or config.get("valid_texts_by_lang")):
+        return None
+    from ..data import Collator, ValidDataset
+    from ..evaluation import eval_loop
+    from ..tokenization.core import Tokenizer
+
+    valid_ds = ValidDataset(langs=data_cfg.langs, batch_size=batch_size,
+                            n_subsample=config.get("n_valid_subsample", 64),
+                            valid_directory=valid_dir,
+                            texts_by_lang=config.get("valid_texts_by_lang"))
+    fixed_cfg = dataclasses.replace(data_cfg, do_tokenizer_sampling=False,
+                                    n_token_subsample=None, sample_text_span=False)
+    extra = []
+    for tok_path in config.get("extra_valid_tokenizers", []):
+        tok = Tokenizer.from_file(os.path.join(tok_path, "tokenizer.json")
+                                  if os.path.isdir(tok_path) else tok_path)
+        extra.append((os.path.basename(tok_path.rstrip("/")),
+                      Collator(reference=reference, hn_tokenizer=hn_tokenizer,
+                               data_config=fixed_cfg, batch_size=batch_size,
+                               fixed_tokenizer=tok, is_validation=True, seed=seed)))
+    valid_collator = Collator(
+        reference=reference, hn_tokenizer=hn_tokenizer, data_config=data_cfg,
+        batch_size=batch_size,
+        initial_texts={lang: texts[:64] for lang, texts in valid_ds.dataset.items()},
+        is_validation=True, seed=seed + 1)
+
+    def eval_fn(trainer):
+        out = {}
+        for name, collator in extra:
+            out.update(eval_loop(trainer, (collator([valid_ds[i]]) for i in range(len(valid_ds))),
+                                 name=f"eval_{name}", fixed_tokenizer=True))
+        out.update(eval_loop(trainer,
+                             (valid_collator([valid_ds[i]]) for i in range(len(valid_ds))),
+                             name="eval"))
+        return out
+
+    return eval_fn
+
+
 def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
-    """``zett_tpu/training/__main__.py:102`` without distributed init, eval,
+    """``zett_tpu/training/__main__.py:102`` without distributed init,
     trackers, cost analysis, resume, profiling and preemption. Returns
     (trainer, history)."""
     from ..data import Collator, TrainDataset
@@ -207,9 +256,8 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
         identity_iter = (identity_collator(None, for_identity_step=True)
                          for _ in itertools.count())
 
-    if config.get("valid_directory") or config.get("valid_texts_by_lang"):
-        print("eval is not ported: valid_directory / extra_valid_tokenizers are skipped")
-
+    eval_fn = build_eval_fn(config, data_cfg, reference, hn_tokenizer, batch_size,
+                            train_cfg.seed)
     metrics_path = os.path.join(train_cfg.output_dir, "metrics.jsonl")
 
     def on_log(step, metrics):
@@ -218,7 +266,9 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
         print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
                                           if isinstance(v, (int, float))), flush=True)
 
-    history = trainer.fit(batch_iter, identity_iter, on_log=on_log)
+    if train_cfg.eval_at_step_zero and eval_fn is not None:
+        on_log(0, eval_fn(trainer))
+    history = trainer.fit(batch_iter, identity_iter, eval_fn=eval_fn, on_log=on_log)
     trainer.save_checkpoint(os.path.join(train_cfg.output_dir, "final"), tokenizer=hn_tokenizer)
     return trainer, history
 

@@ -1,5 +1,6 @@
 """The training engine (counterpart of ``zett_tpu/training/engine.py``):
-state init, the train and identity steps, and the loop with logging.
+state init, the train, identity and eval steps, and the loop with logging
+and in-training eval.
 
 One train step (``engine.py:500-543``): the hypernet predicts the
 embeddings of the batch's vocab rows on its training route (kernels 2 and
@@ -9,9 +10,15 @@ embeddings; the loss is the CLM loss plus the weighted lexical loss; the
 gradients of every parameter, the frozen backbone's included, go through
 the optimizer (``optimizer.py``), which updates the hypernet only. The
 identity step (``engine.py:545-573``) regresses the predicted embeddings of
-sampled source tokens onto their source embeddings.
+sampled source tokens onto their source embeddings. Eval
+(``engine.py:575-620``) predicts the batch's embeddings on the hypernet's
+inference route without gradients (``compute_embeddings``: kernel 1, 4 or 2
+per layer as the configuration routes it) and reports the CLM loss and the
+bits-per-byte term (``eval_step``); a fixed tokenizer's embeddings are
+computed once and reused across batches (``eval_step_cached``,
+``evaluation/loop.py``).
 
-Not ported: eval, full-state checkpoints and resume, the prefetch thread,
+Not ported: full-state checkpoints and resume, the prefetch thread,
 the preemption hook, remat and chunked losses, MLM, backbones other than
 GPT-2, full backbone fine-tuning, multi-GPU. Saving writes the hypernet's
 parameters in the transfer CLI's checkpoint format (``save_checkpoint``).
@@ -145,22 +152,30 @@ class Trainer:
         src_out = None if self.out_tied else self.source_embeddings[:, n_embd:]
         return src_in, src_out
 
-    def _hypernet(self, b, deterministic: bool):
+    def _hypernet(self, b, deterministic: bool, inference: bool = False, generator=None):
+        if generator is None and not deterministic:
+            generator = self.state.dropout_generator
         return self.hypernet(
             b["target_surface_forms"], b.get("target_priors"), self.source_embeddings,
-            b.get("lang_index"), deterministic=deterministic, inference=False,
-            generator=None if deterministic else self.state.dropout_generator,
+            b.get("lang_index"), deterministic=deterministic, inference=inference,
+            generator=generator,
         )
 
-    def _train_loss(self, b):
-        cfg = self.cfg
-        hn_cfg = self.hn_config
+    def _embeddings(self, b, deterministic: bool, inference: bool = False, generator=None):
+        """The hypernet's predictions with the source model's special-token
+        rows spliced in (``engine.py:348-368``)."""
         src_in, src_out = self._split_source()
-        emb_in, emb_out, biases = self._hypernet(b, not cfg.run_backbone_in_training_mode)
+        emb_in, emb_out, biases = self._hypernet(b, deterministic, inference, generator)
         special, special_ref = b["special_indices"].long(), b["special_indices_in_reference"].long()
         emb_in = emb_in.index_put((special,), src_in[special_ref].to(emb_in.dtype))
         if emb_out is not None and src_out is not None:
             emb_out = emb_out.index_put((special,), src_out[special_ref].to(emb_out.dtype))
+        return emb_in, emb_out, biases
+
+    def _logits(self, b, emb_in, emb_out, biases):
+        """The frozen backbone with the predicted table, plus the vocab mask
+        and the configured bias terms (``engine.py:370-385``)."""
+        cfg = self.cfg
         logits = self.backbone(b["input_ids"].long(), b["attention_mask"], emb_in)
         vocab_mask = torch.where(b["mask"], 0.0, float(NEGATIVE_INF_FILL_VALUE))
         logits = logits + vocab_mask.to(logits.dtype)[None, None, :]
@@ -168,6 +183,14 @@ class Trainer:
             logits = logits + biases[None, None, :]
         if cfg.add_target_priors_to_bias:
             logits = logits + b["target_priors"][None, None, :]
+        return logits
+
+    def _train_loss(self, b):
+        cfg = self.cfg
+        hn_cfg = self.hn_config
+        src_in, src_out = self._split_source()
+        emb_in, emb_out, biases = self._embeddings(b, not cfg.run_backbone_in_training_mode)
+        logits = self._logits(b, emb_in, emb_out, biases)
         loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
         if hn_cfg.embed_using_source_embeddings and cfg.lexical_loss_weight > 0:
             sf = b["target_surface_forms"].long()
@@ -219,14 +242,47 @@ class Trainer:
         self._apply_gradients(loss)
         return {"identity_loss": float(loss.detach()), "learning_rate": lr}
 
+    # ------------------------------------------------------------------- eval
+    @torch.no_grad()
+    def compute_embeddings(self, b):
+        """The eval's embeddings of a device batch (``engine.py:615-620``):
+        the hypernet's inference route, or, with
+        ``run_backbone_in_training_mode``, its dropout route from a copy of
+        the step generator's state (the state does not advance)."""
+        deterministic = not self.cfg.run_backbone_in_training_mode
+        generator = None
+        if not deterministic:
+            generator = torch.Generator()
+            generator.set_state(self.state.dropout_generator.get_state())
+        return self._embeddings(b, deterministic, inference=deterministic, generator=generator)
+
+    def eval_metrics_from_logits(self, logits, b) -> Dict[str, torch.Tensor]:
+        """``engine.py:589-596``, CLM only."""
+        loss, bpb = lm_loss(logits.float(), b["labels"], b["attention_mask"], "clm",
+                            byte_lengths=b["byte_lengths"], with_bpb=True)
+        return {"eval_loss": loss, "eval_bpb": bpb}
+
+    @torch.no_grad()
+    def eval_step(self, b) -> Dict[str, torch.Tensor]:
+        """Eval metrics of a device batch (``engine.py:575-587``)."""
+        return self.eval_metrics_from_logits(self._logits(b, *self.compute_embeddings(b)), b)
+
+    @torch.no_grad()
+    def eval_step_cached(self, b, emb_in, emb_out, biases) -> Dict[str, torch.Tensor]:
+        """Eval metrics with precomputed embeddings (``engine.py:604-613``)."""
+        return self.eval_metrics_from_logits(self._logits(b, emb_in, emb_out, biases), b)
+
     # ------------------------------------------------------------------- loop
     def fit(self, batch_iterator: Iterator[Dict[str, Any]],
             identity_iterator: Optional[Iterator[Dict[str, Any]]] = None,
+            eval_fn: Optional[Callable[["Trainer"], Dict[str, float]]] = None,
             on_log: Optional[Callable[[int, Dict[str, float]], None]] = None):
-        """``engine.py:653-804`` without eval, replay resume, prefetch and
+        """``engine.py:653-804`` without replay resume, prefetch and
         preemption. Records, per micro step, the host time to collate its
         batch and the step's time on the device's clock (CUDA events) in
-        ``self.records``."""
+        ``self.records``. Every ``eval_steps`` steps, ``eval_fn(self)``'s
+        metrics join the history and go to ``on_log`` as a row of their
+        own."""
         cfg = self.cfg
         history = []
         running: Dict[str, float] = {}
@@ -284,6 +340,12 @@ class Trainer:
                 running, counts = {}, {}
             if is_boundary and cfg.save_steps and (step + 1) % cfg.save_steps == 0:
                 self.save_checkpoint(os.path.join(cfg.output_dir, f"step_{step + 1}"))
+            if is_boundary and eval_fn is not None and cfg.eval_steps \
+                    and (step + 1) % cfg.eval_steps == 0:
+                evald = {"step": step + 1, **eval_fn(self)}
+                history.append(evald)
+                if on_log is not None:
+                    on_log(step + 1, evald)
         return history
 
     # ------------------------------------------------------------ checkpoints

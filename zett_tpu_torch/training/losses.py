@@ -1,7 +1,7 @@
 """Training losses (counterpart of ``zett_tpu/training/losses.py``): the
-causal LM loss and the lexical loss that anchors single-source-token
-predictions to the source embeddings. Chunked losses and the MLM loss are
-not ported."""
+causal LM loss (with the eval's bits-per-byte term) and the lexical loss
+that anchors single-source-token predictions to the source embeddings.
+Chunked losses and the MLM loss are not ported."""
 
 from __future__ import annotations
 
@@ -16,14 +16,30 @@ def _cross_entropy(logits, labels):
     return torch.logsumexp(logits, dim=-1) - label_logits
 
 
-def lm_loss(logits, labels, attention_mask, loss_mode: str):
+def _mean_bpb(per_seq_loss, byte_lengths):
+    """Mean per-sequence loss per byte over the sequences that have bytes
+    (``losses.py:167``): padded eval rows (byte length 0) count in neither
+    the sum nor the count."""
+    per_seq_bytes = byte_lengths.sum(-1).float()
+    valid = per_seq_bytes > 0
+    per_seq = torch.where(valid, per_seq_loss / torch.clamp(per_seq_bytes, min=1.0),
+                          torch.zeros((), dtype=per_seq_loss.dtype, device=per_seq_loss.device))
+    return per_seq.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def lm_loss(logits, labels, attention_mask, loss_mode: str, byte_lengths=None,
+            with_bpb: bool = False):
     """Mean next-token cross entropy over attended positions
-    (``losses.py:183``, clm). logits (B, L, V) f32."""
+    (``losses.py:183``, clm). logits (B, L, V) f32. With ``with_bpb``,
+    (loss, mean bits-per-byte term) from the per-sequence loss sums and the
+    tokens' byte lengths (B, L)."""
     if loss_mode == "clm":
         shift_logits = logits[..., :-1, :]
         shift_labels = labels[..., 1:].long().clamp(min=0)
         shift_mask = attention_mask[..., :-1].to(logits.dtype)
         loss = _cross_entropy(shift_logits, shift_labels) * shift_mask
+        if with_bpb:
+            return loss.sum() / shift_mask.sum(), _mean_bpb(loss.sum(-1), byte_lengths)
         return loss.sum() / shift_mask.sum()
     if loss_mode == "mlm":
         raise NotImplementedError("the MLM loss is not ported")
