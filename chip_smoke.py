@@ -51,7 +51,17 @@ Phases (any failure exits non-zero and prints no result):
      and the last step; gpt_neox0001 and en_raw as fixed tokenizers with
      cached embeddings, sampled validation tokenizers, held-out paragraphs):
      finite losses and eval rows, one embedding pass per fixed tokenizer per
-     eval, eval time per fixed tokenizer, peak memory.
+     eval, eval time per fixed tokenizer, peak memory;
+ 12. the device prior pipeline: kernel 6 (the Viterbi DP) bit-equal to its
+     plain version at B = 65536 (L 48, K 16; L 8, K 8; L 24, K 7) and
+     2^20 rows, with exact ties, all-NEG rows and ragged batches, and on
+     gpt_neox0001's span scores; the span scores card vs CPU (unk bytes,
+     bytes >= 0x80, empty and full rows); on 2^20 synthetic unique pretokens
+     with Zipf weights (8.7e8 occurrences), count_tokens_device equal to the
+     native C++ Viterbi's counts and DeviceRetokenizer.encode equal to its
+     segmentations (exact ties aside, logged), a memoized second call that
+     launches nothing; compute_prior's CLI with --device on the repo's
+     Markdown and Python, its token prior equal to the native oracle's.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -573,8 +583,8 @@ def phase_training(model_dir):
 
     steps = config["steps"]
     n_layers = config["num_hidden_layers"]
-    expected = {"attention_core": steps * n_layers, "attention_core_bwd": steps * n_layers,
-                "encoder_layer": 0, "attention_block": 0, "merged_attention": 0}
+    expected = dict.fromkeys(_build.SOURCES, 0)
+    expected["attention_core"] = expected["attention_core_bwd"] = steps * n_layers
     kinds = [r["kind"] for r in trainer.records]
     log(f"  trained {steps} steps ({kinds.count('identity')} identity) in {wall:.3f} s wall, "
         f"launches {launches} (expected {expected})")
@@ -1253,6 +1263,329 @@ def phase_training_eval(model_dir):
     return launches, wall, peak_gb
 
 
+# -------------------------------------------------------------------- phase 12
+NEOX = os.path.join(REPO, "artifacts", "tokenizers", "gpt_neox0001")
+N_PRETOKENS = 1 << 20
+# kernel 6's shapes (B, L, K): timed, and with exact ties, ragged B
+K6_TIMED = ((65536, 48, 16), (65536, 8, 8), (65536, 24, 7), (N_PRETOKENS, 48, 16))
+K6_TIES = ((4099, 48, 16), (4099, 8, 8), (333, 20, 13), (65, 64, 32), (7, 5, 1), (100, 100, 100))
+
+
+def neox_vocab(drop_bytes=()):
+    """gpt_neox0001's pieces in its byte domain (specials as b""), as the
+    prior CLI builds them, and its scores; the single-byte pieces of
+    ``drop_bytes`` are left out (b""), so those bytes take the unk path."""
+    from zett_tpu_torch.tokenization import Tokenizer
+    from zett_tpu_torch.tokenization.bytemaps import CHARS_TO_BYTES
+
+    tok = Tokenizer.from_file(os.path.join(NEOX, "tokenizer.json"))
+    special = set(tok.all_special_tokens)
+    scores = tok.model.get_scores()
+    pieces = []
+    for i in range(len(scores)):
+        t = tok.id_to_token(i) or ""
+        p = b"" if t in special or not t else bytes(CHARS_TO_BYTES[c] for c in t)
+        pieces.append(b"" if len(p) == 1 and p[0] in drop_bytes else p)
+    return tok, pieces, scores
+
+
+def synthetic_pretokens(pieces, n, rng):
+    """n unique pretokens with Zipf weights max(1, 6e7 // rank): each is 1-4
+    random vocab pieces, 80% with a leading space; 2% carry 1-3 random bytes;
+    1% are four pieces of >= 13 bytes, cut at 64 bytes (over 48: the overlong
+    tail), the rest cut at 48."""
+    usable = [p for p in pieces if p]
+    long_pool = np.flatnonzero(np.array([len(p) for p in usable]) >= 13)
+    out = {}
+    while len(out) < n:
+        m = 2 * (n - len(out)) + 1024
+        n_p = rng.integers(1, 5, size=m)
+        ids = rng.integers(0, len(usable), size=(m, 4))
+        is_long = rng.random(m) < 0.01
+        ids[is_long] = long_pool[rng.integers(0, len(long_pool), size=(int(is_long.sum()), 4))]
+        n_p[is_long] = 4
+        space = rng.random(m) < 0.8
+        noisy = rng.random(m) < 0.02
+        noise_len = rng.integers(1, 4, size=m)
+        noise_pos = rng.random(m)
+        for i in range(m):
+            p = b"".join(usable[t] for t in ids[i, :n_p[i]])
+            if space[i]:
+                p = b" " + p
+            if noisy[i]:
+                at = int(noise_pos[i] * (len(p) + 1))
+                p = p[:at] + rng.bytes(int(noise_len[i])) + p[at:]
+            out.setdefault(p[:64] if is_long[i] else p[:48], None)
+            if len(out) == n:
+                break
+    weights = np.maximum(1, 60_000_000 // np.arange(1, n + 1, dtype=np.int64))
+    return dict(zip(out, weights.tolist()))
+
+
+def native_counts(native, pretoken_counts, n_pieces):
+    """The oracle: every pretoken encoded whole by the native C++ Viterbi,
+    ids counted with their pretoken's weight."""
+    keys = list(pretoken_counts)
+    flat, n_ids = native.encode_flat(keys)
+    w = np.repeat(np.fromiter(pretoken_counts.values(), dtype=np.int64, count=len(keys)), n_ids)
+    real = flat >= 0
+    # float64 weights are exact here: the total stays far below 2^53
+    return np.bincount(flat[real], weights=w[real], minlength=n_pieces).astype(np.int64)
+
+
+def dp_inputs(B, L, K, gen, ties=False):
+    """Random span scores on the card: 60% of spans absent (NEG), single-byte
+    spans always present, every 97th row all NEG; with ``ties`` the scores
+    take four values, so candidates tie exactly."""
+    from zett_tpu_torch.ops.viterbi_dp import NEG
+
+    if ties:
+        vals = torch.randint(-4, 0, (B, L, K), generator=gen, device="cuda").float()
+    else:
+        vals = torch.randn(B, L, K, generator=gen, device="cuda") - 2
+    S = torch.where(torch.rand(B, L, K, generator=gen, device="cuda") < 0.4, vals, NEG)
+    S[:, :, 0] = vals[:, :, 0] - 3
+    S[::97] = NEG
+    del vals
+    I = torch.randint(0, 32769, (B, L, K), generator=gen, device="cuda", dtype=torch.int32)
+    return S, I
+
+
+def check_kernel6(S, I, tag, timed):
+    """Kernel 6 against its plain version: dp, bk and bi bit-equal."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.viterbi_dp import viterbi_dp, viterbi_dp_plain
+
+    before = _build.launch_counts["viterbi_dp"]
+    got = viterbi_dp(S, I)
+    torch.cuda.synchronize()
+    if _build.launch_counts["viterbi_dp"] != before + 1:
+        raise AssertionError("viterbi_dp did not count its launch")
+    ref = viterbi_dp_plain(S, I)
+    for name, g, r in zip(("dp", "bk", "bi"), got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"kernel 6 {tag}: {name} differs from the plain version at "
+                                 f"{int((g != r).sum())} entries")
+    err = float((got[0] - ref[0]).abs().max())
+    del got, ref
+    if not timed:
+        log(f"  kernel 6 {tag}: dp, bk, bi bit-equal to the plain version")
+        return None
+    B, L, K = S.shape
+    ms = median_ms(lambda: viterbi_dp(S, I))
+    plain_ms = median_ms(lambda: viterbi_dp_plain(S, I), reps=5, warmup=1)
+    nbytes = B * L * K * 8 + B * (L + K) * 12  # S + I read, dp/bk/bi written
+    bound_ms, bound_by = bound(B * L * K, nbytes, torch.float32)
+    log(f"  kernel 6 {tag}: bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def write_repo_text(path):
+    """The repo's Markdown and Python files, one paragraph per line."""
+    paragraphs = []
+    for d, dirs, files in os.walk(REPO):
+        dirs[:] = sorted(x for x in dirs
+                         if not x.startswith(".") and x not in ("build", "__pycache__"))
+        for name in sorted(files):
+            if name.endswith((".md", ".py")):
+                with open(os.path.join(d, name), errors="replace") as f:
+                    for block in f.read().split("\n\n"):
+                        line = " ".join(p.strip() for p in block.splitlines() if p.strip())
+                        if line:
+                            paragraphs.append(line)
+    with open(path, "w") as f:
+        f.write("\n".join(paragraphs) + "\n")
+    return len(paragraphs), sum(map(len, paragraphs))
+
+
+def phase_prior_pipeline():
+    """Kernel 6 against its plain version, the span scores card vs CPU,
+    count_tokens_device and DeviceRetokenizer on 2^20 synthetic unique
+    pretokens against the native C++ Viterbi, and compute_prior's CLI on its
+    default device. Returns (kernel 6's row, its launches on the main
+    paths)."""
+    import zett_tpu_torch.ops.device_viterbi as dv
+    import zett_tpu_torch.tokenization.priors as priors
+    from zett_tpu_torch.csrc import host_lib
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.compute_prior import main as prior_main
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # 12.1: the kernel at its shapes, K = 7, ties, all-NEG rows, ragged B
+    for B, L, K in K6_TIMED:
+        check_kernel6(*dp_inputs(B, L, K, gen), f"B={B} L={L} K={K}", timed=True)
+        torch.cuda.empty_cache()
+    for B, L, K in K6_TIES:
+        check_kernel6(*dp_inputs(B, L, K, gen, ties=True), f"B={B} L={L} K={K} ties",
+                      timed=False)
+
+    tok, pieces, scores = neox_vocab()
+    t0 = time.perf_counter()
+    pretoken_counts = synthetic_pretokens(pieces, N_PRETOKENS, np.random.default_rng(SEED))
+    keys = list(pretoken_counts)
+    lengths = np.fromiter(map(len, keys), dtype=np.int64, count=len(keys))
+    log(f"  {len(keys)} synthetic unique pretokens ({int(lengths.sum())} bytes, "
+        f"{(lengths > 48).mean():.4f} over 48 bytes, longest {lengths.max()}) with "
+        f"{sum(pretoken_counts.values())} occurrences, made in {time.perf_counter() - t0:.2f} s")
+
+    # 12.2: span scores card vs CPU, with unk bytes (0xF5..0xFF have no
+    # single-byte piece here), bytes >= 0x80, lens 0 and lens = L
+    _, unk_pieces, _ = neox_vocab(drop_bytes=range(0xF5, 0x100))
+    table = dv.build_vocab_table(unk_pieces, scores)
+    rng = np.random.default_rng(SEED)
+    rows_pt = keys[:4088] + [b"", b"\xff" * 48, rng.bytes(48), bytes(range(0x80, 0xB0)),
+                             bytes(range(0xD0, 0x100)), b" " + rng.bytes(47), rng.bytes(7),
+                             b"\xf5\xf6 the\xfe"]
+    rows, lens = dv.pack_pretokens(rows_pt, 48)
+    unk = min(scores) - 10.0
+    K = min(16, table.max_piece_len)
+    S_c, I_c = dv.compute_span_scores(*(torch.from_numpy(a).cuda() for a in (rows, lens)),
+                                      torch.from_numpy(table.table).cuda(), table.salt, unk, K)
+    S_h, I_h = dv.compute_span_scores(torch.from_numpy(rows), torch.from_numpy(lens),
+                                      torch.from_numpy(table.table), table.salt, unk, K)
+    n_unk = int((I_h == -2).sum())
+    if not (torch.equal(S_c.cpu(), S_h) and torch.equal(I_c.cpu(), I_h)) or n_unk == 0:
+        raise AssertionError(f"span scores card vs CPU differ (unk spans {n_unk})")
+    log(f"  span scores on {len(rows_pt)} rows: card equal to CPU (S and I), {n_unk} unk spans")
+
+    # 12.3: count_tokens_device against the native oracle
+    native = host_lib.NativeUnigram(pieces, scores, unk_id=-1)
+    t0 = time.perf_counter()
+    oracle = native_counts(native, pretoken_counts, len(pieces))
+    oracle_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    counts = dv.count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48)
+    torch.cuda.synchronize()
+    count_wall = time.perf_counter() - t0
+    launches = _build.launch_counts["viterbi_dp"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if not np.array_equal(counts, oracle):
+        bad = np.flatnonzero(counts != oracle)
+        raise AssertionError(f"count_tokens_device differs from the native oracle at {len(bad)} "
+                             f"pieces, e.g. {bad[:5].tolist()}")
+    log(f"  count_tokens_device (max_pretoken_len 48): equal to the native oracle on all "
+        f"{len(pieces)} pieces ({int(counts.sum())} tokens); {count_wall:.3f} s wall, peak "
+        f"{peak_gb:.2f} GiB, {launches} kernel 6 launch(es); native oracle {oracle_s:.3f} s")
+
+    # device time by stage, on the same rows (the device part of that run)
+    short = {k: w for k, w in pretoken_counts.items() if len(k) <= 48}
+    rows, lens = dv.pack_pretokens(list(short), 48)
+    r, ln = torch.from_numpy(rows).cuda(), torch.from_numpy(lens).cuda()
+    w = torch.from_numpy(np.fromiter(short.values(), dtype=np.int64, count=len(short))).cuda()
+    vocab_table = dv.build_vocab_table(pieces, scores)
+    tab, salt = torch.from_numpy(vocab_table.table).cuda(), vocab_table.salt
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    S, I = dv.compute_span_scores(r, ln, tab, salt, unk, 16)
+    events[1].record()
+    dp, bk, bi = dv.viterbi_dp(S, I)
+    events[2].record()
+    dv.count_token_usage(bk[:, :49], bi[:, :49], ln, len(pieces), weights=w)
+    events[3].record()
+    torch.cuda.synchronize()
+    stages = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    log(f"  device ms by stage at B={len(short)} L=48 K=16: spans {stages[0]:.3f}, kernel 6 "
+        f"{stages[1]:.3f}, backtrack-count {stages[2]:.3f}")
+    del dp, bk, bi
+    row = check_kernel6(S, I, f"B={len(short)} L=48 K=16 (gpt_neox0001 span scores)",
+                        timed=True)
+    del S, I
+    torch.cuda.empty_cache()
+
+    # 12.4: DeviceRetokenizer against the native segmentation of every row
+    flat, n_ids = native.encode_flat(keys)
+    flat = np.where(flat >= 0, flat, -2)  # the DP marks unk bytes -2, native -1
+    nat_segs = [s.tolist() for s in np.split(flat, np.cumsum(n_ids)[:-1])]
+    retok = dv.DeviceRetokenizer(pieces, scores, max_pretoken_len=64)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segs = retok.encode(keys)
+    torch.cuda.synchronize()
+    enc_wall = time.perf_counter() - t0
+    enc_launches = _build.launch_counts["viterbi_dp"]
+    launches += enc_launches
+    differ = [i for i, (a, b) in enumerate(zip(segs, nat_segs)) if a != b]
+    # The f32 DP and the f64 native encoder may break an exact tie (two
+    # orders of the same pieces, ROADMAP C) apart; any other difference fails,
+    # and on tie rows the card must give the CPU's (the JAX DP's) answer.
+    not_ties = [i for i in differ if sorted(segs[i]) != sorted(nat_segs[i])]
+    if not_ties:
+        i = not_ties[0]
+        raise AssertionError(f"DeviceRetokenizer differs from native on {len(not_ties)} rows "
+                             f"beyond exact ties, e.g. {keys[i]!r}: {segs[i]} vs {nat_segs[i]}")
+    cpu_retok = dv.DeviceRetokenizer(pieces, scores, max_pretoken_len=64, device="cpu")
+    if cpu_retok.encode([keys[i] for i in differ]) != [segs[i] for i in differ]:
+        raise AssertionError("DeviceRetokenizer card and CPU disagree on the tie rows")
+    log(f"  DeviceRetokenizer(max_pretoken_len=64).encode: {len(keys)} rows in {enc_wall:.3f} s "
+        f"wall ({lengths.sum() / enc_wall / 1e6:.3f} MB/s of unique bytes), {enc_launches} "
+        f"kernel 6 launches; native segmentation on {len(keys) - len(differ)} rows, an exact "
+        f"tie ordered otherwise (same pieces, card = CPU) on {len(differ)}")
+    for i in differ[:3]:
+        log(f"    tie {keys[i]!r}: DP {segs[i]}, native {nat_segs[i]}")
+    _build.reset_launch_counts()
+    if retok.encode(keys[::-1]) != segs[::-1] or any(_build.launch_counts.values()):
+        raise AssertionError("a second encode reached the device (the memo missed)")
+    del segs, nat_segs, retok
+
+    # 12.5: the CLI on its default device
+    text = os.path.join(WORK, "prior_text.txt")
+    os.makedirs(WORK, exist_ok=True)
+    n_par, n_chars = write_repo_text(text)
+    out = os.path.join(WORK, "priors_neox.npy")
+    timed = {}
+    orig_split, orig_count = priors.get_pretoken_counts, dv.count_tokens_device
+
+    def timed_split(*a, **kw):
+        t = time.perf_counter()
+        timed["pretoken_counts"] = orig_split(*a, **kw)
+        timed["split_s"] = time.perf_counter() - t
+        return timed["pretoken_counts"]
+
+    def timed_count(*a, **kw):
+        t = time.perf_counter()
+        result = orig_count(*a, **kw)
+        torch.cuda.synchronize()
+        timed["count_s"] = time.perf_counter() - t
+        return result
+
+    priors.get_pretoken_counts, dv.count_tokens_device = timed_split, timed_count
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        prior_main(["--tokenizer", NEOX, "--data", text, "--device", "--output", out])
+    finally:
+        priors.get_pretoken_counts, dv.count_tokens_device = orig_split, orig_count
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    cli_launches = _build.launch_counts["viterbi_dp"]
+    launches += cli_launches
+    written = np.load(out, allow_pickle=True).item()
+    prior = native_counts(native, timed["pretoken_counts"], len(pieces)).astype(np.float64) + 1.0
+    prior /= prior.sum()
+    prior = np.log(prior)
+    prior[np.asarray(tok.all_special_ids)] = 0.0
+    sub = written["substring"]
+    if not np.array_equal(written["token"], prior):
+        raise AssertionError("the CLI's token prior differs from the native oracle's")
+    if (sub.shape != (len(tok),) or not np.isfinite(sub).all()
+            or np.any(sub[tok.all_special_ids] != 0)):
+        raise AssertionError("the CLI's substring prior is not finite with specials at 0")
+    if cli_launches == 0:
+        raise AssertionError("the prior CLI did not launch kernel 6")
+    log(f"  compute_prior --device on {n_par} paragraphs ({n_chars} characters, "
+        f"{len(timed['pretoken_counts'])} unique pretokens): token prior equal to the native "
+        f"oracle's, substring prior finite; {cli_wall:.3f} s wall, host pretokenize "
+        f"{timed['split_s']:.3f} s, device count {timed['count_s']:.3f} s, {cli_launches} "
+        f"kernel 6 launch(es)")
+    return row, launches
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -1311,6 +1644,8 @@ def main():
         log("phase 11: training with eval through the CLI at the prior + "
             "inter-token-attention config")
         eval_launches, eval_wall, eval_peak = phase_training_eval(model_dir)
+        log("phase 12: the device prior pipeline")
+        kernels["viterbi_dp"], prior_launches = phase_prior_pipeline()
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -1328,13 +1663,14 @@ def main():
                             "zett_tpu/ops/pallas_attention.py:530"),
         "merged_attention": ("zett_tpu_torch/csrc/merged_attention.cu",
                              "zett_tpu/ops/pallas_attention.py:87"),
+        "viterbi_dp": ("zett_tpu_torch/csrc/viterbi_dp.cu", "zett_tpu/ops/pallas_viterbi.py:25"),
     }
     rows = []
     for name, (source, replaces) in sources.items():
-        # launches: the main paths' runs, transfer (phases 4 and 10) and
-        # training (phases 7 and 11)
+        # launches: the main paths' runs, transfer (phases 4 and 10),
+        # training (phases 7 and 11) and the prior pipeline (phase 12)
         n = sum(run.get(name, 0) for run in (transfer_launches, train_launches, pita_launches,
-                                              eval_launches))
+                                              eval_launches, {"viterbi_dp": prior_launches}))
         if n == 0 and name not in OFF_PATH:
             log(f"{name} never launched on the main paths")
             return 1

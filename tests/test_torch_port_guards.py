@@ -18,6 +18,8 @@ from zett_tpu_torch.ops import (
     attention_core,
     encoder_layer,
     merged_attention,
+    viterbi_dp,
+    viterbi_dp_plain,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +53,8 @@ def test_port_imports_nothing_forbidden(path):
 
 
 @pytest.mark.parametrize("module", ["zett_tpu_torch.transfer.__main__",
-                                    "zett_tpu_torch.training.__main__"])
+                                    "zett_tpu_torch.training.__main__",
+                                    "zett_tpu_torch.tokenization.compute_prior"])
 def test_cli_import_leaves_jax_out(module):
     code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine, "
             "zett_tpu_torch.evaluation.loop; "
@@ -73,6 +76,20 @@ def test_cli_without_device_flag_needs_the_card(tmp_path):
         main(["--checkpoint", str(tmp_path), "--model", str(tmp_path),
               "--target-tokenizer", str(tmp_path), "--output", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
+
+
+def test_prior_cli_bare_device_flag_needs_the_card(tmp_path):
+    """compute_prior's bare --device means the card; with none it raises
+    before reading or writing anything."""
+    from zett_tpu_torch.tokenization.compute_prior import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    out = tmp_path / "priors.npy"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--tokenizer", str(tmp_path / "missing"), "--data", str(tmp_path / "missing.txt"),
+              "--output", str(out), "--device"])
+    assert not os.path.exists(out)
 
 
 @pytest.fixture
@@ -147,4 +164,25 @@ def test_block_and_core_take_the_plain_version_on_cpu():
     km = mask.repeat_interleave(2, -1)
     assert torch.equal(merged_attention(q, q, q, km, None, num_heads=2),
                        merged_attention_reference(q, q, q, km, None, num_heads=2))
+    assert _build.launch_counts == before
+
+
+def test_viterbi_dp_raises_off_the_cpu(no_built_kernels):
+    """Kernel 6: a tensor that is not on the CPU goes for the kernel and,
+    with none built, raises without counting a launch."""
+    S = torch.empty(4, 8, 16, device="meta")
+    I = torch.empty(4, 8, 16, dtype=torch.int32, device="meta")
+    before = dict(_build.launch_counts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        viterbi_dp(S, I)
+    assert _build.launch_counts == before
+
+
+def test_viterbi_dp_takes_the_plain_version_on_cpu():
+    g = torch.Generator().manual_seed(0)
+    S = torch.randn(6, 9, 4, generator=g)
+    I = torch.randint(0, 50, (6, 9, 4), generator=g, dtype=torch.int32)
+    before = dict(_build.launch_counts)
+    got, want = viterbi_dp(S, I), viterbi_dp_plain(S, I)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert _build.launch_counts == before

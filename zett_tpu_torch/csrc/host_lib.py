@@ -9,7 +9,13 @@ import; a failed build raises. Exposes what the training data path needs:
 - ``NativeUnigram`` / ``NativeBPE``: fused split-regex pre-tokenization and
   Viterbi (Unigram) or ranked-merge (BPE) encode of whole utf-8 texts;
 - ``count_substrings_texts_native`` / ``merge_counts``: the tokenizer
-  sampler's substring counting and its sliding-window merge.
+  sampler's substring counting and its sliding-window merge;
+- ``NativeUnigram.encode_pretokens`` / ``encode_flat`` /
+  ``score_pretokens``: Viterbi of single pretokens (the device prior
+  pipeline's oracle and overlong tail), ``split_pretokens_native``: the
+  GPT-2-regex split alone, ``bucket4_build_native``: the device
+  retokenizer's vocab table, ``NativeAhoCorasick`` / ``substring_counts``:
+  the substring prior's multi-pattern counting.
 
 All interfaces speak raw bytes; byte-char conversion happens at the caller.
 The native pre-tokenizer reads a Unicode class table
@@ -22,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -83,6 +89,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.countmap_serialize.restype = i64
     lib.countmap_serialize.argtypes = [p, p, p, p]
     lib.countmap_free.argtypes = [p]
+    lib.uni_encode_batch.restype = i64
+    lib.uni_encode_batch.argtypes = [p, p, p, i64, p, i64, p]
+    lib.uni_encode_batch_threaded.restype = i64
+    lib.uni_encode_batch_threaded.argtypes = [p, p, p, i64, p, i64, p, i32]
+    lib.uni_score_batch.argtypes = [p, p, p, i64, p]
+    lib.split_pretokens.restype = i64
+    lib.split_pretokens.argtypes = [p, i64, p, i32, p, i64]
+    lib.bucket4_build.restype = i32
+    lib.bucket4_build.argtypes = [p, p, p, i64, i64, ctypes.c_uint32, p, p]
+    lib.ac_new.restype = p
+    lib.ac_new.argtypes = [p, p, p, i64]
+    lib.ac_free.argtypes = [p]
+    lib.ac_count.argtypes = [p, p, p, i64, p, p]
 
 
 def lib() -> ctypes.CDLL:
@@ -156,6 +175,108 @@ class NativeUnigram:
         """(flat_ids, tokens_per_text) of whole utf-8 texts."""
         return _encode_texts(self._lib.uni_encode_texts, self._handle, texts, use_marks,
                              n_threads)
+
+    def encode_pretokens(self, pretokens: Sequence[bytes]) -> List[np.ndarray]:
+        """Each pretoken encoded on its own: a list of int32 id arrays (-1
+        where a byte has no piece)."""
+        ids, lens = self._encode_batch(pretokens, 0)
+        return np.split(ids, np.cumsum(lens[:-1]))
+
+    def encode_flat(self, pretokens: Sequence[bytes], n_threads: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(flat_ids, ids_per_pretoken) of ``encode_pretokens``, without the
+        per-pretoken split, on ``n_threads`` threads (0: from the CPU count)."""
+        return self._encode_batch(pretokens, n_threads or min(os.cpu_count() or 1, 8))
+
+    def _encode_batch(self, pretokens, n_threads):
+        data, offsets = _concat_bytes(pretokens)
+        cap = max(int(offsets[-1]), 1)
+        out_ids = np.empty(cap, dtype=np.int32)
+        out_lens = np.empty(len(pretokens), dtype=np.int32)
+        args = (self._handle, _ptr(data), _ptr(offsets), len(pretokens), _ptr(out_ids), cap,
+                _ptr(out_lens))
+        if n_threads:
+            total = self._lib.uni_encode_batch_threaded(*args, n_threads)
+        else:
+            total = self._lib.uni_encode_batch(*args)
+        if total < 0:
+            raise RuntimeError("native encode: output capacity exceeded")
+        return out_ids[:total], out_lens
+
+    def score_pretokens(self, pretokens: Sequence[bytes]) -> np.ndarray:
+        """Score (f64 sum of piece scores) of each pretoken's best
+        segmentation."""
+        data, offsets = _concat_bytes(pretokens)
+        out = np.empty(len(pretokens), dtype=np.float64)
+        self._lib.uni_score_batch(self._handle, _ptr(data), _ptr(offsets), len(pretokens),
+                                  _ptr(out))
+        return out
+
+
+def split_pretokens_native(text: bytes, use_marks: bool = True) -> List[bytes]:
+    """The native GPT-2-regex split of one utf-8 text into raw-byte
+    pretokens."""
+    if not text:
+        return []
+    data = np.frombuffer(text, dtype=np.uint8).copy()
+    ends = np.empty(len(text), dtype=np.int64)
+    n = lib().split_pretokens(_ptr(data), len(text), _ptr(unicode_class_table()),
+                              LETTERS_WITH_MARKS if use_marks else LETTERS_NO_MARKS,
+                              _ptr(ends), len(ends))
+    if n < 0:
+        raise RuntimeError("native split: output capacity exceeded")
+    starts = [0, *ends[:n - 1].tolist()]
+    return [text[a:b] for a, b in zip(starts, ends[:n].tolist())]
+
+
+def bucket4_build_native(pieces: Sequence[bytes], scores: Sequence[float], M: int,
+                         salt: int) -> Optional[Tuple[np.ndarray, int]]:
+    """The device retokenizer's bucket-4 vocab table: ((M, 16) int32,
+    max_piece_len), or None when a bucket overflows (the caller bumps the
+    salt or doubles M)."""
+    data, offsets = _concat_bytes(pieces)
+    scores_arr = np.asarray(scores, dtype=np.float32)
+    table = np.empty((M, 16), dtype=np.int32)
+    maxlen = np.zeros(1, dtype=np.int32)
+    ok = lib().bucket4_build(_ptr(data), _ptr(offsets), _ptr(scores_arr), len(pieces), M,
+                             salt, _ptr(table), _ptr(maxlen))
+    return (table, int(maxlen[0])) if ok else None
+
+
+class NativeAhoCorasick:
+    """Aho-Corasick automaton over byte patterns, counting weighted
+    occurrences into one slot per pattern value."""
+
+    def __init__(self, patterns: Sequence[bytes], values: Sequence[int]):
+        self._lib = lib()
+        data, offsets = _concat_bytes(patterns)
+        vals = np.asarray(values, dtype=np.int32)
+        self._n_values = int(vals.max()) + 1 if len(vals) else 0
+        self._handle = self._lib.ac_new(_ptr(data), _ptr(offsets), _ptr(vals), len(patterns))
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.ac_free(self._handle)
+            self._handle = None
+
+    def count(self, texts: Sequence[bytes], weights: Sequence[int],
+              n_out: Optional[int] = None) -> np.ndarray:
+        data, offsets = _concat_bytes(texts)
+        w = np.asarray(weights, dtype=np.int64)
+        acc = np.zeros(n_out or self._n_values, dtype=np.int64)
+        self._lib.ac_count(self._handle, _ptr(data), _ptr(offsets), len(texts), _ptr(w),
+                           _ptr(acc))
+        return acc
+
+
+def substring_counts(vocab: Dict[str, int], pretoken_counts: Mapping[str, int],
+                     acc: np.ndarray) -> None:
+    """Add to ``acc`` how often each vocab token occurs as a substring of
+    the pretokens, weighted by their counts (tokens and pretokens as str,
+    matched on their utf-8 bytes)."""
+    ac = NativeAhoCorasick([k.encode("utf-8") for k in vocab], list(vocab.values()))
+    texts = [t.encode("utf-8") for t in pretoken_counts]
+    acc += ac.count(texts, list(pretoken_counts.values()), n_out=len(acc))
 
 
 class NativeBPE:

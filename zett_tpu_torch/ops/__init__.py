@@ -11,6 +11,7 @@ from .attention_core import (
     merged_attention_train,
 )
 from .encoder_layer import encoder_layer, encoder_layer_reference, layer_norm_flax_exact
+from .viterbi_dp import viterbi_dp, viterbi_dp_plain
 
 __all__ = [
     "attention_block",
@@ -26,4 +27,6 @@ __all__ = [
     "merged_attention",
     "merged_attention_reference",
     "merged_attention_train",
+    "viterbi_dp",
+    "viterbi_dp_plain",
 ]

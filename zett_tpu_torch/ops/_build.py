@@ -19,7 +19,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zett_tpu_torch")
 SOURCES = ("encoder_layer", "attention_core", "attention_core_bwd", "attention_block",
-           "merged_attention")
+           "merged_attention", "viterbi_dp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

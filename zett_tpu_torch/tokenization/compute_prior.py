@@ -1,0 +1,117 @@
+"""Prior computation CLI (counterpart of
+``zett_tpu/tokenization/compute_prior.py``; reference:
+zett/compute_prior.py:139-166).
+
+Usage:
+  python -m zett_tpu_torch.tokenization.compute_prior \\
+      --tokenizer TOK --data TEXTFILE [--mode reestimate] \\
+      [--block-size 128] [--output priors.npy] [--max-texts N] \\
+      [--device [{cuda,cpu}]]
+
+Writes {"substring": ..., "token": ...} to <tokenizer dir>/priors.npy (or
+--output). Without --device the token prior comes from the host encode
+(``chunked_tokenize`` + ``get_prior``). With --device (a bare --device means
+the card) a Unigram tokenizer's token usage is counted by the batched
+Viterbi on that device (``ops/device_viterbi.count_tokens_device``); only
+the (V,) histogram comes back. A bare --device without a card raises before
+any work.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--data", required=True, help="text file, one document per line")
+    p.add_argument("--mode", default="reestimate", choices=["reestimate", "use_tokenizer"])
+    p.add_argument("--block-size", type=int, default=128)
+    p.add_argument("--output", default=None)
+    p.add_argument("--max-texts", type=int, default=None)
+    p.add_argument(
+        "--device", nargs="?", const="cuda", default=None, choices=("cuda", "cpu"),
+        help="count token usage with the batched Viterbi on this device (bare: the card) "
+        "instead of the host encode; Unigram tokenizers only",
+    )
+    return p.parse_args(argv)
+
+
+def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
+    """Reestimated token prior from counts on ``device``: every vocab piece
+    in the byte domain (specials and empty pieces never match), Laplace
+    smoothing, special ids 0."""
+    from ..ops.device_viterbi import count_tokens_device
+    from .bytemaps import CHARS_TO_BYTES
+
+    special_tokens = set(tokenizer.all_special_tokens)
+    pieces = []
+    scores = tokenizer.model.get_scores()
+    for i in range(len(scores)):
+        tok = tokenizer.id_to_token(i) or ""
+        if tok in special_tokens or not tok:
+            pieces.append(b"")
+            continue
+        try:
+            pieces.append(bytes(CHARS_TO_BYTES[c] for c in tok))
+        except KeyError:
+            raise SystemExit(
+                f"vocab piece {tok!r} (id {i}) is not representable in the tokenizer's "
+                "byte domain; rerun without --device to use the host path")
+    # 48-byte rows: pretokens are GPT-2-split words; the longer tail is
+    # segmented exactly on the host
+    counts = count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48,
+                                 device=device)
+    priors = counts.astype(np.float64) + 1.0  # laplace, as get_prior does
+    priors /= priors.sum()
+    token_prior = np.log(priors)
+    # the counts are model-vocab-sized; added specials can sit beyond them
+    special = [i for i in tokenizer.all_special_ids if i < len(token_prior)]
+    if special:
+        token_prior[np.asarray(special)] = 0.0
+    return token_prior
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = None
+    if args.device is not None:
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to count on "
+                               "the CPU, or leave out --device for the host path")
+        device = torch.device(args.device)
+
+    from ..evaluation.perplexity import chunked_tokenize
+    from .core import Tokenizer
+    from .priors import compute_substring_prior, get_prior
+
+    tok_path = (os.path.join(args.tokenizer, "tokenizer.json")
+                if os.path.isdir(args.tokenizer) else args.tokenizer)
+    tokenizer = Tokenizer.from_file(tok_path)
+    with open(args.data) as f:
+        texts = [line.rstrip("\n") for line in f if line.strip()]
+    if args.max_texts:
+        texts = texts[:args.max_texts]
+
+    substring_prior, pretoken_counts = compute_substring_prior(
+        tokenizer, texts=texts, return_pretoken_counts=True)
+    if device is not None and args.mode == "reestimate":
+        token_prior = device_token_prior(tokenizer, pretoken_counts, device)
+    else:
+        data = chunked_tokenize(tokenizer, texts, args.block_size)
+        token_prior = get_prior(args.mode, data["input_ids"], tokenizer)
+
+    out = args.output or os.path.join(os.path.dirname(tok_path), "priors.npy")
+    np.save(out, {"substring": substring_prior, "token": token_prior})
+    print(f"wrote priors for {len(tokenizer)} tokens to {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

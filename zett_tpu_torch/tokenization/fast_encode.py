@@ -82,28 +82,50 @@ def _canonical_structure(tok: Tokenizer) -> bool:
     return _is_byte_level_pre(pt) and pt.get("use_regex", True)
 
 
+class SplitConfig:
+    """What the native split needs from a canonical tokenizer: the
+    Prepend normalizer's string (or None), whether the letter class takes
+    marks (SPLIT_REGEX vs SPLIT_REGEX_NO_MARKS), and the plain ByteLevel
+    pre-tokenizer's add_prefix_space."""
+
+    def __init__(self, prepend: Optional[str], use_marks: bool, add_prefix_space: bool):
+        self.prepend = prepend
+        self.use_marks = use_marks
+        self.add_prefix_space = add_prefix_space
+
+    @staticmethod
+    def of(tok: Tokenizer) -> "SplitConfig":
+        """Raises ValueError unless ``tok`` has the canonical structure."""
+        if not _canonical_structure(tok):
+            raise ValueError("tokenizer is not canonical byte-level")
+        norm = tok.normalizer
+        prepend = None
+        if norm is not None:
+            if norm.get("type") != "Prepend":
+                raise ValueError(f"unsupported normalizer for the fast path: {norm}")
+            prepend = norm["prepend"]
+        pt = tok.pre_tokenizer
+        if _is_byte_level_pre(pt):
+            return SplitConfig(prepend, False, bool(pt.get("add_prefix_space", True)))
+        pattern = pt["pretokenizers"][0]["pattern"]
+        return SplitConfig(prepend, r"\p{M}" in pattern.get("Regex", ""), False)
+
+    def raw_texts(self, texts: List[str]) -> List[bytes]:
+        """The normalized utf-8 texts that the native split takes."""
+        prepend_b = self.prepend.encode("utf-8") if self.prepend else b""
+        raw = [(prepend_b + t.encode("utf-8")) if (prepend_b and t) else t.encode("utf-8")
+               for t in texts]
+        if self.add_prefix_space:
+            raw = [(b" " + t) if t and not t.startswith(b" ") else t for t in raw]
+        return raw
+
+
 class FastUnigramEncoder:
     """Vectorized encode for a canonical byte-level Unigram or BPE tokenizer."""
 
     def __init__(self, tok: Tokenizer):
-        if not _canonical_structure(tok):
-            raise ValueError("tokenizer is not canonical byte-level")
         self.tok = tok
-        norm = tok.normalizer
-        self.prepend = None
-        if norm is not None:
-            if norm.get("type") != "Prepend":
-                raise ValueError(f"unsupported normalizer for the fast path: {norm}")
-            self.prepend = norm["prepend"]
-
-        pt = tok.pre_tokenizer
-        if _is_byte_level_pre(pt):
-            self.use_marks = False
-            self.add_prefix_space = bool(pt.get("add_prefix_space", True))
-        else:
-            pattern = pt["pretokenizers"][0]["pattern"]
-            self.use_marks = r"\p{M}" in pattern.get("Regex", "")
-            self.add_prefix_space = False
+        self.split = SplitConfig.of(tok)
 
         trans = _BYTECHAR_TRANS
         if isinstance(tok.model, Unigram):
@@ -150,16 +172,8 @@ class FastUnigramEncoder:
         """(input_ids, attention_mask) int32. With max_length set the output
         is truncated and padded to (n_texts, max_length); otherwise to the
         longest sequence."""
-        prepend = self.prepend
-        prepend_b = prepend.encode("utf-8") if prepend else b""
-        raw_texts = [
-            (prepend_b + t.encode("utf-8")) if (prepend and t) else t.encode("utf-8")
-            for t in texts
-        ]
-        if self.add_prefix_space:
-            raw_texts = [(b" " + t) if t and not t.startswith(b" ") else t for t in raw_texts]
-        flat_ids, tokens_per_text = self._native.encode_texts(raw_texts,
-                                                              use_marks=self.use_marks)
+        flat_ids, tokens_per_text = self._native.encode_texts(self.split.raw_texts(texts),
+                                                              use_marks=self.split.use_marks)
         if self._id_map is not None:
             flat_ids = self._id_map[flat_ids]  # trie ids -> vocab ids
         text_tok_starts = np.concatenate([[0], np.cumsum(tokens_per_text[:-1], dtype=np.int64)])
