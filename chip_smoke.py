@@ -5,11 +5,15 @@
 Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the kernels from
      zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
-     host library (g++);
+     host library (g++); print ptxas's registers, shared memory and spills
+     of kernels 1, 3 and 4, and count HGMMA and UTMALDG (kernels 1 and 4)
+     and HMMA (kernel 3) in their SASS (cuobjdump): a count of zero fails;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
-     call, beside the least time the card could take;
+     call, beside the least time the card could take; kernel 1's device
+     time by kernel and each GEMM's TFLOP/s beside torch.matmul's (cuBLAS,
+     timed only);
   3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 2048
      rows: the card (kernels) against the CPU (plain versions), f32;
   4. zero-shot transfer end to end through ``zett_tpu_torch.transfer``'s
@@ -23,7 +27,8 @@ Phases (any failure exits non-zero and prints no result):
      CLS-only layers, B = 16384 at L = 1, a ragged batch, all-padding rows),
      bf16 and f32, dropout rate 0 and 0.1; the kept fraction of kernel 2's
      own mask, and seed determinism; times beside bounds, plain versions and
-     SDPA;
+     SDPA; kernel 3 at rates 0 and 0.1 with a train batch's share of
+     all-padding rows;
   6. the hypernet's training route at gpt2_en's widths on 2048 rows, card
      against CPU, f32: the loss and every parameter gradient;
   7. training through ``zett_tpu_torch.training``'s CLI on its default
@@ -38,7 +43,9 @@ Phases (any failure exits non-zero and prints no result):
      key bias, a ragged batch and all-padding rows, at the transfer's B =
      16384 (L = 8 and the bucketed L = 5) and the eval's fixed vocab
      (B = 32896, L = 8); times beside bounds, plain versions and the
-     library calls; attention_block_fused's backward card vs CPU;
+     library calls; at L = 8 without bias kernel 4's device time by kernel
+     and each GEMM's TFLOP/s beside torch.matmul's (cuBLAS, timed only);
+     attention_block_fused's backward card vs CPU;
   9. the Hypernet at configs/zeroshot/gpt2_en_priors_inter_token_attn.json's
      widths and at a hidden_act="gelu" variant of gpt2_en on 2048 rows, card
      against CPU, f32: inference outputs (and which kernels ran), the
@@ -167,6 +174,36 @@ def compare(got, ref, dtype, what):
     return max_err
 
 
+# --------------------------------------------------------------------- phase 1
+# the instructions each redesigned kernel's library must hold: the Hopper
+# GEMM's wgmma (HGMMA) and TMA loads (UTMALDG) in kernels 1 and 4, the
+# tensor-core mma (HMMA) in kernel 3
+SASS_REQUIRED = {"attention_block": ("HGMMA", "UTMALDG"), "encoder_layer": ("HGMMA", "UTMALDG"),
+                 "attention_core_bwd": ("HMMA",)}
+
+
+def check_build():
+    """ptxas's report (registers, shared memory, spills) of the redesigned
+    kernels, and their SASS: a required instruction counted zero times
+    fails the run (where the toolkit has no cuobjdump, the report stands)."""
+    from zett_tpu_torch.ops import _build
+
+    for name in SASS_REQUIRED:
+        lines = [ln.strip() for ln in _build.reports.get(name, "").splitlines()
+                 if "entry function" in ln or "Used" in ln or "spill" in ln]
+        log(f"  ptxas -v, {name}.cu:")
+        for ln in lines or ["(no report: the library was up to date)"]:
+            log(f"    {ln}")
+    for name, ops in SASS_REQUIRED.items():
+        counts = _build.sass_counts(name, ops)
+        if counts is None:
+            log("  cuobjdump is not in the toolkit: SASS not counted")
+            return
+        log(f"  SASS of lib{name}.so: {counts}")
+        if not all(counts.values()):
+            raise AssertionError(f"lib{name}.so lacks {[op for op, n in counts.items() if not n]}")
+
+
 # --------------------------------------------------------------------- phase 2
 def layer_inputs(B, L, dtype, gen, H=768, I=1536):
     def mk(shape, s):
@@ -210,7 +247,11 @@ def library_encoder_layer(args, h):
     return lambda: layer(x, src_key_padding_mask=pad)
 
 
-def check_kernel1(B, L, dtype, gen, timed):
+def check_kernel1(B, L, dtype, gen, timed, split=False):
+    """Kernel 1 against its plain version; with ``timed``, its median time
+    beside the plain version's, nn.TransformerEncoderLayer's and the bound;
+    with ``split``, its device time by kernel and each GEMM against
+    cuBLAS."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.encoder_layer import encoder_layer, encoder_layer_reference
 
@@ -239,6 +280,10 @@ def check_kernel1(B, L, dtype, gen, timed):
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     log(f"  kernel 1 B={B} L={L} {str(dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"TransformerEncoderLayer {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if split:
+        gemm_split(lambda: encoder_layer(*args, num_heads=h, eps=eps),
+                   [("[q|k|v]", M, H, 3 * H), ("out", M, H, H), ("FFN in", M, H, I),
+                    ("FFN out", M, I, H)], dtype, f"kernel 1 B={B} L={L}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -288,7 +333,7 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         for L in (7, 4):
             main = dtype == torch.bfloat16 and L == 7
-            r = check_kernel1(16384, L, dtype, gen, timed=True)
+            r = check_kernel1(16384, L, dtype, gen, timed=True, split=main)
             if main:
                 results["encoder_layer"] = r
         check_kernel1(1000, 7, dtype, gen, timed=False)  # ragged: 7000 rows, not a tile multiple
@@ -302,9 +347,10 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------- phase 5
-def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64):
+def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64, padding_rows=0):
     """Kernel 2/3 operands at a training shape: merged q/k/v/dout, a ragged
-    key mask with all-padding rows."""
+    key mask with all-padding rows (every 97th, or ``padding_rows`` rows
+    drawn at random)."""
     def mk(L):
         return torch.randn(B, L * h, d, generator=gen).to(dtype).cuda()
 
@@ -312,6 +358,8 @@ def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64):
     mask = torch.rand(B, Lk, generator=gen) > 0.3
     mask[:, 0] = True
     mask[1::97] = False  # all-padding surface forms
+    if padding_rows:
+        mask[torch.randperm(B, generator=gen)[:padding_rows]] = False
     return qm, km, vm, dout, mask.repeat_interleave(h, dim=-1).float().cuda(), mask.cuda()
 
 
@@ -336,7 +384,7 @@ def sdpa_layout(qm, km, vm, mask, Lq, Lk, h=12, d=64):
     return q4, k4, v4, mask[:, None, None, :]
 
 
-def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234):
+def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows=0):
     """Kernels 2 and 3 against their plain versions at one training shape,
     dtype and dropout rate; with ``timed``, their median times beside the
     plain versions', SDPA's (forward; backward) and the bounds."""
@@ -346,8 +394,11 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234):
         attention_core_reference)
 
     h = 12
-    qm, km, vm, dout, kmaskf, mask = core_inputs(B, Lq, Lk, dtype, gen)
+    qm, km, vm, dout, kmaskf, mask = core_inputs(B, Lq, Lk, dtype, gen,
+                                                 padding_rows=padding_rows)
     tag = f"B={B} Lq*h={Lq * h} Lk*h={Lk * h} {str(dtype)[6:]} rate {rate}"
+    if padding_rows:
+        tag += f" ({int((~mask).all(1).sum())} all-padding rows)"
     before = dict(_build.launch_counts)
     out = attention_core(qm, km, vm, kmaskf, h, rate, seed)
     grads = attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed)
@@ -445,6 +496,12 @@ def phase_train_kernels():
                     results["attention_core"], results["attention_core_bwd"] = r
             check_train_core(1001, 7, 7, dtype, rate, gen, timed=False)  # ragged batch
             torch.cuda.empty_cache()
+    # a train batch's share of all-padding surface forms (phase 7's last
+    # batch: 18991 of 32896); the train step runs the core at rate 0
+    # (deterministic unless the backbone trains), and dropout at 0.1
+    for rate in (0.0, 0.1):
+        check_train_core(32896, 7, 7, torch.bfloat16, rate, gen, timed=True, padding_rows=18991)
+    torch.cuda.empty_cache()
     check_dropout(gen)
     return results
 
@@ -646,7 +703,7 @@ def phase_training(model_dir):
             return sum(ms for n, (ms, _) in by_name.items() if pred(n))
 
         k2 = share(lambda n: "attention_kernel" in n)
-        k3 = share(lambda n: "attention_bwd_kernel" in n)
+        k3 = share(lambda n: "attention_bwd" in n)
         # cuBLAS's Hopper GEMMs are named nvjet_*; older ones gemm/cutlass/xmma
         gemm = share(lambda n: any(t in n.lower() for t in ("nvjet", "gemm", "cutlass", "xmma")))
         elementwise = share(lambda n: "at::native" in n)
@@ -869,11 +926,9 @@ def hypernet_batches(ckpt, model_dir, target_path, batch_size):
     return run, len(target), [tuple(b.shape) for b, _ in batches]
 
 
-def device_breakdown(run, top=12):
-    """Device time by kernel over one run (torch.profiler), the device's
-    busy time and its idle share of the run's host wall time. Returns
-    (busy_ms, wall_ms, {kernel name: (ms, launches)}); busy_ms is None when
-    the profiler recorded no device time."""
+def device_events(run):
+    """The device kernels of one run (torch.profiler) in launch order, as
+    (name, start us, ms), and the run's host wall time in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -886,14 +941,23 @@ def device_breakdown(run, top=12):
     # the device timeline also carries annotations named after the host ops
     # that enclose its kernels: keep device events no host op is named as
     host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    spans, by_name = [], {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in host_names:
-            spans.append((e.time_range.start, e.time_range.end))
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    kernels = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in events
+               if e.device_type == DeviceType.CUDA and e.name not in host_names]
+    return sorted(kernels, key=lambda k: k[1]), wall_ms
+
+
+def device_breakdown(run, top=12):
+    """Device time by kernel over one run (torch.profiler), the device's
+    busy time and its idle share of the run's host wall time. Returns
+    (busy_ms, wall_ms, {kernel name: (ms, launches)}); busy_ms is None when
+    the profiler recorded no device time."""
+    kernels, wall_ms = device_events(run)
+    by_name = {}
     busy_ms, reach = 0.0, float("-inf")  # union of the kernels' spans
-    for start, end in sorted(spans):
+    for name, start, ms in kernels:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + ms, n + 1)
+        end = start + ms * 1e3
         busy_ms += max(0.0, end - max(start, reach)) / 1e3
         reach = max(reach, end)
     if busy_ms == 0:
@@ -908,6 +972,46 @@ def device_breakdown(run, top=12):
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"    {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {name[:90]}")
     return busy_ms, wall_ms, by_name
+
+
+def gemm_split(run, shapes, dtype, what, reps=5):
+    """One call of a kernel wrapper split by device kernel name (mean over
+    ``reps`` profiled calls), with each launch of the port's GEMM (median
+    per position in launch order, ``shapes`` = [(label, M, K, N)]) beside
+    torch.matmul on
+    the same shapes: cuBLAS, a timed-only yardstick that the port never
+    calls. Returns {label: (port ms, port TFLOP/s, cuBLAS ms, cuBLAS
+    TFLOP/s)}, or None when the profile holds no whole calls."""
+    run()  # warm
+    kernels, _ = device_events(lambda: [run() for _ in range(reps)])
+    gemms = [ms for name, _, ms in kernels if "gemm_" in name and "zt::" in name]
+    calls = len(gemms) // len(shapes)
+    # the profiler may drop the first launches of its window: use whole calls
+    if not calls or len(gemms) % len(shapes):
+        log(f"  {what}: the profile holds {len(gemms)} GEMM launches of {reps} calls "
+            f"(not whole calls): GEMM split not measured")
+        return None
+    by_name = {}
+    for name, _, ms in kernels:
+        by_name.setdefault(name, []).append(ms)
+    parts = ", ".join(f"{name.split('(')[0][:48]} {sum(t) / calls:.4f} ms"
+                      for name, t in sorted(by_name.items(), key=lambda kv: -sum(kv[1])))
+    log(f"  {what} device time per call by kernel (mean of {calls} profiled calls): {parts}")
+    out = {}
+    for i, (label, M, K, N) in enumerate(shapes):
+        ours = float(np.median(gemms[i::len(shapes)]))
+        a = torch.randn(M, K, device="cuda").to(dtype)
+        w = torch.randn(K, N, device="cuda").to(dtype)
+        lib = median_ms(lambda: torch.matmul(a, w))
+        del a, w
+        flops = 2.0 * M * K * N
+        rate, lib_rate = flops / ours / 1e9, flops / lib / 1e9
+        log(f"    {what} {label} GEMM ({M}x{K})({K}x{N}): port {ours:.4f} ms, {rate:.1f} "
+            f"TFLOP/s; cuBLAS torch.matmul {lib:.4f} ms, {lib_rate:.1f} TFLOP/s; port at "
+            f"{rate / lib_rate:.3f} of cuBLAS's rate, {rate / PEAK_FLOPS[dtype] * 1e12:.3f} of "
+            f"the {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s peak")
+        out[label] = (ours, rate, lib, lib_rate)
+    return out
 
 
 def phase_transfer(config=GPT2_EN, tag="ckpt"):
@@ -995,10 +1099,11 @@ def block_bias(B, L, dtype, gen):
     return kb.to(dtype).cuda()
 
 
-def check_kernel4(B, L, dtype, with_bias, gen, timed):
+def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False):
     """Kernel 4 (the tier-2 block) against its plain version; with
     ``timed``, its median time beside the plain version's, the library
-    calls' (F.linear x3 + SDPA + F.linear) and the bound."""
+    calls' (F.linear x3 + SDPA + F.linear) and the bound; with ``split``,
+    its device time by kernel and each GEMM against cuBLAS."""
     import torch.nn.functional as F
 
     from zett_tpu_torch.ops import _build
@@ -1043,6 +1148,9 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed):
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear x3 + SDPA + F.linear "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if split:
+        gemm_split(lambda: attention_block(x, mask, kb, *w, num_heads=h),
+                   [("[q|k|v]", M, H, 3 * H), ("out", M, H, H)], dtype, tag)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -1136,7 +1244,8 @@ def phase_block_kernels():
         for B, L in ((16384, 8), (16384, 5), (32896, 8)):
             for with_bias in (False, True):
                 timed = dtype == torch.bfloat16
-                r4 = check_kernel4(B, L, dtype, with_bias, gen, timed)
+                r4 = check_kernel4(B, L, dtype, with_bias, gen, timed,
+                                   split=timed and L == 8 and not with_bias)
                 r5 = check_kernel5(B, L, dtype, with_bias, gen, timed)
                 if timed and (B, L) == (16384, 8):
                     # the path's block has a mask and no key bias; the tier-1
@@ -1611,7 +1720,8 @@ def main():
 
         from zett_tpu_torch.csrc import host_lib
 
-        log(f"phase 1: built {list(_build.SOURCES)} in {_build.build():.2f} s")
+        log(f"phase 1: built {list(_build.SOURCES)} in {_build.build(verbose=True):.2f} s")
+        check_build()
         t0 = time.perf_counter()
         host_lib.build()
         log(f"  built the native host library (g++) in {time.perf_counter() - t0:.2f} s")

@@ -10,9 +10,9 @@
 // 16384*7, H = 768, I = 1536, bf16) that is ~1.08 TFLOP against ~0.36 GB of
 // layer input, output and weights: compute-bound on the tensor cores
 // (>= 1.09 ms at 989 TFLOP/s). The design keeps the products on the tensor
-// cores (mma.sync through WMMA, bf16 in, f32 accumulate) in a tiled GEMM with
-// a cp.async double-buffered pipeline and a fused bias/gelu epilogue
-// (gemm.cuh, shared with kernel 4); the
+// cores in gemm.cuh's Hopper GEMM (shared with kernel 4: persistent,
+// warp-specialised, TMA into a 4-stage mbarrier ring, wgmma m64n256k16,
+// fused bias/gelu epilogue; weights given transposed, (N, K)); the
 // attention core keeps each row's score plane on chip (attention.cuh); the
 // residual LayerNorms are one warp per position. The layer runs as seven
 // launches on the caller's stream; the (M, 3H), (M, H) and (M, I)
@@ -75,9 +75,9 @@ cudaError_t add_layer_norm(const T* a, const T* b, const float* scale, const flo
 
 template <typename T>
 cudaError_t encoder_layer(const T* x, const float* mask, int B, int L, int H, int nh, int I,
-                          const T* wqkv, const T* bqkv, const T* wo, const T* bo,
-                          const float* ln1s, const float* ln1b, const T* w1, const T* b1,
-                          const T* w2, const T* b2, const float* ln2s, const float* ln2b,
+                          const T* wqkv_t, const T* bqkv, const T* wo_t, const T* bo,
+                          const float* ln1s, const float* ln1b, const T* w1_t, const T* b1,
+                          const T* w2_t, const T* b2, const float* ln2s, const float* ln2b,
                           float eps, int act, T* qkv, T* ctx, T* tmp, T* y1, T* mid, T* out,
                           cudaStream_t s) {
   const int M = B * L;
@@ -85,7 +85,7 @@ cudaError_t encoder_layer(const T* x, const float* mask, int B, int L, int H, in
 #define ZT_TRY(call)          \
   err = (call);               \
   if (err != cudaSuccess) return err;
-  ZT_TRY(gemm<T>(x, wqkv, bqkv, qkv, M, 3 * H, H, 0, s));
+  ZT_TRY(gemm<T>(x, wqkv_t, bqkv, qkv, M, 3 * H, H, 0, s));
   AttnArgs a;
   a.q = qkv;
   a.k = qkv + H;
@@ -104,10 +104,10 @@ cudaError_t encoder_layer(const T* x, const float* mask, int B, int L, int H, in
   a.m_sl = 1;
   a.m_sh = 0;
   ZT_TRY(launch_attention<T>(a, s));
-  ZT_TRY(gemm<T>(ctx, wo, bo, tmp, M, H, H, 0, s));
+  ZT_TRY(gemm<T>(ctx, wo_t, bo, tmp, M, H, H, 0, s));
   ZT_TRY(add_layer_norm<T>(tmp, x, ln1s, ln1b, y1, M, H, eps, s));
-  ZT_TRY(gemm<T>(y1, w1, b1, mid, M, I, H, act, s));
-  ZT_TRY(gemm<T>(mid, w2, b2, tmp, M, H, I, 0, s));
+  ZT_TRY(gemm<T>(y1, w1_t, b1, mid, M, I, H, act, s));
+  ZT_TRY(gemm<T>(mid, w2_t, b2, tmp, M, H, I, 0, s));
   ZT_TRY(add_layer_norm<T>(tmp, y1, ln2s, ln2b, out, M, H, eps, s));
 #undef ZT_TRY
   return cudaSuccess;
@@ -116,25 +116,27 @@ cudaError_t encoder_layer(const T* x, const float* mask, int B, int L, int H, in
 }  // namespace zt
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = no activation, 1 = tanh-gelu.
+// Weights transposed, row-major: wqkv_t (3H, H), wo_t (H, H), w1_t (I, H),
+// w2_t (H, I); H % 256 == 0 and I % 256 == 0.
 // Returns a cudaError_t (0 = success).
 extern "C" int zt_encoder_layer(int dtype, const void* x, const float* mask, int B, int L,
-                                int H, int nh, int I, const void* wqkv, const void* bqkv,
-                                const void* wo, const void* bo, const float* ln1s,
-                                const float* ln1b, const void* w1, const void* b1,
-                                const void* w2, const void* b2, const float* ln2s,
+                                int H, int nh, int I, const void* wqkv_t, const void* bqkv,
+                                const void* wo_t, const void* bo, const float* ln1s,
+                                const float* ln1b, const void* w1_t, const void* b1,
+                                const void* w2_t, const void* b2, const float* ln2s,
                                 const float* ln2b, float eps, int act, void* qkv, void* ctx,
                                 void* tmp, void* y1, void* mid, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
     using T = zt::bf16;
     return (int)zt::encoder_layer<T>(
-        (const T*)x, mask, B, L, H, nh, I, (const T*)wqkv, (const T*)bqkv, (const T*)wo,
-        (const T*)bo, ln1s, ln1b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, ln2s,
+        (const T*)x, mask, B, L, H, nh, I, (const T*)wqkv_t, (const T*)bqkv, (const T*)wo_t,
+        (const T*)bo, ln1s, ln1b, (const T*)w1_t, (const T*)b1, (const T*)w2_t, (const T*)b2, ln2s,
         ln2b, eps, act, (T*)qkv, (T*)ctx, (T*)tmp, (T*)y1, (T*)mid, (T*)out, s);
   }
   using T = float;
   return (int)zt::encoder_layer<T>(
-      (const T*)x, mask, B, L, H, nh, I, (const T*)wqkv, (const T*)bqkv, (const T*)wo,
-      (const T*)bo, ln1s, ln1b, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, ln2s,
+      (const T*)x, mask, B, L, H, nh, I, (const T*)wqkv_t, (const T*)bqkv, (const T*)wo_t,
+      (const T*)bo, ln1s, ln1b, (const T*)w1_t, (const T*)b1, (const T*)w2_t, (const T*)b2, ln2s,
       ln2b, eps, act, (T*)qkv, (T*)ctx, (T*)tmp, (T*)y1, (T*)mid, (T*)out, s);
 }

@@ -1,10 +1,32 @@
 // Row-major GEMM with a fused bias (and optional tanh-gelu) epilogue, shared
 // by encoder_layer.cu (kernel 1) and attention_block.cu (kernel 4).
 //
-// C[M, N] = epilogue(A[M, K] @ W[K, N]). bf16 runs on the tensor cores
-// (mma.sync through WMMA, bf16 in, f32 accumulate) in 128 x 128 x 32 block
-// tiles with a cp.async double-buffered pipeline; f32 uses plain FMA tiles
-// (no TF32), for comparisons at full precision.
+// C[M, N] = epilogue(A[M, K] @ Wt[N, K]^T): A row-major, the weight given
+// transposed (N, K), K contiguous (PyTorch's Linear layout; the wrappers
+// repack W (K, N) every call, so weights updated in place are never stale).
+//
+// bf16 runs on Hopper's tensor cores: a persistent, warp-specialised kernel.
+// One block per SM walks 128 x 256 output tiles (tile index n-fastest, so
+// the blocks in flight share their A rows and all of W in L2). Warpgroup 0's
+// first thread is the producer: TMA brings 128 x 64 tiles of A and 256 x 64
+// tiles of Wt, 128-byte swizzled, into a ring of 4 stages guarded by
+// full/empty mbarriers, running ahead across tiles. Warpgroups 1 and 2
+// consume: each issues wgmma.mma_async m64n256k16 (bf16 in, f32 accumulate
+// in 128 registers a thread; setmaxnreg moves registers from the producer to
+// them) over its 64 rows, keeps one k-block's batch in flight and releases
+// the stage before it. At the tile's end the epilogue runs in registers, on
+// packed bf16 pairs, into 64 x 64 shared-memory chunks (two slots a
+// warpgroup, 128-byte swizzled like the loads, so the fragment writes meet
+// no bank conflict), and one thread hands each chunk to a TMA store; the
+// warpgroup goes on to the next tile's products while the stores drain.
+// (With the threads storing the tile themselves, the tensor cores sat idle
+// through every epilogue.) N = 256, not 128: one A tile feeds 256 columns,
+// so a stage carries 85 operations per byte loaded (64 at N = 128), and each
+// k16 step reads 80 B/clock of shared memory, under the SM's 128. Ragged M:
+// TMA zero-fills rows past M and the TMA store clips them. Needs N % 256 ==
+// 0, K % 64 == 0, 16-byte aligned A, Wt and C.
+//
+// f32 uses plain FMA tiles (no TF32), for comparisons at full precision.
 //
 // Numerics (zett_tpu/ops/pallas_attention.py:541-545, 741-744): the product
 // accumulates in f32, is cast to T, and only then adds its bias in T, as
@@ -13,13 +35,13 @@
 
 #include "attention.cuh"
 
-#include <mma.h>
+#include <cuda.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 namespace zt {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kGemmThreads = 256;
 
 // tanh approximation (flax nn.gelu's default, the hypernet's gelu_new)
 __device__ __forceinline__ float gelu_f(float x) {
@@ -28,131 +50,300 @@ __device__ __forceinline__ float gelu_f(float x) {
   return x * cdf;
 }
 
-// act: 0 none, 1 tanh-gelu
-template <typename T>
-__device__ __forceinline__ float epilogue(float acc, const T* bias, int col, int act) {
-  float y = Num<T>::round(acc);
-  y = Num<T>::round(y + Num<T>::to_f(bias[col]));
-  if (act) y = Num<T>::round(gelu_f(y));
-  return y;
+// act: 0 none, 1 tanh-gelu (the f32 path; bf16 is epilogue_pair below)
+__device__ __forceinline__ float epilogue_f32(float acc, float bias, int act) {
+  const float y = acc + bias;
+  return act ? gelu_f(y) : y;
 }
 
 // ---------------------------------------------------------------- bf16 GEMM
-// All row-major, K % 32 == 0, N % 8 == 0, 16-byte aligned operands. Block
-// tile 128 x 128 x 32, 8 warps of 32 x 64 each.
-constexpr int BM = 128, BN = 128, BK = 32, APAD = 8, BPAD = 8;
-
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N,
-                 int K, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[2][BM][BK + APAD];
-  __shared__ __align__(128) bf16 Bs[2][BK][BN + BPAD];
-  __shared__ __align__(128) float Cs[kGemmThreads / 32][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      const int c = tid + l * kGemmThreads;
-      const int row = c / (BK / 8), ch = c % (BK / 8);
-      const int grow = min(m0 + row, M - 1);  // ragged M: clamp, never stored
-      cp_async16(&As[stage][row][ch * 8], A + (size_t)grow * K + k0 + ch * 8);
-    }
-#pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      const int c = tid + l * kGemmThreads;
-      const int row = c / (BN / 8), ch = c % (BN / 8);
-      const int gcol = min(n0 + ch * 8, N - 8);  // ragged N: clamp, never stored
-      cp_async16(&Bs[stage][row][ch * 8], W + (size_t)(k0 + row) * N + gcol);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int ktiles = K / BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) {
-      load_tile((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[st][wm * 32 + i * 16][kk], BK + APAD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], &Bs[st][kk][wn * 64 + j * 16], BN + BPAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
+// The epilogue of two neighbouring accumulators, packed: rounded to bf16,
+// the bias pair added in bf16 (one rounding of the exact sum: the f32 sum
+// of two bf16 values rounds to the same bf16), tanh-gelu in f32, one cast.
+__device__ __forceinline__ __nv_bfloat162 epilogue_pair(float a0, float a1, __nv_bfloat162 bias,
+                                                        int act) {
+  __nv_bfloat162 y = __hadd2(__floats2bfloat162_rn(a0, a1), bias);
+  if (act) {
+    const float2 f = __bfloat1622float2(y);
+    y = __floats2bfloat162_rn(gelu_f(f.x), gelu_f(f.y));
   }
+  return y;
+}
 
-  // epilogue through a per-warp 16x16 f32 staging tile; each lane owns 8
-  // consecutive columns of one row and writes them as one 16-byte store
-  float* stage = Cs[warp];
-  const int r = lane / 2, c0 = (lane % 2) * 8;
+constexpr int GM = 128, GN = 256, GK = 64, GSTAGES = 4;
+constexpr int kGemmConsumers = 2;                     // warpgroups of 64 rows each
+constexpr int kGemmTcThreads = 128 * (1 + kGemmConsumers);
+constexpr int kStageA = GM * GK * 2, kStageB = GN * GK * 2;  // bytes
+// an epilogue chunk: a consumer's 64 rows x 64 columns, 128-byte swizzled;
+// two slots a consumer
+constexpr int kEpiCols = 64, kEpiSlot = 64 * kEpiCols * 2;
+constexpr int kGemmSmem =
+    GSTAGES * (kStageA + kStageB) + kGemmConsumers * 2 * kEpiSlot + 1024;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Returns once the barrier's phase differs from `parity`. A wait of more
+// than ~2^36 clocks (tens of seconds; a stage takes microseconds) can only
+// be a broken pipeline: it traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 36)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"((uint64_t)map), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Byte offset of (row, col) in a tile of 64-column bf16 rows, 128-byte
+// swizzled as TMA reads and writes it: 16-byte chunk col/8 of row r sits at
+// chunk (col/8) ^ (r % 8).
+__device__ __forceinline__ int swizzle128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows,
+// 128-byte swizzled (as TMA wrote it): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d[64 x 256] += A[64 x 16] * B[16 x 256], both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma (their values are defined only after the wait).
+__device__ __forceinline__ void fence_accumulators(float (&d)[128]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int grow = m0 + wm * 32 + i * 16 + r;
-      const int gcol = n0 + wn * 64 + j * 16 + c0;
-      if (grow < M && gcol < N) {
-        __align__(16) bf16 o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = __float2bfloat16_rn(epilogue<bf16>(stage[r * 16 + c0 + e], bias, gcol + e, act));
-        *reinterpret_cast<uint4*>(C + (size_t)grow * N + gcol) = *reinterpret_cast<uint4*>(o);
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(kGemmTcThreads, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_c, const bf16* __restrict__ bias, int M,
+                 int N, int K, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[GSTAGES], empty[GSTAGES];
+  // 128-byte swizzled TMA tiles want 1024-byte aligned buffers
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem;                      // [GSTAGES][GM][GK]
+  uint8_t* sb = smem + GSTAGES * kStageA;  // [GSTAGES][GN][GK]
+  uint8_t* se = sb + GSTAGES * kStageB;    // [consumer][2 slots][64][64], swizzled
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGemmConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_tiles = N / GN;
+  const int tiles = ((M + GM - 1) / GM) * n_tiles;
+  const int kblocks = K / GK;
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, across tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], kStageA + kStageB);
+          tma_load_2d(sa + stage * kStageA, &map_a, &full[stage], kb * GK, m0);
+          tma_load_2d(sb + stage * kStageB, &map_w, &full[stage], kb * GK, n0);
+          if (++stage == GSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      __syncwarp();
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int t128 = threadIdx.x % 128;
+    const int frag_row = 16 * (t128 / 32) + (t128 % 32) / 4;  // within the 64
+    const int frag_col = 2 * (t128 % 4);
+    int stage = 0;
+    unsigned phase = 0;
+    float d[128];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+      int held = -1;  // the stage the batch in flight reads
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        fence_accumulators(d);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const uint8_t* a = sa + stage * kStageA + c * 64 * GK * 2;
+        const uint8_t* b = sb + stage * kStageB;
+#pragma unroll
+        for (int kk = 0; kk < GK / 16; ++kk)  // a k16 step is 32 bytes into the swizzled row
+          wgmma_m64n256k16(d, wgmma_desc(a + 32 * kk), wgmma_desc(b + 32 * kk));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous batch
+        fence_accumulators(d);
+        if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == GSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_accumulators(d);
+      if (t128 == 0) mbar_arrive(&empty[held]);
+      // accumulator j of m64nNk16: row 8*((j/2)%2) + the thread's row,
+      // column 8*(j/4) + (j%2) + the thread's column pair
+#pragma unroll
+      for (int q = 0; q < GN / kEpiCols; ++q) {
+        uint8_t* slot = se + (2 * c + (q & 1)) * kEpiSlot;
+        // the store that last read this slot (two chunks back) is done
+        if (t128 == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");  // this warpgroup
+#pragma unroll
+        for (int j = 0; j < kEpiCols / 8; ++j) {
+          const int j8 = q * (kEpiCols / 8) + j;
+          const int col = 8 * j + frag_col;
+          const __nv_bfloat162 bb =
+              *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + kEpiCols * q + col);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<__nv_bfloat162*>(slot + swizzle128(frag_row + 8 * hh, col)) =
+                epilogue_pair(d[4 * j8 + 2 * hh], d[4 * j8 + 2 * hh + 1], bb, act);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // seen by TMA
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+        if (t128 == 0) {
+          tma_store_2d(&map_c, slot, n0 + kEpiCols * q, m0 + 64 * c);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      }
+    }
+    if (t128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// cuTensorMapEncodeTiled, from the libcuda that the CUDA runtime has
+// already loaded (no -lcuda at build time)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Internal linkage (static, not inline) for the function-local statics
+// here and in gemm_setup: a static local of an inline function is one
+// object across all the libraries of a process (GNU unique), so the first
+// library to call would set it for all.
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* cuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (cuda == nullptr) cuda = dlopen("libcuda.so.1", RTLD_NOW);
+    if (cuda != nullptr) fn = (EncodeTiledFn)dlsym(cuda, "cuTensorMapEncodeTiled");
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix read or written in (box_rows, 64)
+// tiles, 128-byte swizzled; rows past the end read as zeros and are not
+// written.
+static bool tile_map(CUtensorMap* map, const bf16* ptr, int rows, int cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)GK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)ptr, dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------- f32 GEMM
 // Plain FMA tiles 64 x 64 x 16, 4 x 4 outputs per thread (no tensor cores,
 // no TF32): the full-precision path. K % 16 == 0.
+constexpr int kGemmThreads = 256;
 constexpr int FM = 64, FN = 64, FK = 16;
 
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, float* __restrict__ C, int M, int N,
-                int K, int act) {
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
+                const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K,
+                int act) {
   __shared__ float As[FK][FM + 4];
   __shared__ float Bs[FK][FN + 4];
   const int tid = threadIdx.x;
@@ -165,8 +356,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
       const int idx = tid + l * kGemmThreads;
       const int r = idx / FK, c = idx % FK;
       As[c][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.0f;
-      const int rb = idx / FN, cb = idx % FN;
-      Bs[rb][cb] = (n0 + cb < N) ? W[(size_t)(k0 + rb) * N + n0 + cb] : 0.0f;
+      Bs[c][r] = (n0 + r < N) ? Wt[(size_t)(n0 + r) * K + k0 + c] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -190,28 +380,56 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (col < N) C[(size_t)row * N + col] = epilogue<float>(acc[i][j], bias, col, act);
+      if (col < N) C[(size_t)row * N + col] = epilogue_f32(acc[i][j], bias[col], act);
     }
   }
 }
 
 template <typename T>
-cudaError_t gemm(const T* A, const T* W, const T* bias, T* C, int M, int N, int K, int act,
+cudaError_t gemm(const T* A, const T* Wt, const T* bias, T* C, int M, int N, int K, int act,
                  cudaStream_t s);
 
+// The SM count, and this library's kernel's opt-in to its shared memory,
+// once.
+static cudaError_t gemm_setup(int* sms) {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0, n = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kGemmSmem);
+    if (err != cudaSuccess) return err;
+    count = n;
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
 template <>
-inline cudaError_t gemm<bf16>(const bf16* A, const bf16* W, const bf16* bias, bf16* C, int M,
+inline cudaError_t gemm<bf16>(const bf16* A, const bf16* Wt, const bf16* bias, bf16* C, int M,
                               int N, int K, int act, cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, kGemmThreads, 0, s>>>(A, W, bias, C, M, N, K, act);
+  if (M < 1 || N % GN || K % GK) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = gemm_setup(&sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_a, map_w, map_c;
+  if (!tile_map(&map_a, A, M, K, GM) || !tile_map(&map_w, Wt, N, K, GN) ||
+      !tile_map(&map_c, C, M, N, kEpiCols))
+    return cudaErrorInvalidValue;
+  const int tiles = ((M + GM - 1) / GM) * (N / GN);
+  const int grid = tiles < sms ? tiles : sms;  // persistent: one block per SM
+  gemm_bf16_kernel<<<grid, kGemmTcThreads, kGemmSmem, s>>>(map_a, map_w, map_c, bias, M, N, K,
+                                                             act);
   return cudaGetLastError();
 }
 
 template <>
-inline cudaError_t gemm<float>(const float* A, const float* W, const float* bias, float* C,
+inline cudaError_t gemm<float>(const float* A, const float* Wt, const float* bias, float* C,
                                int M, int N, int K, int act, cudaStream_t s) {
   dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
-  gemm_f32_kernel<<<grid, kGemmThreads, 0, s>>>(A, W, bias, C, M, N, K, act);
+  gemm_f32_kernel<<<grid, kGemmThreads, 0, s>>>(A, Wt, bias, C, M, N, K, act);
   return cudaGetLastError();
 }
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +29,10 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# nvcc's output (ptxas's registers, shared memory and spills) of each
+# library built with ``verbose``
+reports: Dict[str, str] = {}
+
 # Launches per kernel wrapper. A wrapper adds one where it launches its
 # kernel on the card, and nowhere else.
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -42,12 +47,16 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> Optional[str]:
+    """A CUDA toolkit program: under CUDA_HOME (or /usr/local/cuda), else
+    on the PATH; None where there is neither."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
+    path = os.path.join(home, "bin", name)
+    return path if os.path.exists(path) else shutil.which(name)
+
+
+def _nvcc() -> str:
+    found = _tool("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
@@ -72,7 +81,9 @@ def _stale(name: str) -> bool:
 def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> float:
     """Compile the named kernels (default: all) that are missing or older
     than their sources, one nvcc process per source, all started together.
-    Returns the wall time in seconds. Raises if any compile fails."""
+    With ``verbose``, ptxas reports each kernel's resources into
+    ``reports``. Returns the wall time in seconds. Raises if any compile
+    fails."""
     names = [n for n in (names or SOURCES) if _stale(n)]
     t0 = time.perf_counter()
     if not names:
@@ -93,12 +104,23 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> float
         if proc.returncode != 0:
             failures.append(f"{name}:\n{out}")
             continue
-        if verbose and out:
-            print(out)
+        if verbose:
+            reports[name] = out
         os.replace(tmp, _lib_path(name))
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def sass_counts(name: str, opcodes: Iterable[str]) -> Optional[Dict[str, int]]:
+    """How often each SASS opcode occurs in a built kernel library
+    (``cuobjdump -sass``); None where the toolkit has no cuobjdump."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", _lib_path(name)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -33,7 +33,7 @@ import torch
 
 from . import _build
 from .attention_core import attention_core, attention_core_bwd, merged_attention_reference
-from .encoder_layer import _aligned, dense_exact
+from .encoder_layer import _aligned, check_gemm_widths, dense_exact, pack_weights
 
 _NAME = "attention_block"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,8 +131,6 @@ def attention_block_fused(x, maskf, kbias, wq, bq, wk, bk, wv, bv, wo, bo, num_h
 
 def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
     lib = _build.load(_NAME)
-    if not x.is_cuda:
-        raise ValueError(f"attention_block: no kernel for device {x.device}")
     dtype = x.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"attention_block: unsupported dtype {dtype}")
@@ -141,8 +139,9 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
         raise ValueError(f"attention_block: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"attention_block: sequence length {L} outside 1..32")
-    if H % 32:
-        raise ValueError(f"attention_block: H={H} must be a multiple of 32")
+    check_gemm_widths("attention_block", dtype, (3 * H, H), (H,))
+    if not x.is_cuda:
+        raise ValueError(f"attention_block: no kernel for device {x.device}")
     weights = (wq, bq, wk, bk, wv, bv, wo, bo)
     if any(t.dtype != dtype or t.device != x.device for t in weights):
         raise TypeError("attention_block: weights must match x's dtype and device")
@@ -153,9 +152,9 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
     x = _aligned(x)
     maskf = mask.float().contiguous() if mask is not None else None
     kb = kbias.to(dtype).contiguous() if kbias is not None else None
-    wqkv = torch.cat([wq, wk, wv], dim=1).contiguous()
+    wqkv_t, wo_t = pack_weights(wq, wk, wv), pack_weights(wo)
     bqkv = torch.cat([bq, bk, bv]).contiguous()
-    wo, bo = _aligned(wo), _aligned(bo)
+    bo = _aligned(bo)
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
     ctx = torch.empty(M, H, dtype=dtype, device=dev)
@@ -167,7 +166,7 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_DTYPES[dtype], x.data_ptr(), maskf.data_ptr() if maskf is not None else None,
              kb.data_ptr() if kb is not None else None, B, L, H, num_heads,
-             wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+             wqkv_t.data_ptr(), bqkv.data_ptr(), wo_t.data_ptr(), bo.data_ptr(),
              qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "attention_block kernel launch")
     _build.count_launch(_NAME)

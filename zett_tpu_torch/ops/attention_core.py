@@ -142,12 +142,13 @@ def attention_core_reference(qm, km, vm, kmaskf, num_heads: int, rate: float = 0
     return torch.einsum("bqk,bkd->bqd", w.to(acc), vm.to(acc)).to(dtype)
 
 
-def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
-                                 rate: float = 0.0, seed: int = 0):
-    """Plain version of kernel 3, hand-written after
-    ``_core_train_bwd_kernel`` (pallas_attention.py:254-317): (dqm, dkm,
-    dvm). ds is zero on masked entries (the gradient of the forward's
-    select), which the TPU kernel omits; see ``attention_core_bwd.cu``."""
+def core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0,
+                     seed: int = 0):
+    """The planes of kernel 3's plain version, in the accumulation dtype as
+    its output products take them: w (the forward's weights), wd (the
+    dropped weights, dV = Wd^T dO) and ds (dQ = dS K, dK = dS^T Q). Each is
+    rounded to the compute dtype, which is what lets the bf16 kernel feed
+    them to the tensor cores and get the same products."""
     dtype = qm.dtype
     acc = _acc_dtype(dtype)
     dev = qm.device
@@ -162,14 +163,26 @@ def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
         dw = torch.where(keep, dwd * scale32, torch.zeros((), dtype=acc, device=dev))
     else:
         wd, dw = w, dwd
-    dvm = torch.einsum("bqk,bqd->bkd", wd.to(acc), dout.to(acc)).to(dtype)
     w32 = w.to(acc)
     ds = w32 * (dw - (dw * w32).sum(-1, keepdim=True))
     ds = torch.where(valid, ds, torch.zeros((), dtype=acc, device=dev))
     inv_sqrt_d = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).to(acc).item()
     ds = (ds * inv_sqrt_d).to(dtype)
-    dqm = torch.einsum("bqk,bkd->bqd", ds.to(acc), km.to(acc)).to(dtype)
-    dkm = torch.einsum("bqk,bqd->bkd", ds.to(acc), qm.to(acc)).to(dtype)
+    return w32, wd.to(acc), ds.to(acc)
+
+
+def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
+                                 rate: float = 0.0, seed: int = 0):
+    """Plain version of kernel 3, hand-written after
+    ``_core_train_bwd_kernel`` (pallas_attention.py:254-317): (dqm, dkm,
+    dvm). ds is zero on masked entries (the gradient of the forward's
+    select), which the TPU kernel omits; see ``attention_core_bwd.cu``."""
+    dtype = qm.dtype
+    acc = _acc_dtype(dtype)
+    _, wd, ds = core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
+    dvm = torch.einsum("bqk,bqd->bkd", wd, dout.to(acc)).to(dtype)
+    dqm = torch.einsum("bqk,bkd->bqd", ds, km.to(acc)).to(dtype)
+    dkm = torch.einsum("bqk,bqd->bkd", ds, qm.to(acc)).to(dtype)
     return dqm, dkm, dvm
 
 
@@ -298,12 +311,15 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
 
 def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
     lib = _build.load(_BWD)
-    if not qm.is_cuda:
-        raise ValueError(f"attention_core_bwd: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core_bwd")
     if dout.shape != qm.shape or dout.dtype != qm.dtype:
         raise TypeError("attention_core_bwd: dout must match qm's shape and dtype")
     qm, km, vm, dout = (t.contiguous() for t in (qm, km, vm, dout))
+    # the bf16 kernel stages rows with 16-byte cp.async loads
+    if any(t.data_ptr() % 16 for t in (qm, km, vm, dout)):
+        raise ValueError("attention_core_bwd: qm, km, vm and dout must start 16-byte aligned")
+    if not qm.is_cuda:
+        raise ValueError(f"attention_core_bwd: no kernel for device {qm.device}")
     maskf = kmaskf.float().contiguous()
     dqm, dkm, dvm = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
     drop, seed32, thr, _, scale, scale32 = _dropout_args(rate, seed, qm.dtype)

@@ -102,17 +102,46 @@ def encoder_layer(x, mask: Optional[torch.Tensor], wq, bq, wk, bk, wv, bv, wo, b
 
 
 def _aligned(t):
-    """Contiguous and 16-byte aligned, as the GEMM's cp.async loads need."""
+    """Contiguous and 16-byte aligned, as the GEMM's TMA loads need."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+# csrc/gemm.cuh's bf16 block tile over the output width N and the depth K
+GEMM_TILE_N, GEMM_TILE_K = 256, 64
+
+
+def check_gemm_widths(what: str, dtype, widths, depths) -> None:
+    """Raise ValueError on what the GEMMs of ``csrc/gemm.cuh`` refuse: rows
+    (output ``widths`` N and ``depths`` K) that are not whole 16-byte units,
+    as TMA reads them, an N that is not a multiple of the N tile, a K that
+    is not a multiple of the k tile."""
+    size = torch.finfo(dtype).bits // 8
+    for n in (*widths, *depths):
+        if n * size % 16:
+            raise ValueError(f"{what}: rows of {n} {dtype} values are not a multiple of "
+                             "16 bytes")
+    for n in widths:
+        if n % GEMM_TILE_N:
+            raise ValueError(f"{what}: width {n} is not a multiple of the GEMM's N tile "
+                             f"{GEMM_TILE_N}")
+    for k in depths:
+        if k % GEMM_TILE_K:
+            raise ValueError(f"{what}: depth {k} is not a multiple of the GEMM's k tile "
+                             f"{GEMM_TILE_K}")
+
+
+def pack_weights(*ws):
+    """The GEMM's B operand: the (K, N_i) weights side by side, transposed to
+    (sum N_i, K) row-major (K contiguous, as the wgmma reads it). Rebuilt
+    at every call, never cached: the optimizer updates weights in place."""
+    return torch.cat(ws, dim=1).t().contiguous()
 
 
 def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
             ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, *,
             num_heads, eps):
     lib = _build.load(_NAME)
-    if not x.is_cuda:
-        raise ValueError(f"encoder_layer: no kernel for device {x.device}")
     dtype = x.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"encoder_layer: unsupported dtype {dtype}")
@@ -122,17 +151,19 @@ def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
         raise ValueError(f"encoder_layer: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"encoder_layer: sequence length {L} outside 1..32")
-    if H % 32 or I % 32:
-        raise ValueError(f"encoder_layer: H={H} and I={I} must be multiples of 32")
+    check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
+    if not x.is_cuda:
+        raise ValueError(f"encoder_layer: no kernel for device {x.device}")
     weights = (wq, bq, wk, bk, wv, bv, wo, bo, w1, b1, w2, b2)
     if any(t.dtype != dtype or t.device != x.device for t in weights):
         raise TypeError("encoder_layer: weights must match x's dtype and device")
     dev = x.device
     x = _aligned(x)
     maskf = (torch.ones(B, L, device=dev) if mask is None else mask.float()).contiguous()
-    wqkv = torch.cat([wq, wk, wv], dim=1).contiguous()
+    wqkv_t = pack_weights(wq, wk, wv)
+    wo_t, w1_t, w2_t = (pack_weights(w) for w in (wo, w1, w2))
     bqkv = torch.cat([bq, bk, bv]).contiguous()
-    wo, bo, w1, b1, w2, b2 = (_aligned(t) for t in (wo, bo, w1, b1, w2, b2))
+    bo, b1, b2 = (_aligned(t) for t in (bo, b1, b2))
     ln = [t.float().contiguous() for t in (ln1_s, ln1_b, ln2_s, ln2_b)]
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
@@ -149,9 +180,9 @@ def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
                    ctypes.c_float, ctypes.c_int, p, p, p, p, p, p, p]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_DTYPES[dtype], x.data_ptr(), maskf.data_ptr(), B, L, H, num_heads, I,
-             wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-             ln[0].data_ptr(), ln[1].data_ptr(), w1.data_ptr(), b1.data_ptr(),
-             w2.data_ptr(), b2.data_ptr(), ln[2].data_ptr(), ln[3].data_ptr(),
+             wqkv_t.data_ptr(), bqkv.data_ptr(), wo_t.data_ptr(), bo.data_ptr(),
+             ln[0].data_ptr(), ln[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
+             w2_t.data_ptr(), b2.data_ptr(), ln[2].data_ptr(), ln[3].data_ptr(),
              float(eps), 1,
              qkv.data_ptr(), ctx.data_ptr(), tmp.data_ptr(), y1.data_ptr(),
              mid.data_ptr(), out.data_ptr(), stream)
