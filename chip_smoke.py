@@ -6,14 +6,16 @@ Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the kernels from
      zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
      host library (g++); print ptxas's registers, shared memory and spills
-     of kernels 1, 3 and 4, and count HGMMA and UTMALDG (kernels 1 and 4)
-     and HMMA (kernel 3) in their SASS (cuobjdump): a count of zero fails;
+     of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
+     HMMA (kernels 1 to 5: the attention core's mma.sync) in their SASS
+     (cuobjdump): a count of zero fails;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
      call, beside the least time the card could take; kernel 1's device
      time by kernel and each GEMM's TFLOP/s beside torch.matmul's (cuBLAS,
-     timed only);
+     timed only); kernel 1 at widths off the GEMM's 256 tile (H 640 with 10
+     heads and I 1600, H 896 with 14 heads);
   3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 2048
      rows: the card (kernels) against the CPU (plain versions), f32;
   4. zero-shot transfer end to end through ``zett_tpu_torch.transfer``'s
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero and prints no result):
      breaks the hypernet's device time down by kernel (torch.profiler);
   5. kernels 2 and 3 (the tier-4 attention core's forward and backward)
      against their plain versions at the training shapes (B = 32896 full and
-     CLS-only layers, B = 16384 at L = 1, a ragged batch, all-padding rows),
+     CLS-only layers, B = 16384 at L = 1, a ragged batch, all-padding rows,
+     and Lq, Lk of 16, 9 and 20, 32),
      bf16 and f32, dropout rate 0 and 0.1; the kept fraction of kernel 2's
      own mask, and seed determinism; times beside bounds, plain versions and
      SDPA; kernel 3 at rates 0 and 0.1 with a train batch's share of
@@ -45,7 +48,8 @@ Phases (any failure exits non-zero and prints no result):
      (B = 32896, L = 8); times beside bounds, plain versions and the
      library calls; at L = 8 without bias kernel 4's device time by kernel
      and each GEMM's TFLOP/s beside torch.matmul's (cuBLAS, timed only);
-     attention_block_fused's backward card vs CPU;
+     kernel 4 at H 640 (10 heads) and H 896 (14 heads), kernel 5 at 14
+     heads; attention_block_fused's backward card vs CPU;
   9. the Hypernet at configs/zeroshot/gpt2_en_priors_inter_token_attn.json's
      widths and at a hidden_act="gelu" variant of gpt2_en on 2048 rows, card
      against CPU, f32: inference outputs (and which kernels ran), the
@@ -63,7 +67,11 @@ Phases (any failure exits non-zero and prints no result):
      plain version at B = 65536 (L 48, K 16; L 8, K 8; L 24, K 7) and
      2^20 rows, with exact ties, all-NEG rows and ragged batches, and on
      gpt_neox0001's span scores; the span scores card vs CPU (unk bytes,
-     bytes >= 0x80, empty and full rows); on 2^20 synthetic unique pretokens
+     bytes >= 0x80, empty and full rows); the span scores fused into kernel
+     6 (the main paths' kernel) bit-equal to their plain composition at B =
+     65536 and on the pipeline's rows, with gpt_neox0001's vocab and with a
+     vocab of exact ties and unk bytes, and the device ms of spans + DP
+     unfused and fused; on 2^20 synthetic unique pretokens
      with Zipf weights (8.7e8 occurrences), count_tokens_device equal to the
      native C++ Viterbi's counts and DeviceRetokenizer.encode equal to its
      segmentations (exact ties aside, logged), a memoized second call that
@@ -107,8 +115,10 @@ PITA = dict(GPT2_EN, embed_target_priors=True, add_inter_token_attention=True,
             inter_token_attention_bias_by_priors=True, n_inter_token_blocks=16)
 GPT2_EN_GELU = dict(GPT2_EN, hidden_act="gelu")
 # kernels that no main path runs: no JAX path reaches the tier-1 core (only
-# its tests call merged_attention_pallas); its row reports 0 launches
-OFF_PATH = ("merged_attention",)
+# its tests call merged_attention_pallas), and the device Viterbi's main
+# paths run kernel 6's DP fused with its span scores (viterbi_spans_dp);
+# their rows report 0 launches
+OFF_PATH = ("merged_attention", "viterbi_dp")
 
 
 def log(*args):
@@ -177,9 +187,12 @@ def compare(got, ref, dtype, what):
 # --------------------------------------------------------------------- phase 1
 # the instructions each redesigned kernel's library must hold: the Hopper
 # GEMM's wgmma (HGMMA) and TMA loads (UTMALDG) in kernels 1 and 4, the
-# tensor-core mma (HMMA) in kernel 3
-SASS_REQUIRED = {"attention_block": ("HGMMA", "UTMALDG"), "encoder_layer": ("HGMMA", "UTMALDG"),
-                 "attention_core_bwd": ("HMMA",)}
+# tensor-core mma (HMMA) of the attention core (kernels 1, 2, 4, 5) and of
+# kernel 3
+SASS_REQUIRED = {"attention_core": ("HMMA",),
+                 "attention_block": ("HGMMA", "UTMALDG", "HMMA"),
+                 "encoder_layer": ("HGMMA", "UTMALDG", "HMMA"),
+                 "merged_attention": ("HMMA",), "attention_core_bwd": ("HMMA",)}
 
 
 def check_build():
@@ -247,7 +260,7 @@ def library_encoder_layer(args, h):
     return lambda: layer(x, src_key_padding_mask=pad)
 
 
-def check_kernel1(B, L, dtype, gen, timed, split=False):
+def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
     """Kernel 1 against its plain version; with ``timed``, its median time
     beside the plain version's, nn.TransformerEncoderLayer's and the bound;
     with ``split``, its device time by kernel and each GEMM against
@@ -255,8 +268,8 @@ def check_kernel1(B, L, dtype, gen, timed, split=False):
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.encoder_layer import encoder_layer, encoder_layer_reference
 
-    h, eps = 12, 1e-5
-    args = layer_inputs(B, L, dtype, gen)
+    eps = 1e-5
+    args = layer_inputs(B, L, dtype, gen, H, I)
     before = _build.launch_counts["encoder_layer"]
     got = encoder_layer(*args, num_heads=h, eps=eps)
     torch.cuda.synchronize()
@@ -264,11 +277,12 @@ def check_kernel1(B, L, dtype, gen, timed, split=False):
         raise AssertionError("encoder_layer did not count its launch")
     with torch.no_grad():
         ref = encoder_layer_reference(*args, h, eps)
-    err = compare(got, ref, dtype, f"kernel 1 B={B} L={L} {str(dtype)[6:]}")
+    tag = f"kernel 1 B={B} L={L} {str(dtype)[6:]}" + ("" if H == 768 else f" H={H} h={h} I={I}")
+    err = compare(got, ref, dtype, tag)
     if not timed:
         return None
     del got, ref
-    H, I, M = 768, 1536, B * L
+    M = B * L
     ms = median_ms(lambda: encoder_layer(*args, num_heads=h, eps=eps))
     with torch.no_grad():
         plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=5)
@@ -278,7 +292,7 @@ def check_kernel1(B, L, dtype, gen, timed, split=False):
     flops = 2 * M * (4 * H * H + 2 * H * I) + 2 * 2 * B * h * L * L * 64
     nbytes = (2 * M * H + 4 * H * H + 2 * H * I + 6 * H + I) * size + B * L * 4 + 4 * H * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  kernel 1 B={B} L={L} {str(dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"TransformerEncoderLayer {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if split:
         gemm_split(lambda: encoder_layer(*args, num_heads=h, eps=eps),
@@ -310,6 +324,7 @@ def check_kernel2(B, Lk, dtype, gen, timed):
     if not timed:
         return None
     ms = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h))
+    b2b = burst_ms(lambda: attention_core(qm, km, vm, kmaskf, h))
     plain_ms = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h), reps=10)
     q4 = qm.view(B, 1, h, d).transpose(1, 2)
     k4 = km.view(B, Lk, h, d).transpose(1, 2)
@@ -321,8 +336,9 @@ def check_kernel2(B, Lk, dtype, gen, timed):
     flops = 2 * 2 * B * h * Lk * d
     nbytes = (2 * B * h * d + 2 * B * Lk * h * d) * size + B * Lk * h * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}: {ms:.4f} ms (back to back "
+        f"{b2b:.4f} ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -337,6 +353,9 @@ def phase_kernels():
             if main:
                 results["encoder_layer"] = r
         check_kernel1(1000, 7, dtype, gen, timed=False)  # ragged: 7000 rows, not a tile multiple
+        # widths off the GEMM's 256 tile: partial last N (and k) tiles
+        for H, h in ((640, 10), (896, 14)):
+            check_kernel1(16384, 7, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=1600)
         for Lk in (7, 4):
             r = check_kernel2(16384, Lk, dtype, gen, timed=True)
             if dtype == torch.bfloat16 and Lk == 7:
@@ -415,6 +434,7 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     if not timed:
         return None
     ms_f = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed))
+    b2b = burst_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed))
     ms_b = median_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed))
     plain_f = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h, rate, seed),
                         reps=5, warmup=1)
@@ -431,8 +451,8 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     del o4
     bound_f, by_f = core_bound(B, Lq, Lk, dtype, backward=False)
     bound_b, by_b = core_bound(B, Lq, Lk, dtype, backward=True)
-    log(f"  kernel 2 {tag}: {ms_f:.4f} ms, plain {plain_f:.4f} ms, SDPA {lib_f:.4f} ms, "
-        f"bound {bound_f:.4f} ms ({by_f})")
+    log(f"  kernel 2 {tag}: {ms_f:.4f} ms (back to back {b2b:.4f} ms), plain {plain_f:.4f} ms, "
+        f"SDPA {lib_f:.4f} ms, bound {bound_f:.4f} ms ({by_f})")
     log(f"  kernel 3 {tag}: {ms_b:.4f} ms, plain {plain_b:.4f} ms, SDPA backward "
         f"{lib_b:.4f} ms, bound {bound_b:.4f} ms ({by_b})")
     fwd = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bound_f, bound_by=by_f,
@@ -495,6 +515,11 @@ def phase_train_kernels():
                 if main:
                     results["attention_core"], results["attention_core_bwd"] = r
             check_train_core(1001, 7, 7, dtype, rate, gen, timed=False)  # ragged batch
+            # the core's other tilings: Lq 16 in one m16 tile with two n8 key
+            # tiles; two m16 tiles, four n8 tiles and a row too large for two
+            # shared-memory buffers
+            check_train_core(777, 16, 9, dtype, rate, gen, timed=False)
+            check_train_core(300, 20, 32, dtype, rate, gen, timed=False)
             torch.cuda.empty_cache()
     # a train batch's share of all-padding surface forms (phase 7's last
     # batch: 18991 of 32896); the train step runs the core at rate 0
@@ -640,7 +665,7 @@ def phase_training(model_dir):
 
     steps = config["steps"]
     n_layers = config["num_hidden_layers"]
-    expected = dict.fromkeys(_build.SOURCES, 0)
+    expected = dict.fromkeys(_build.launch_counts, 0)
     expected["attention_core"] = expected["attention_core_bwd"] = steps * n_layers
     kinds = [r["kind"] for r in trainer.records]
     log(f"  trained {steps} steps ({kinds.count('identity')} identity) in {wall:.3f} s wall, "
@@ -702,7 +727,8 @@ def phase_training(model_dir):
         def share(pred):
             return sum(ms for n, (ms, _) in by_name.items() if pred(n))
 
-        k2 = share(lambda n: "attention_kernel" in n)
+        # kernel 2: zt::attention_mma_kernel (bf16), zt::attention_kernel (f32)
+        k2 = share(lambda n: "zt::attention_" in n and "bwd" not in n)
         k3 = share(lambda n: "attention_bwd" in n)
         # cuBLAS's Hopper GEMMs are named nvjet_*; older ones gemm/cutlass/xmma
         gemm = share(lambda n: any(t in n.lower() for t in ("nvjet", "gemm", "cutlass", "xmma")))
@@ -974,6 +1000,21 @@ def device_breakdown(run, top=12):
     return busy_ms, wall_ms, by_name
 
 
+def burst_ms(run, n=20):
+    """Per-call time of ``n`` back-to-back calls between two CUDA events:
+    while a call's kernel runs longer than the wrapper's host time, the card
+    never waits for the host, and this is the kernel's own time (a median of
+    single timed calls also holds the host time of a short call)."""
+    run()  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def gemm_split(run, shapes, dtype, what, reps=5):
     """One call of a kernel wrapper split by device kernel name (mean over
     ``reps`` profiled calls), with each launch of the port's GEMM (median
@@ -1062,7 +1103,7 @@ def phase_transfer(config=GPT2_EN, tag="ckpt"):
             raise AssertionError(f"special token {token!r} row is not the source row")
     n_batches = -(-len(target) // batch)
     n_layers = cfg.num_hidden_layers
-    expected = dict.fromkeys(_build.SOURCES, 0)
+    expected = dict.fromkeys(_build.launch_counts, 0)
     if cfg.add_inter_token_attention:  # no CLS-only layer: kernel 4 on every layer
         expected["attention_block"] = n_batches * n_layers
     else:
@@ -1099,7 +1140,7 @@ def block_bias(B, L, dtype, gen):
     return kb.to(dtype).cuda()
 
 
-def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False):
+def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
     """Kernel 4 (the tier-2 block) against its plain version; with
     ``timed``, its median time beside the plain version's, the library
     calls' (F.linear x3 + SDPA + F.linear) and the bound; with ``split``,
@@ -1109,11 +1150,12 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False):
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.attention_block import attention_block, attention_block_reference
 
-    h, H = 12, 768
-    args = layer_inputs(B, L, dtype, gen)
+    args = layer_inputs(B, L, dtype, gen, H)
     x, mask, w = args[0], args[1], args[2:10]
     kb = block_bias(B, L, dtype, gen) if with_bias else None
     tag = f"kernel 4 B={B} L={L} {str(dtype)[6:]} {'key bias' if with_bias else 'no bias'}"
+    if H != 768:
+        tag += f" H={H} h={h}"
     before = _build.launch_counts["attention_block"]
     got = attention_block(x, mask, kb, *w, num_heads=h)
     torch.cuda.synchronize()
@@ -1163,14 +1205,14 @@ def sdpa_mask(mask, kb, dtype):
     return torch.where(mask, add, torch.tensor(low, dtype=dtype, device=mask.device))[:, None, None, :]
 
 
-def check_kernel5(B, L, dtype, with_bias, gen, timed):
+def check_kernel5(B, L, dtype, with_bias, gen, timed, h=12):
     """Kernel 5 (the tier-1 core with key bias) against its plain version;
     with ``timed``, times beside the plain version, SDPA with the same float
     mask, and the bound."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.attention_core import merged_attention, merged_attention_reference
 
-    h, d = 12, 64
+    d = 64
     qm, km, vm = (torch.randn(B, L * h, d, generator=gen).to(dtype).cuda() for _ in range(3))
     mask = torch.rand(B, L, generator=gen) > 0.3
     mask[:, 0] = True
@@ -1179,7 +1221,8 @@ def check_kernel5(B, L, dtype, with_bias, gen, timed):
     kb = block_bias(B, L, dtype, gen) if with_bias else None
     kmask = mask.repeat_interleave(h, dim=-1)
     kbm = kb.repeat_interleave(h, dim=-1) if with_bias else None
-    tag = f"kernel 5 B={B} Lq*h=Lk*h={L * h} {str(dtype)[6:]} {'key bias' if with_bias else 'no bias'}"
+    tag = (f"kernel 5 B={B} Lq*h=Lk*h={L * h} h={h} {str(dtype)[6:]} "
+           f"{'key bias' if with_bias else 'no bias'}")
     before = _build.launch_counts["merged_attention"]
     got = merged_attention(qm, km, vm, kmask, kbm, num_heads=h)
     torch.cuda.synchronize()
@@ -1191,9 +1234,10 @@ def check_kernel5(B, L, dtype, with_bias, gen, timed):
     if not timed:
         return None
     ms = median_ms(lambda: merged_attention(qm, km, vm, kmask, kbm, num_heads=h))
+    b2b = burst_ms(lambda: merged_attention(qm, km, vm, kmask, kbm, num_heads=h))
     plain_ms = median_ms(lambda: merged_attention_reference(qm, km, vm, kmask, kbm, num_heads=h),
                          reps=5)
-    q4, k4, v4, _ = sdpa_layout(qm, km, vm, mask, L, L)
+    q4, k4, v4, _ = sdpa_layout(qm, km, vm, mask, L, L, h)
     amask = sdpa_mask(mask, kb, dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = median_ms(lambda: sdpa(q4, k4, v4, attn_mask=amask))
@@ -1201,8 +1245,8 @@ def check_kernel5(B, L, dtype, with_bias, gen, timed):
     flops = 2 * 2 * B * h * L * L * d
     nbytes = 4 * B * L * h * d * size + B * L * h * 4 + (B * L * h * size if with_bias else 0)
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  {tag}: {ms:.4f} ms (back to back {b2b:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -1258,6 +1302,11 @@ def phase_block_kernels():
         for with_bias in (False, True):
             check_kernel4(1001, 7, dtype, with_bias, gen, timed=False)
             check_kernel5(1001, 7, dtype, with_bias, gen, timed=False)
+        # widths off the GEMM's 256 tile; the core at 14 heads
+        for H, h in ((640, 10), (896, 14)):
+            check_kernel4(16384, 8, dtype, False, gen, timed=dtype == torch.bfloat16, H=H, h=h)
+        check_kernel5(16384, 8, dtype, True, gen, timed=False, h=14)
+        torch.cuda.empty_cache()
     check_block_backward(gen)
     return results
 
@@ -1360,7 +1409,7 @@ def phase_training_eval(model_dir):
         if k4 != n_pass * n_layers:
             raise AssertionError(f"{name}: kernel 4 launched {k4} times for {n_pass} passes")
     n_evals = len(eval_rows)
-    expected = dict.fromkeys(_build.SOURCES, 0)
+    expected = dict.fromkeys(_build.launch_counts, 0)
     expected["attention_core"] = expected["attention_core_bwd"] = steps * n_layers
     expected["attention_block"] = n_evals * (len(tokenizers) + n_sampled) * n_layers
     log(f"  launches {launches} (expected {expected})")
@@ -1482,11 +1531,64 @@ def check_kernel6(S, I, tag, timed):
         return None
     B, L, K = S.shape
     ms = median_ms(lambda: viterbi_dp(S, I))
+    b2b = burst_ms(lambda: viterbi_dp(S, I))
     plain_ms = median_ms(lambda: viterbi_dp_plain(S, I), reps=5, warmup=1)
     nbytes = B * L * K * 8 + B * (L + K) * 12  # S + I read, dp/bk/bi written
     bound_ms, bound_by = bound(B * L * K, nbytes, torch.float32)
-    log(f"  kernel 6 {tag}: bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"  kernel 6 {tag}: bit-equal; {ms:.4f} ms (back to back {b2b:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}), library none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def span_lookups(lens, K):
+    """The spans inside the pretokens (start j, length k <= K, j + k <=
+    len): the fused kernel's table lookups."""
+    n = lens.long()
+    part = torch.clamp(n, max=K)
+    return int((torch.clamp(n - K, min=0) * K + part * (part + 1) // 2).sum())
+
+
+def check_fused(r, ln, table, unk, K, tag, timed):
+    """The span scores fused into kernel 6 against their plain composition
+    (compute_span_scores, then kernel 6's plain DP) on the card: dp, bk and
+    bi bit-equal. With ``timed``, the times beside the bound (rows, lens,
+    dp/bk/bi and the table, each once) and the lookups L2 serves."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.device_viterbi import viterbi_spans_dp, viterbi_spans_dp_plain
+
+    tab, salt = torch.from_numpy(table.table).cuda(), table.salt
+    before = _build.launch_counts["viterbi_spans_dp"]
+    got = viterbi_spans_dp(r, ln, tab, salt, unk, K)
+    torch.cuda.synchronize()
+    if _build.launch_counts["viterbi_spans_dp"] != before + 1:
+        raise AssertionError("viterbi_spans_dp did not count its launch")
+    ref = viterbi_spans_dp_plain(r, ln, tab, salt, unk, K)
+    for name, g, w in zip(("dp", "bk", "bi"), got, ref):
+        if not torch.equal(g, w):
+            raise AssertionError(f"fused spans + DP {tag}: {name} differs from the plain "
+                                 f"composition at {int((g != w).sum())} entries")
+    n_unk = int((got[2] == -2).sum())
+    err = float((got[0] - ref[0]).abs().max())
+    del got, ref
+    B, L = r.shape
+    lookups = span_lookups(ln, K)
+    if not timed:
+        log(f"  fused spans + DP {tag}: dp, bk, bi bit-equal to the plain composition "
+            f"({n_unk} unk-byte backpointers)")
+        return None
+    ms = median_ms(lambda: viterbi_spans_dp(r, ln, tab, salt, unk, K))
+    b2b = burst_ms(lambda: viterbi_spans_dp(r, ln, tab, salt, unk, K))
+    plain_ms = median_ms(lambda: viterbi_spans_dp_plain(r, ln, tab, salt, unk, K), reps=3,
+                         warmup=1)
+    nbytes = B * L * 4 + B * 4 + B * (L + K) * 12 + tab.numel() * 4
+    bound_ms, bound_by = bound(lookups, nbytes, torch.float32)
+    log(f"  fused spans + DP {tag}: bit-equal ({n_unk} unk-byte backpointers); {ms:.4f} ms "
+        f"(back to back {b2b:.4f} ms), plain (spans, then the plain DP) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e9:.4f} GB), {lookups} lookups inside the pretokens "
+        f"(32 or 64 bytes of table each, at most {lookups * 64 / 1e9:.4f} GB, from L2; "
+        f"{B * L * K} spans in the (B, L, K) grid), library none")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
@@ -1510,15 +1612,17 @@ def write_repo_text(path):
 
 
 def phase_prior_pipeline():
-    """Kernel 6 against its plain version, the span scores card vs CPU,
+    """Kernel 6 against its plain version, the span scores card vs CPU, the
+    fused span scores + DP against their plain composition,
     count_tokens_device and DeviceRetokenizer on 2^20 synthetic unique
     pretokens against the native C++ Viterbi, and compute_prior's CLI on its
-    default device. Returns (kernel 6's row, its launches on the main
-    paths)."""
+    default device. Returns (kernel 6's row, the fused kernel's row, the
+    fused kernel's launches on the main paths)."""
     import zett_tpu_torch.ops.device_viterbi as dv
     import zett_tpu_torch.tokenization.priors as priors
     from zett_tpu_torch.csrc import host_lib
     from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.viterbi_dp import viterbi_dp
     from zett_tpu_torch.tokenization.compute_prior import main as prior_main
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1558,6 +1662,8 @@ def phase_prior_pipeline():
     if not (torch.equal(S_c.cpu(), S_h) and torch.equal(I_c.cpu(), I_h)) or n_unk == 0:
         raise AssertionError(f"span scores card vs CPU differ (unk spans {n_unk})")
     log(f"  span scores on {len(rows_pt)} rows: card equal to CPU (S and I), {n_unk} unk spans")
+    check_fused(torch.from_numpy(rows).cuda(), torch.from_numpy(lens).cuda(), table, unk, K,
+                f"{len(rows_pt)} rows of 12.2 (unk bytes, empty and full rows)", timed=False)
 
     # 12.3: count_tokens_device against the native oracle
     native = host_lib.NativeUnigram(pieces, scores, unk_id=-1)
@@ -1571,7 +1677,7 @@ def phase_prior_pipeline():
     counts = dv.count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48)
     torch.cuda.synchronize()
     count_wall = time.perf_counter() - t0
-    launches = _build.launch_counts["viterbi_dp"]
+    launches = _build.launch_counts["viterbi_spans_dp"]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if not np.array_equal(counts, oracle):
         bad = np.flatnonzero(counts != oracle)
@@ -1579,7 +1685,7 @@ def phase_prior_pipeline():
                              f"pieces, e.g. {bad[:5].tolist()}")
     log(f"  count_tokens_device (max_pretoken_len 48): equal to the native oracle on all "
         f"{len(pieces)} pieces ({int(counts.sum())} tokens); {count_wall:.3f} s wall, peak "
-        f"{peak_gb:.2f} GiB, {launches} kernel 6 launch(es); native oracle {oracle_s:.3f} s")
+        f"{peak_gb:.2f} GiB, {launches} fused kernel launch(es); native oracle {oracle_s:.3f} s")
 
     # device time by stage, on the same rows (the device part of that run)
     short = {k: w for k, w in pretoken_counts.items() if len(k) <= 48}
@@ -1588,19 +1694,38 @@ def phase_prior_pipeline():
     w = torch.from_numpy(np.fromiter(short.values(), dtype=np.int64, count=len(short))).cuda()
     vocab_table = dv.build_vocab_table(pieces, scores)
     tab, salt = torch.from_numpy(vocab_table.table).cuda(), vocab_table.salt
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     events[0].record()
     S, I = dv.compute_span_scores(r, ln, tab, salt, unk, 16)
     events[1].record()
-    dp, bk, bi = dv.viterbi_dp(S, I)
+    viterbi_dp(S, I)
     events[2].record()
-    dv.count_token_usage(bk[:, :49], bi[:, :49], ln, len(pieces), weights=w)
+    dp, bk, bi = dv.viterbi_spans_dp(r, ln, tab, salt, unk, 16)
     events[3].record()
+    dv.count_token_usage(bk[:, :49], bi[:, :49], ln, len(pieces), weights=w)
+    events[4].record()
     torch.cuda.synchronize()
-    stages = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
-    log(f"  device ms by stage at B={len(short)} L=48 K=16: spans {stages[0]:.3f}, kernel 6 "
-        f"{stages[1]:.3f}, backtrack-count {stages[2]:.3f}")
+    stages = [events[i].elapsed_time(events[i + 1]) for i in range(4)]
+    log(f"  device ms by stage at B={len(short)} L=48 K=16: unfused spans {stages[0]:.3f} + "
+        f"kernel 6 {stages[1]:.3f} = spans + DP {stages[0] + stages[1]:.3f}; fused spans + DP "
+        f"{stages[2]:.3f}; backtrack-count {stages[3]:.3f}")
     del dp, bk, bi
+
+    # the fused kernel against its plain composition: gpt_neox0001's vocab,
+    # and one of exact ties (scores rounded to integers) and unk bytes
+    # (0xF5..0xFF without a single-byte piece), at B = 65536 and on all rows
+    tie_table = dv.build_vocab_table(unk_pieces, np.round(scores).tolist())
+    tie_unk = float(np.round(scores).min()) - 10.0
+    n_head = 65536
+    check_fused(r[:n_head], ln[:n_head], vocab_table, unk, 16, f"B={n_head} L=48 K=16",
+                timed=True)
+    check_fused(r[:n_head], ln[:n_head], tie_table, tie_unk, 16,
+                f"B={n_head} L=48 K=16, ties and unk bytes", timed=False)
+    check_fused(r, ln, tie_table, tie_unk, 16, f"B={len(short)} L=48 K=16, ties and unk bytes",
+                timed=False)
+    fused_row = check_fused(r, ln, vocab_table, unk, 16, f"B={len(short)} L=48 K=16",
+                            timed=True)
+    torch.cuda.empty_cache()
     row = check_kernel6(S, I, f"B={len(short)} L=48 K=16 (gpt_neox0001 span scores)",
                         timed=True)
     del S, I
@@ -1617,7 +1742,7 @@ def phase_prior_pipeline():
     segs = retok.encode(keys)
     torch.cuda.synchronize()
     enc_wall = time.perf_counter() - t0
-    enc_launches = _build.launch_counts["viterbi_dp"]
+    enc_launches = _build.launch_counts["viterbi_spans_dp"]
     launches += enc_launches
     differ = [i for i, (a, b) in enumerate(zip(segs, nat_segs)) if a != b]
     # The f32 DP and the f64 native encoder may break an exact tie (two
@@ -1633,7 +1758,7 @@ def phase_prior_pipeline():
         raise AssertionError("DeviceRetokenizer card and CPU disagree on the tie rows")
     log(f"  DeviceRetokenizer(max_pretoken_len=64).encode: {len(keys)} rows in {enc_wall:.3f} s "
         f"wall ({lengths.sum() / enc_wall / 1e6:.3f} MB/s of unique bytes), {enc_launches} "
-        f"kernel 6 launches; native segmentation on {len(keys) - len(differ)} rows, an exact "
+        f"fused kernel launches; native segmentation on {len(keys) - len(differ)} rows, an exact "
         f"tie ordered otherwise (same pieces, card = CPU) on {len(differ)}")
     for i in differ[:3]:
         log(f"    tie {keys[i]!r}: DP {segs[i]}, native {nat_segs[i]}")
@@ -1672,7 +1797,7 @@ def phase_prior_pipeline():
         priors.get_pretoken_counts, dv.count_tokens_device = orig_split, orig_count
     torch.cuda.synchronize()
     cli_wall = time.perf_counter() - t0
-    cli_launches = _build.launch_counts["viterbi_dp"]
+    cli_launches = _build.launch_counts["viterbi_spans_dp"]
     launches += cli_launches
     written = np.load(out, allow_pickle=True).item()
     prior = native_counts(native, timed["pretoken_counts"], len(pieces)).astype(np.float64) + 1.0
@@ -1686,13 +1811,13 @@ def phase_prior_pipeline():
             or np.any(sub[tok.all_special_ids] != 0)):
         raise AssertionError("the CLI's substring prior is not finite with specials at 0")
     if cli_launches == 0:
-        raise AssertionError("the prior CLI did not launch kernel 6")
+        raise AssertionError("the prior CLI did not launch the fused kernel")
     log(f"  compute_prior --device on {n_par} paragraphs ({n_chars} characters, "
         f"{len(timed['pretoken_counts'])} unique pretokens): token prior equal to the native "
         f"oracle's, substring prior finite; {cli_wall:.3f} s wall, host pretokenize "
         f"{timed['split_s']:.3f} s, device count {timed['count_s']:.3f} s, {cli_launches} "
-        f"kernel 6 launch(es)")
-    return row, launches
+        f"fused kernel launch(es)")
+    return row, fused_row, launches
 
 
 def main():
@@ -1755,7 +1880,8 @@ def main():
             "inter-token-attention config")
         eval_launches, eval_wall, eval_peak = phase_training_eval(model_dir)
         log("phase 12: the device prior pipeline")
-        kernels["viterbi_dp"], prior_launches = phase_prior_pipeline()
+        kernels["viterbi_dp"], kernels["viterbi_spans_dp"], prior_launches = \
+            phase_prior_pipeline()
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -1774,13 +1900,15 @@ def main():
         "merged_attention": ("zett_tpu_torch/csrc/merged_attention.cu",
                              "zett_tpu/ops/pallas_attention.py:87"),
         "viterbi_dp": ("zett_tpu_torch/csrc/viterbi_dp.cu", "zett_tpu/ops/pallas_viterbi.py:25"),
+        "viterbi_spans_dp": ("zett_tpu_torch/csrc/viterbi_dp.cu",
+                             "zett_tpu/ops/pallas_viterbi.py:25"),
     }
     rows = []
     for name, (source, replaces) in sources.items():
         # launches: the main paths' runs, transfer (phases 4 and 10),
         # training (phases 7 and 11) and the prior pipeline (phase 12)
         n = sum(run.get(name, 0) for run in (transfer_launches, train_launches, pita_launches,
-                                              eval_launches, {"viterbi_dp": prior_launches}))
+                                              eval_launches, {"viterbi_spans_dp": prior_launches}))
         if n == 0 and name not in OFF_PATH:
             log(f"{name} never launched on the main paths")
             return 1

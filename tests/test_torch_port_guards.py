@@ -21,6 +21,7 @@ from zett_tpu_torch.ops import (
     viterbi_dp,
     viterbi_dp_plain,
 )
+from zett_tpu_torch.ops.device_viterbi import viterbi_spans_dp, viterbi_spans_dp_plain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "regex", "safetensors",
@@ -184,5 +185,30 @@ def test_viterbi_dp_takes_the_plain_version_on_cpu():
     I = torch.randint(0, 50, (6, 9, 4), generator=g, dtype=torch.int32)
     before = dict(_build.launch_counts)
     got, want = viterbi_dp(S, I), viterbi_dp_plain(S, I)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.launch_counts == before
+
+
+def test_fused_viterbi_raises_off_the_cpu(no_built_kernels):
+    """The span scores fused into kernel 6: a tensor that is not on the CPU
+    goes for the kernel and, with none built, raises without counting a
+    launch."""
+    rows = torch.empty(4, 8, dtype=torch.int32, device="meta")
+    lens = torch.empty(4, dtype=torch.int32, device="meta")
+    table = torch.empty(64, 16, dtype=torch.int32, device="meta")
+    before = dict(_build.launch_counts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        viterbi_spans_dp(rows, lens, table, 0, -20.0, 8)
+    assert _build.launch_counts == before
+
+
+def test_fused_viterbi_takes_the_plain_version_on_cpu():
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, 256, (6, 12), generator=g, dtype=torch.int32)
+    lens = torch.tensor([0, 3, 12, 7, 1, 12], dtype=torch.int32)
+    table = torch.randint(-2**31, 2**31 - 1, (64, 16), generator=g, dtype=torch.int32)
+    before = dict(_build.launch_counts)
+    got = viterbi_spans_dp(rows, lens, table, 3, -20.0, 5)
+    want = viterbi_spans_dp_plain(rows, lens, table, 3, -20.0, 5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert _build.launch_counts == before

@@ -1,15 +1,20 @@
 """The Hopper redesigns of kernels 1, 3 and 4, on the CPU: the GEMM's
 transposed weight packing, what the new kernels refuse (raised before any
-launch), and the property that lets kernel 3's bf16 path run its products on
-the tensor cores: every plane the plain version multiplies is a bf16 value.
-The kernels themselves run only on the card (``chip_smoke.py`` phases 1, 2,
-5 and 8)."""
+launch) and the widths they take, the plain versions at the ragged widths
+against the JAX references, and the property that lets kernel 3's bf16 path
+run its products on the tensor cores: every plane the plain version
+multiplies is a bf16 value. The kernels themselves run only on the card
+(``chip_smoke.py`` phases 1, 2, 5 and 8)."""
 
 import importlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from zett_tpu.ops.pallas_attention import attention_block_reference as jax_block_reference
+from zett_tpu.ops.pallas_attention import encoder_layer_reference as jax_layer_reference
 
 from zett_tpu_torch.ops import _build, attention_block, attention_core_bwd, encoder_layer
 from zett_tpu_torch.ops.attention_core import attention_core_bwd_reference, core_bwd_weights
@@ -58,16 +63,16 @@ def test_dense_exact_through_packed_weights_equals_original(dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("widths,depths,match", [
     ((2304, 768, 1536), (768, 1536), None),
-    ((768,), (96,), "k tile"),
-    ((640,), (768,), "N tile"),
+    ((768,), (96,), None),  # K off the 64 tile: the last k tile is partial
+    ((640,), (768,), None),  # N off the 256 tile: the last N tile is partial
     ((1004,), (768,), "16 bytes"),
 ])
 def test_check_gemm_widths(dtype, widths, depths, match):
-    """The GEMM takes the hypernet's widths (H 768, 3H, I 1536) and refuses
-    rows that are not whole 16-byte units, an N off the 256 tile and a K off
-    the 64 tile."""
+    """The GEMM takes the hypernet's widths (H 768, 3H, I 1536), an N off
+    the 256 tile and a K off the 64 tile, and refuses only rows that are not
+    whole 16-byte units."""
     if match == "16 bytes" and dtype == torch.float32:
-        match = "N tile"  # 1004 f32 values are 4016 bytes: whole units
+        match = None  # 1004 f32 values are 4016 bytes: whole units
     if match is None:
         check_gemm_widths("gemm", dtype, widths, depths)
         return
@@ -113,22 +118,25 @@ def _misaligned(shape, dtype):
                                   "core_bwd_alignment"])
 def test_new_kernels_refuse_before_launching(built_kernels, case):
     """What the Hopper GEMM (kernels 1 and 4) and kernel 3's cp.async
-    staging cannot take raises ValueError before any launch is counted."""
+    staging cannot take raises ValueError before any launch is counted;
+    widths off the GEMM's tiles get past the width check to the device
+    check (a meta tensor has no kernel)."""
     bf = torch.bfloat16
     before = dict(_build.launch_counts)
 
     def meta(*shape):
         return torch.empty(*shape, device="meta", dtype=bf)
 
-    if case == "block_n_tile":  # H = 128: 3H = 384 is off the 256 tile
+    if case == "block_n_tile":  # H = 128: 3H = 384 is off the 256 tile, and taken
         x, w, b = meta(2, 4, 128), meta(128, 128), meta(128)
-        with pytest.raises(ValueError, match="N tile"):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             attention_block(x, None, None, w, b, w, b, w, b, w, b, num_heads=2)
     elif case in ("layer_row_bytes", "layer_n_tile"):
         H, I = 256, 1004 if case == "layer_row_bytes" else 1088
         x, w, b = meta(2, 4, H), meta(H, H), meta(H)
         ln = torch.empty(H, device="meta")
-        with pytest.raises(ValueError, match="16 bytes" if I == 1004 else "N tile"):
+        with pytest.raises(ValueError,
+                           match="16 bytes" if I == 1004 else "no kernel for device meta"):
             encoder_layer(x, None, w, b, w, b, w, b, w, b, ln, ln, meta(H, I), meta(I),
                           meta(I, H), b, ln, ln, num_heads=4, eps=1e-5)
     else:
@@ -170,3 +178,64 @@ def test_plain_backward_planes_are_bf16_values(rate, Lq, Lk):
     assert torch.equal(dvm, torch.einsum("bqk,bqd->bkd", wd, dout.float()).to(bf))
     assert torch.equal(dqm, torch.einsum("bqk,bkd->bqd", ds, km.float()).to(bf))
     assert torch.equal(dkm, torch.einsum("bqk,bqd->bkd", ds, qm.float()).to(bf))
+
+
+def _ragged_inputs(B, L, H, I, dtype, seed):
+    """numpy-seeded layer operands at a ragged width: x, a mask with an
+    all-padding row, four (H, H) and the FFN's weights, LayerNorm params."""
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, scale):
+        return (rng.standard_normal(shape, dtype=np.float32) * scale).astype(np.float32)
+
+    x = arr((B, L, H), 1.0)
+    mask = rng.random((B, L)) > 0.3
+    mask[:, 0] = True
+    mask[1] = False
+    ws = [arr((H, H), 0.04) for _ in range(4)]
+    bs = [arr((H,), 0.02) for _ in range(4)]
+    ffn = [arr((H, I), 0.04), arr((I,), 0.02), arr((I, H), 0.04), arr((H,), 0.02)]
+    ln = [1.0 + 0.1 * arr((H,), 1.0), 0.1 * arr((H,), 1.0)]
+    return x, mask, ws, bs, ffn, ln
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("H,nh,I", [(640, 10, 1600), (896, 14, 1600)])
+def test_plain_versions_at_ragged_widths_match_jax(dtype, H, nh, I):
+    """Kernels 1 and 4's plain versions at widths off the GEMM's 256 tile
+    (H 640 with 10 heads, H 896 with 14 heads, qwen2-0.5B's width; I 1600)
+    against the JAX package's encoder_layer_reference and
+    attention_block_reference on the same numpy inputs, all rows. The widths
+    pass check_gemm_widths. Tolerances: f32 1e-5 of the output scale (sums in
+    another order); bf16 one ulp at the output scale (XLA rounds
+    intermediate bf16 ops where the port rounds once)."""
+    B, L, eps = 3, 5, 1e-5
+    x, mask, ws, bs, ffn, ln = _ragged_inputs(B, L, H, I, dtype, seed=H)
+    check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    def t(a):
+        return torch.from_numpy(a).to(dtype)
+
+    def j(a):
+        return jnp.asarray(a, jdt)
+
+    wb_t = [v for w, b in zip(ws, bs) for v in (t(w), t(b))]
+    wb_j = [v for w, b in zip(ws, bs) for v in (j(w), j(b))]
+    tmask, jmask = torch.from_numpy(mask), jnp.asarray(mask)
+    scale = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+
+    got = attention_block(t(x), tmask, None, *wb_t, num_heads=nh).float().numpy()
+    want = np.asarray(jax_block_reference(j(x), jmask, None, *wb_j, nh).astype(jnp.float32))
+    top = max(float(np.abs(want).max()), 1.0)
+    assert np.isfinite(got).all() and np.abs(got - want).max() <= scale * top
+
+    lns_t = [torch.from_numpy(v) for v in ln]
+    lns_j = [jnp.asarray(v) for v in ln]
+    got = encoder_layer(t(x), tmask, *wb_t, *lns_t, t(ffn[0]), t(ffn[1]), t(ffn[2]), t(ffn[3]),
+                        *lns_t, num_heads=nh, eps=eps).float().numpy()
+    want = np.asarray(jax_layer_reference(
+        j(x), jmask, *wb_j, *lns_j, j(ffn[0]), j(ffn[1]), j(ffn[2]), j(ffn[3]), *lns_j,
+        nh, eps, True).astype(jnp.float32))
+    top = max(float(np.abs(want).max()), 1.0)
+    assert np.isfinite(got).all() and np.abs(got - want).max() <= scale * top

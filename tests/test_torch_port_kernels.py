@@ -115,6 +115,34 @@ def test_attention_core_plain_matches_jax(dtype_name, Lk):
     assert np.abs(got - ref).max() <= tol, np.abs(got - ref).max()
 
 
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,Lq,Lk", [(14, 1, 7), (14, 7, 7), (14, 16, 9), (3, 12, 16),
+                                     (2, 5, 3)])
+def test_attention_core_plain_matches_jax_heads_and_queries(dtype_name, h, Lq, Lk):
+    """Kernel 2's plain version at the shapes its tensor-core kernel tiles
+    (h up to 14, qwen2-0.5B's heads; Lq from 1 to 16, one m16 tile; Lk past
+    one n8 tile) vs _core_train_fwd_pallas(rate=0, interpret=True) and
+    merged_attention_reference, with all-padding rows. Tolerances: f32 1e-6
+    absolute on values of magnitude < 4; bf16 one ulp at that scale."""
+    B, d = 6, 64
+    rng = np.random.default_rng(100 * h + Lq)
+    qm = rng.normal(size=(B, Lq * h, d)).astype(np.float32)
+    km = rng.normal(size=(B, Lk * h, d)).astype(np.float32)
+    vm = rng.normal(size=(B, Lk * h, d)).astype(np.float32)
+    mask = rng.random((B, Lk)) > 0.3
+    mask[:, 0] = True
+    mask[2] = False
+    kmaskf = np.repeat(mask, h, axis=-1).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype_name) for a in (qm, km, vm))
+    got = _f32(attention_core(tq, tk, tv, torch.from_numpy(kmaskf), h, 0.0))
+    pal = _f32(_core_train_fwd_pallas(jq, jk, jv, jnp.asarray(kmaskf),
+                                      jnp.zeros((), jnp.int32), h, 0.0, interpret=True))
+    ref = _f32(merged_attention_reference(jq, jk, jv, jnp.asarray(kmaskf > 0), None, h))
+    tol = 1e-6 if dtype_name == "float32" else 2.0 ** -8 * 4
+    assert np.abs(got - pal).max() <= tol, np.abs(got - pal).max()
+    assert np.abs(got - ref).max() <= tol, np.abs(got - ref).max()
+
+
 def test_attention_core_dropout_raises():
     """Dropout inside the core is ported (tests/test_torch_port_train_kernels.py
     holds it); a rate outside [0, 1) raises."""

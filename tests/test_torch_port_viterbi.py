@@ -1,7 +1,8 @@
 """Kernel 6 and the device Viterbi of the PyTorch port
 (zett_tpu_torch/ops/viterbi_dp.py, ops/device_viterbi.py) held against the
 JAX package on the CPU: the plain DP against the Pallas kernel in interpret
-mode and against the lax.scan DP, and every public function of
+mode and against the lax.scan DP, the plain version of the fused span-score
+DP against JAX's viterbi_device, and every public function of
 device_viterbi against its JAX counterpart on the same numpy inputs. All
 comparisons are exact (both sides do the same f32 adds and int32 selects)
 unless a tolerance is stated."""
@@ -194,6 +195,56 @@ def test_span_scores_and_viterbi_match_jax(K):
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
     np.testing.assert_array_equal(T.count_token_usage(bk, bi, ln, len(pieces)).numpy(),
                                   np.asarray(J.count_token_usage(jbk, jbi, jl, len(pieces))))
+
+
+def _tie_vocab(seed, drop=(0xF5, 0xF6, 0xF7, 0xFE, 0xFF)):
+    """_random_vocab with scores of four values only, so segmentations tie
+    exactly."""
+    pieces, _ = _random_vocab(seed, n=1500, drop=drop)
+    rng = np.random.default_rng(seed + 100)
+    return pieces, rng.integers(-12, -8, size=len(pieces)).astype(np.float32).tolist()
+
+
+@pytest.mark.parametrize("L,K", [(8, 8), (20, 16), (48, 16), (64, 16), (64, 64)])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_fused_spans_dp_plain_matches_jax(L, K, ties):
+    """The fused kernel's plain version (kernel 6's DP over the span scores)
+    against JAX's viterbi_device, exact: best scores and backpointers, with
+    empty rows, unk bytes, full rows and exact ties. Past each row's length
+    the outputs keep NEG, 0 and -1 and no span reaches there, which is what
+    lets the kernel skip spans past the pretoken's end and stop its scan at
+    the length."""
+    pieces, scores = (_tie_vocab if ties else _random_vocab)(L + K)
+    table = T.build_vocab_table(pieces, scores)
+    jtab = J.build_vocab_table(pieces, scores)
+    unk = min(scores) - 10.0
+    pts = _rows(L + K, B=200, L=L)
+    rows, lens = T.pack_pretokens(pts, L)
+    r, ln, tab = torch.from_numpy(rows), torch.from_numpy(lens), torch.from_numpy(table.table)
+    before = dict(_build.launch_counts)
+    dp, bk, bi = T.viterbi_spans_dp(r, ln, tab, table.salt, unk, K)
+    assert _build.launch_counts == before  # CPU tensors: the plain version, no launch
+    want = T.viterbi_spans_dp_plain(r, ln, tab, table.salt, unk, K)
+    _assert_dp_equal((dp, bk, bi), [w.numpy() for w in want])
+    assert dp.shape == (len(pts), L + K)
+
+    jbest, jbk, jbi = J.viterbi_device(jnp.asarray(rows), jnp.asarray(lens),
+                                       jnp.asarray(jtab.table), jtab.salt, unk, K=K)
+    best = dp.gather(1, ln.long()[:, None])[:, 0]
+    np.testing.assert_array_equal(best.numpy(), np.asarray(jbest))
+    np.testing.assert_array_equal(bk[:, :L + 1].numpy(), np.asarray(jbk))
+    np.testing.assert_array_equal(bi[:, :L + 1].numpy(), np.asarray(jbi))
+    assert (lens == 0).any() and (lens == L).any()
+    assert (bi.numpy() == -2).any() and (bi.numpy() >= 0).any()  # unk bytes and pieces
+    past = torch.arange(L + K)[None, :] > ln[:, None]
+    assert bool((dp[past] == NEG).all() and (bk[past] == 0).all() and (bi[past] == -1).all())
+    # what lets the kernel end a bucket's search at a hit or an empty entry:
+    # entries fill in order, keys are unique
+    ent = table.table.reshape(-1, 4, 4)
+    used = ent[:, :, 0] != 0
+    assert not (~used[:, :-1] & used[:, 1:]).any()
+    keys = ent[used][:, :2]
+    assert len(np.unique(keys, axis=0)) == len(keys)
 
 
 def _native_segs(pieces, scores, pretokens):

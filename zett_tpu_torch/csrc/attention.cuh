@@ -4,11 +4,37 @@
 // Shared by encoder_layer.cu (kernel 1, the attention inside a whole encoder
 // layer), attention_core.cu (kernel 2, the tier-4 core), attention_block.cu
 // (kernel 4, the attention inside the tier-2 block) and merged_attention.cu
-// (kernel 5, the tier-1 core). One warp owns one (row, head) pair: it stages that head's q, k and
-// v rows in shared memory as f32, computes every query-key score, runs the
-// softmax per query and writes the context. Nothing of a row leaves the SM
-// between the score and the context: the score plane never touches device
-// memory, as in the TPU kernels this replaces.
+// (kernel 5, the tier-1 core). Nothing of a row leaves the SM between the
+// score and the context: the score plane never touches device memory, as in
+// the TPU kernels this replaces.
+//
+// What bounds it on an H100: memory. At the training shapes (B = 32896,
+// Lq*h = Lk*h = 84, bf16) it reads q, k, v and writes the context, 1.4 GB
+// (>= 0.43 ms at 3.35 TB/s), against 0.3 GFLOP of products.
+//
+// bf16 design (attention_mma_kernel): a CTA works on one surface-form row
+// at a time, one warp per head. It stages the row's q, k and v positions
+// (all heads) in shared memory with 16-byte cp.async loads, one padded row
+// per position (conflict-free ldmatrix); CTAs are persistent, and while one
+// row is computed the next one's loads are in flight in a second buffer
+// (where two fit in shared memory), so the loads never wait on the
+// products. Each warp computes its head's S = Q K^T and
+// O = P V with mma.sync m16n8k16 (bf16 in, f32 accumulate): queries padded
+// to m16 tiles, keys to n8 tiles, the depth of 64 in four k16 steps. The
+// rounding, the division by sqrt(d), the key bias, the mask select, the
+// softmax (max and sum over the lane quad that holds a query's keys) and the
+// dropout act on the accumulator fragments in registers, each lane knowing
+// its (query, key); P's fragments, cast to bf16, are PV's A operand as they
+// stand, and V comes in through ldmatrix.trans. Rows past Lq or Lk are never
+// stored: their ldmatrix addresses point at one zero row. The context goes
+// through the warp's q slice to coalesced 16-byte stores. A head with no
+// valid key (below) takes the row's mean over all merged value rows at rate
+// 0, summed once by the whole CTA; at rate > 0 its warp builds the dropped
+// uniform weights of its queries over all Lk*h merged keys as A fragments in
+// registers, one Philox word per entry, and multiplies them with the merged
+// V rows on the tensor cores. f32 keeps the scalar path (attention_kernel:
+// one warp a (row, head) pair, f32 operands in shared memory, fmaf loops),
+// the full-precision reference.
 //
 // Numerics follow zett_tpu/ops/pallas_attention.py:39-45 and its merged-head
 // formulation exactly:
@@ -35,8 +61,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace zt {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kHeadDim = 64;
 constexpr int kAttnWarps = 4;
@@ -111,6 +141,40 @@ __device__ __forceinline__ bool dropout_keep(unsigned int seed, unsigned int thr
          threshold;
 }
 
+// ------------------------------------- tensor-core helpers (kernels 2 to 5)
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr(dst)), "l"(src));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------ f32: scalar path
 __host__ __device__ inline int attn_smem_floats_per_warp(int Lq, int Lk) {
   return (Lq + 2 * Lk) * kRowPad + Lq * (Lk + 1);
 }
@@ -233,17 +297,416 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
   }
 }
 
-template <typename T>
-cudaError_t launch_attention(const AttnArgs& a, cudaStream_t stream) {
+// ------------------------------------------------- bf16: tensor-core path
+constexpr int kMaxHeads = 16;     // warps of a CTA, one per head
+constexpr int kZeroBytes = 128;   // the zero row every padded row reads
+constexpr int kAttnSmemMax = 232448;
+
+// Shared memory of a CTA: the zero row, the per-warp partial sums of the
+// all-padding mean (float2 a lane), and nbuf buffers of one staged row: its
+// q, k and v positions, each h*64 + 8 bf16 wide (the 16-byte pad makes
+// ldmatrix conflict-free).
+__host__ __device__ inline int attn_row_stride(int h) { return h * kHeadDim + 8; }
+__host__ __device__ inline int attn_row_elems(int Lq, int Lk, int h) {
+  return (Lq + 2 * Lk) * attn_row_stride(h);
+}
+__host__ __device__ inline int attn_mma_smem(int Lq, int Lk, int h, int nbuf) {
+  return kZeroBytes + h * 32 * 8 + 2 * nbuf * attn_row_elems(Lq, Lk, h);
+}
+
+// Start the 16-byte cp.async loads of row b (every position's h heads) into
+// the buffer at sq. A CTA has h*32 threads and a position h*8 chunks, so
+// thread t copies chunk t % (8h) of positions t / (8h), + 4, + 8, ...
+__device__ __forceinline__ void stage_row(const AttnArgs& a, int b, bf16* sq, int RS) {
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int cpr = a.h * 8;  // chunks of a position
+  const int ch = (threadIdx.x % cpr) * 8;
+  const bf16* qb = (const bf16*)a.q + b * a.q_sb + ch;
+  const bf16* kb = (const bf16*)a.k + b * a.k_sb + ch;
+  const bf16* vb = (const bf16*)a.v + b * a.v_sb + ch;
+  for (int r = threadIdx.x / cpr; r < Lq + 2 * Lk; r += 4) {
+    const bf16* src = r < Lq ? qb + r * a.q_sl
+                             : (r < Lq + Lk ? kb + (r - Lq) * a.k_sl : vb + (r - Lq - Lk) * a.v_sl);
+    cp_async16(sq + r * RS + ch, src);  // q, k, v positions lie back to back
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Rows [0, Lq) of this warp's head of the output from its staged slice so
+// (row stride RS), with coalesced 16-byte stores.
+__device__ __forceinline__ void store_head(const bf16* so, int RS, int Lq, bf16* dst,
+                                           long long o_sl, int lane) {
+  __syncwarp();
+  for (int c = lane; c < Lq * 8; c += 32) {
+    const int r = c >> 3, ch = (c & 7) * 8;
+    *reinterpret_cast<uint4*>(dst + r * o_sl + ch) =
+        *reinterpret_cast<const uint4*>(so + r * RS + ch);
+  }
+}
+
+// One staged row b (buffer sq) through this warp's head hd: valid holds the
+// head's valid keys, any_padding whether some head of the row has none.
+// MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
+// keys (Lk <= 8 * NK8).
+template <int MQ, int NK8>
+__device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq, int RS,
+                                              const bf16* zero, float2* part, unsigned valid,
+                                              int any_padding) {
+  constexpr int MK = (NK8 + 1) / 2;  // k16 steps of PV over the keys
+  const int h = a.h, Lq = a.Lq, Lk = a.Lk;
+  const bf16* sk = sq + Lq * RS;
+  const bf16* sv = sk + Lk * RS;
+  const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
+  bf16* hq = sq + hd * kHeadDim;  // this head's slices; hq stages the output
+  const bf16* hk = sk + hd * kHeadDim;
+  const bf16* hv = sv + hd * kHeadDim;
+  bf16* dst = (bf16*)a.out + b * a.o_sb + hd * kHeadDim;
+  const float w_uniform = Num<bf16>::round(1.0f / (float)(Lk * h));
+
+  if (any_padding && !a.dropout) {
+    // uniform weights over all Lk*h merged value rows: the row's sum, once
+    // (warp w sums head w's slice over the positions, lane t dims 2t, 2t+1)
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int j = 0; j < Lk; ++j) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 2 * lane));
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    part[hd * 32 + lane] = acc;
+    __syncthreads();
+    if (valid == 0u) {
+      float2 tot = make_float2(0.0f, 0.0f);
+      for (int w = 0; w < h; ++w) {
+        tot.x += part[w * 32 + lane].x;
+        tot.y += part[w * 32 + lane].y;
+      }
+      const uint32_t o = pack_bf16(tot.x * w_uniform, tot.y * w_uniform);
+      for (int i = 0; i < Lq; ++i)
+        *reinterpret_cast<uint32_t*>(dst + i * a.o_sl + 2 * lane) = o;
+      return;
+    }
+  }
+
+  if (valid == 0u) {
+    // dropout on a head with no valid key: its queries' dropped uniform
+    // weights over all Lk*h merged keys, built as A fragments in registers
+    // (entry (i, kk) kept by its own Philox word), times the merged V rows
+    const int Lkh = Lk * h;
+    const float wd = Num<bf16>::round(w_uniform / a.keep_div);
+    float acc[MQ][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
+    for (int ks = 0; ks < (Lkh + 15) / 16; ++ks) {
+      uint32_t af[MQ][4];
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh) {
+            const int i = 16 * mt + g + 8 * r, kk = 16 * ks + 8 * kh + 2 * q4;
+            float e[2];
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+              e[t] = (i < Lq && kk + t < Lkh &&
+                      dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
+                         ? wd
+                         : 0.0f;
+            af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);
+          }
+      const int kk = 16 * ks + lr + 8 * (mat & 1);
+      const bf16* vrow = kk < Lkh ? sv + (kk / h) * RS + (kk % h) * kHeadDim : zero;
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {  // 16 of the 64 output columns at a time
+        uint32_t bf[4];
+        ldsm_x4_t(bf, saddr(vrow + 16 * pp + 8 * (mat >> 1)));
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt) {
+          mma16816(acc[mt][2 * pp], af[mt], bf[0], bf[1]);
+          mma16816(acc[mt][2 * pp + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + g + 8 * r;
+        if (i < Lq)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<uint32_t*>(hq + i * RS + 8 * n + 2 * q4) =
+                pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
+      }
+    store_head(hq, RS, Lq, dst, a.o_sl, lane);
+    return;
+  }
+
+  // S = Q K^T over d = 64
+  float sacc[MQ][NK8][4];
+#pragma unroll
+  for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NK8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[mt][nt][e] = 0.0f;
+#pragma unroll
+  for (int hk2 = 0; hk2 < 2; ++hk2) {  // d in [32 hk2, 32 hk2 + 32): two k16 steps
+    uint32_t bk[NK8][4];
+#pragma unroll
+    for (int nt = 0; nt < NK8; ++nt) {
+      const int j = 8 * nt + lr, col = 32 * hk2 + 8 * mat;
+      ldsm_x4(bk[nt], saddr(j < Lk ? hk + j * RS + col : zero + col));
+    }
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int i = 16 * mt + lr + 8 * (mat & 1), col = 32 * hk2 + 16 * kk + 8 * (mat >> 1);
+        uint32_t aq[4];
+        ldsm_x4(aq, saddr(i < Lq ? hq + i * RS + col : zero + col));
+#pragma unroll
+        for (int nt = 0; nt < NK8; ++nt) mma16816(sacc[mt][nt], aq, bk[nt][2 * kk], bk[nt][2 * kk + 1]);
+      }
+  }
+
+  // the weights on the fragments: accumulator e of tile (mt, nt) is query
+  // 16 mt + g + 8 (e / 2), key 8 nt + 2 q4 + (e % 2); a query's keys lie in
+  // the lane's quad
+  float kbv[NK8][2];
+#pragma unroll
+  for (int nt = 0; nt < NK8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * nt + 2 * q4 + e;
+      kbv[nt][e] = (a.kbias && j < Lk)
+                       ? Num<bf16>::to_f(((const bf16*)a.kbias)[b * a.kb_sb + j * a.kb_sl +
+                                                                hd * a.kb_sh])
+                       : 0.0f;
+    }
+  const float sqrt_d = sqrtf((float)kHeadDim);
+  const float lowest = Num<bf16>::lowest();
+#pragma unroll
+  for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (16 * mt + 8 * hh >= Lq) continue;  // no query of this half tile: its P is unused
+      const int i = 16 * mt + g + 8 * hh;
+      float m = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NK8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * q4 + e;
+          float s = Num<bf16>::round(Num<bf16>::round(sacc[mt][nt][2 * hh + e]) / sqrt_d);
+          if (a.kbias) s = Num<bf16>::round(s + kbv[nt][e]);
+          s = j < Lk ? (((valid >> j) & 1u) ? s : lowest) : -INFINITY;
+          sacc[mt][nt][2 * hh + e] = s;
+          m = fmaxf(m, s);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < NK8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * q4 + e;
+          const float x = j < Lk ? expf(sacc[mt][nt][2 * hh + e] - m) : 0.0f;
+          sacc[mt][nt][2 * hh + e] = x;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+      for (int nt = 0; nt < NK8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * q4 + e;
+          float w = Num<bf16>::round(sacc[mt][nt][2 * hh + e] / sum);
+          if (a.dropout && i < Lq && j < Lk)
+            w = dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, j * h + hd)
+                    ? Num<bf16>::round(w / a.keep_div)
+                    : 0.0f;
+          sacc[mt][nt][2 * hh + e] = w;
+        }
+    }
+
+  // O = P V: P's fragments are the A operand as they stand (C row g, keys
+  // 2 q4 + {0, 1} of n8 tile 2 ks, then of tile 2 ks + 1)
+  uint32_t pf[MQ][MK][4];
+#pragma unroll
+  for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < MK; ++ks)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        pf[mt][ks][r] = pack_bf16(sacc[mt][2 * ks][2 * r], sacc[mt][2 * ks][2 * r + 1]);
+        pf[mt][ks][r + 2] = 2 * ks + 1 < NK8 ? pack_bf16(sacc[mt][2 * ks + 1][2 * r],
+                                                         sacc[mt][2 * ks + 1][2 * r + 1])
+                                             : 0u;
+      }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // 32 of the 64 output columns at a time
+    float acc[MQ][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < MK; ++ks)
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        const int j = 16 * ks + lr + 8 * (mat & 1);
+        const int col = 32 * half + 16 * pp + 8 * (mat >> 1);
+        uint32_t bf[4];
+        ldsm_x4_t(bf, saddr(j < Lk ? hv + j * RS + col : zero + col));
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt) {
+          mma16816(acc[mt][2 * pp], pf[mt][ks], bf[0], bf[1]);
+          mma16816(acc[mt][2 * pp + 1], pf[mt][ks], bf[2], bf[3]);
+        }
+      }
+    if (half == 0) __syncwarp();  // every lane's q reads are done: hq stages the output
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + g + 8 * r;
+        if (i < Lq)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            *reinterpret_cast<uint32_t*>(hq + i * RS + 32 * half + 8 * n + 2 * q4) =
+                pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
+      }
+  }
+  store_head(hq, RS, Lq, dst, a.o_sl, lane);
+}
+
+// Whether key `lane` of head hd in row b is valid (lanes past Lk: no).
+__device__ __forceinline__ bool key_valid(const AttnArgs& a, int b, int hd, int lane) {
+  return lane < a.Lk &&
+         (a.mask == nullptr || a.mask[b * a.m_sb + lane * a.m_sl + hd * a.m_sh] > 0.0f);
+}
+
+// Persistent: each CTA walks rows blockIdx.x, + gridDim.x, ...; with two
+// buffers (nbuf == 2) the next row's loads (and its key mask) are in flight
+// while this one is computed, and one barrier a row both publishes the row
+// and frees the other buffer.
+template <int MQ, int NK8>
+__global__ void __launch_bounds__(kMaxHeads * 32, (MQ == 1 && NK8 <= 2) ? 2 : 1)
+attention_mma_kernel(AttnArgs a, int nbuf) {
+  extern __shared__ __align__(16) uint8_t attn_smem[];
+  const int RS = attn_row_stride(a.h);
+  const int row_elems = attn_row_elems(a.Lq, a.Lk, a.h);
+  bf16* zero = reinterpret_cast<bf16*>(attn_smem);
+  float2* part = reinterpret_cast<float2*>(attn_smem + kZeroBytes);  // [h][32]
+  bf16* rows = reinterpret_cast<bf16*>(attn_smem + kZeroBytes + a.h * 32 * 8);
+  const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = threadIdx.x; t < kZeroBytes / 2; t += blockDim.x)
+    zero[t] = __float2bfloat16_rn(0.0f);
+  bool ok_next = false;
+  if (blockIdx.x < a.B) {
+    stage_row(a, blockIdx.x, rows, RS);
+    ok_next = key_valid(a, blockIdx.x, hd, lane);
+  }
+  int it = 0;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x, ++it) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // row b's loads
+    const unsigned valid = __ballot_sync(0xffffffffu, ok_next);
+    // publishes row b, and every thread is done with row b - gridDim.x;
+    // whether any head of row b has no valid key
+    const int any_padding = __syncthreads_or(valid == 0u);
+    const int nb = b + gridDim.x;
+    if (nbuf == 2 && nb < a.B) {
+      stage_row(a, nb, rows + ((it + 1) & 1) * row_elems, RS);
+      ok_next = key_valid(a, nb, hd, lane);
+    }
+    attention_row<MQ, NK8>(a, b, rows + (nbuf == 2 ? (it & 1) * row_elems : 0), RS, zero, part,
+                           valid, any_padding);
+    if (nbuf == 1 && nb < a.B) {
+      __syncthreads();  // row b's buffer is free
+      stage_row(a, nb, rows, RS);
+      ok_next = key_valid(a, nb, hd, lane);
+    }
+  }
+}
+
+template <int MQ, int NK8>
+cudaError_t launch_attention_mma(const AttnArgs& a, cudaStream_t stream) {
+  const int nbuf = attn_mma_smem(a.Lq, a.Lk, a.h, 2) <= kAttnSmemMax ? 2 : 1;
+  const int smem = attn_mma_smem(a.Lq, a.Lk, a.h, nbuf);
+  const int threads = a.h * 32;
+  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<MQ, NK8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attention_mma_kernel<MQ, NK8>,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const long long grid = (long long)sms * per_sm < a.B ? (long long)sms * per_sm : a.B;
+  attention_mma_kernel<MQ, NK8><<<(unsigned)grid, threads, smem, stream>>>(a, nbuf);
+  return cudaGetLastError();
+}
+
+// bf16 operands: position rows and the output 16-byte aligned (the wrappers'
+// layouts are); h <= 16 and the staged row within the SM's shared memory.
+inline cudaError_t launch_attention_bf16(const AttnArgs& a, cudaStream_t s) {
+  if (a.B <= 0) return cudaSuccess;
+  if (a.h < 1 || a.h > kMaxHeads || attn_mma_smem(a.Lq, a.Lk, a.h, 1) > kAttnSmemMax)
+    return cudaErrorInvalidValue;
+  const int mq = (a.Lq + 15) / 16, nk = (a.Lk + 7) / 8;
+  if (mq == 1) {
+    switch (nk) {
+      case 1: return launch_attention_mma<1, 1>(a, s);
+      case 2: return launch_attention_mma<1, 2>(a, s);
+      case 3: return launch_attention_mma<1, 3>(a, s);
+      case 4: return launch_attention_mma<1, 4>(a, s);
+    }
+  } else if (mq == 2) {
+    switch (nk) {
+      case 1: return launch_attention_mma<2, 1>(a, s);
+      case 2: return launch_attention_mma<2, 2>(a, s);
+      case 3: return launch_attention_mma<2, 3>(a, s);
+      case 4: return launch_attention_mma<2, 4>(a, s);
+    }
+  }
+  return cudaErrorInvalidValue;  // Lq, Lk outside 1..32
+}
+
+inline cudaError_t launch_attention_f32(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t)kAttnWarps * attn_smem_floats_per_warp(a.Lq, a.Lk);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long pairs = (long long)a.B * a.h;
   const unsigned grid = (unsigned)((pairs + kAttnWarps - 1) / kAttnWarps);
-  attention_kernel<T><<<grid, kAttnWarps * 32, smem, stream>>>(a);
+  attention_kernel<float><<<grid, kAttnWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_attention(const AttnArgs& a, cudaStream_t stream);
+template <>
+inline cudaError_t launch_attention<float>(const AttnArgs& a, cudaStream_t stream) {
+  return launch_attention_f32(a, stream);
+}
+template <>
+inline cudaError_t launch_attention<bf16>(const AttnArgs& a, cudaStream_t stream) {
+  return launch_attention_bf16(a, stream);
 }
 
 }  // namespace zt

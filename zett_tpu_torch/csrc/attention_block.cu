@@ -71,7 +71,7 @@ cudaError_t attention_block(const T* x, const float* mask, const T* kbias, int B
 }  // namespace zt
 
 // dtype: 0 = float32, 1 = bfloat16. wqkv_t = [wq | wk | wv]^T (3H, H) and
-// wo_t = wo^T (H, H), row-major; H % 256 == 0. qkv (B*L, 3H) and ctx
+// wo_t = wo^T (H, H), row-major; H % 8 == 0. qkv (B*L, 3H) and ctx
 // (B*L, H) are scratch buffers of the caller's. Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_block(int dtype, const void* x, const float* mask, const void* kbias,
                                   int B, int L, int H, int nh, const void* wqkv_t,

@@ -20,7 +20,10 @@
 // of q/k/v/out, so it is memory-bound (>= 0.12 ms at 3.35 TB/s). The design
 // reads each key and value row once into shared memory, keeps the scores
 // and weights on chip, and writes only the context. At the training shapes
-// (B = 32896, Lq*h = Lk*h = 84) it moves ~1.4 GB: >= 0.43 ms.
+// (B = 32896, Lq*h = Lk*h = 84) it moves ~1.4 GB: >= 0.43 ms. bf16 runs
+// attention.cuh's tensor-core kernel (one warp a head of a row,
+// mma.sync m16n8k16 for both products, softmax and dropout in registers);
+// f32 its scalar path.
 #include "attention.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. dropout != 0 drops weights whose Philox

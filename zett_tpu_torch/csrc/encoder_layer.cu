@@ -117,7 +117,7 @@ cudaError_t encoder_layer(const T* x, const float* mask, int B, int L, int H, in
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = no activation, 1 = tanh-gelu.
 // Weights transposed, row-major: wqkv_t (3H, H), wo_t (H, H), w1_t (I, H),
-// w2_t (H, I); H % 256 == 0 and I % 256 == 0.
+// w2_t (H, I); H % 8 == 0 and I % 8 == 0 (rows of whole 16-byte units).
 // Returns a cudaError_t (0 = success).
 extern "C" int zt_encoder_layer(int dtype, const void* x, const float* mask, int B, int L,
                                 int H, int nh, int I, const void* wqkv_t, const void* bqkv,

@@ -22,9 +22,13 @@
 // (With the threads storing the tile themselves, the tensor cores sat idle
 // through every epilogue.) N = 256, not 128: one A tile feeds 256 columns,
 // so a stage carries 85 operations per byte loaded (64 at N = 128), and each
-// k16 step reads 80 B/clock of shared memory, under the SM's 128. Ragged M:
-// TMA zero-fills rows past M and the TMA store clips them. Needs N % 256 ==
-// 0, K % 64 == 0, 16-byte aligned A, Wt and C.
+// k16 step reads 80 B/clock of shared memory, under the SM's 128. Ragged
+// edges: TMA zero-fills the rows of A past M, the rows of Wt past N and the
+// columns of both past K (a product over zero-filled K columns is exact),
+// the epilogue reads no bias past N and skips chunks wholly past it, and the
+// TMA store clips rows past M and columns past N. Needs rows of whole
+// 16-byte units (N % 8 == 0, K % 8 == 0: TMA's stride rule) and 16-byte
+// aligned A, Wt and C.
 //
 // f32 uses plain FMA tiles (no TF32), for comparisons at full precision.
 //
@@ -206,9 +210,9 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
   }
   __syncthreads();
 
-  const int n_tiles = N / GN;
+  const int n_tiles = (N + GN - 1) / GN;
   const int tiles = ((M + GM - 1) / GM) * n_tiles;
-  const int kblocks = K / GK;
+  const int kblocks = (K + GK - 1) / GK;
 
   if (wg == 0) {
     // producer: one thread keeps the ring full, across tiles
@@ -238,6 +242,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
     const int frag_col = 2 * (t128 % 4);
     int stage = 0;
     unsigned phase = 0;
+    int chunk = 0;  // epilogue chunks stored so far: their slots alternate
     float d[128];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
@@ -270,7 +275,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
       // column 8*(j/4) + (j%2) + the thread's column pair
 #pragma unroll
       for (int q = 0; q < GN / kEpiCols; ++q) {
-        uint8_t* slot = se + (2 * c + (q & 1)) * kEpiSlot;
+        if (n0 + kEpiCols * q >= N) break;  // the ragged last N tile ends here
+        uint8_t* slot = se + (2 * c + (chunk++ & 1)) * kEpiSlot;
         // the store that last read this slot (two chunks back) is done
         if (t128 == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");  // this warpgroup
@@ -278,8 +284,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
         for (int j = 0; j < kEpiCols / 8; ++j) {
           const int j8 = q * (kEpiCols / 8) + j;
           const int col = 8 * j + frag_col;
+          const int gcol = n0 + kEpiCols * q + col;  // N is even: gcol + 1 < N too
           const __nv_bfloat162 bb =
-              *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + kEpiCols * q + col);
+              gcol < N ? *reinterpret_cast<const __nv_bfloat162*>(bias + gcol)
+                       : __floats2bfloat162_rn(0.0f, 0.0f);
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
             *reinterpret_cast<__nv_bfloat162*>(slot + swizzle128(frag_row + 8 * hh, col)) =
@@ -336,7 +344,7 @@ static bool tile_map(CUtensorMap* map, const bf16* ptr, int rows, int cols, int 
 
 // ---------------------------------------------------------------- f32 GEMM
 // Plain FMA tiles 64 x 64 x 16, 4 x 4 outputs per thread (no tensor cores,
-// no TF32): the full-precision path. K % 16 == 0.
+// no TF32): the full-precision path. Guarded along M, N and K.
 constexpr int kGemmThreads = 256;
 constexpr int FM = 64, FN = 64, FK = 16;
 
@@ -355,8 +363,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Wt,
     for (int l = 0; l < 4; ++l) {
       const int idx = tid + l * kGemmThreads;
       const int r = idx / FK, c = idx % FK;
-      As[c][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.0f;
-      Bs[c][r] = (n0 + r < N) ? Wt[(size_t)(n0 + r) * K + k0 + c] : 0.0f;
+      const bool k_ok = k0 + c < K;
+      As[c][r] = (m0 + r < M && k_ok) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.0f;
+      Bs[c][r] = (n0 + r < N && k_ok) ? Wt[(size_t)(n0 + r) * K + k0 + c] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -410,7 +419,7 @@ static cudaError_t gemm_setup(int* sms) {
 template <>
 inline cudaError_t gemm<bf16>(const bf16* A, const bf16* Wt, const bf16* bias, bf16* C, int M,
                               int N, int K, int act, cudaStream_t s) {
-  if (M < 1 || N % GN || K % GK) return cudaErrorInvalidValue;
+  if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8) return cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t err = gemm_setup(&sms);
   if (err != cudaSuccess) return err;
@@ -418,7 +427,7 @@ inline cudaError_t gemm<bf16>(const bf16* A, const bf16* Wt, const bf16* bias, b
   if (!tile_map(&map_a, A, M, K, GM) || !tile_map(&map_w, Wt, N, K, GN) ||
       !tile_map(&map_c, C, M, N, kEpiCols))
     return cudaErrorInvalidValue;
-  const int tiles = ((M + GM - 1) / GM) * (N / GN);
+  const int tiles = ((M + GM - 1) / GM) * ((N + GN - 1) / GN);
   const int grid = tiles < sms ? tiles : sms;  // persistent: one block per SM
   gemm_bf16_kernel<<<grid, kGemmTcThreads, kGemmSmem, s>>>(map_a, map_w, map_c, bias, M, N, K,
                                                              act);

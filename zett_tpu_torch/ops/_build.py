@@ -34,8 +34,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 reports: Dict[str, str] = {}
 
 # Launches per kernel wrapper. A wrapper adds one where it launches its
-# kernel on the card, and nowhere else.
-launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+# kernel on the card, and nowhere else. Each library's kernel counts under
+# the library's name; the span scores fused into kernel 6's DP (a second
+# entry point of viterbi_dp.cu) count under their own.
+COUNTERS = SOURCES + ("viterbi_spans_dp",)
+launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
 def count_launch(name: str) -> None:
@@ -131,6 +134,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def aligned16(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels' 16-byte loads
+    (TMA, cp.async, int4) need: a copy where the storage starts off a
+    16-byte boundary."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def check(err: int, what: str) -> None:

@@ -32,8 +32,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_core import attention_core, attention_core_bwd, merged_attention_reference
-from .encoder_layer import _aligned, check_gemm_widths, dense_exact, pack_weights
+from .attention_core import (attention_core, attention_core_bwd, check_heads,
+                             merged_attention_reference)
+from .encoder_layer import check_gemm_widths, dense_exact, pack_weights
 
 _NAME = "attention_block"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -139,6 +140,7 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
         raise ValueError(f"attention_block: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"attention_block: sequence length {L} outside 1..32")
+    check_heads("attention_block", dtype, num_heads)
     check_gemm_widths("attention_block", dtype, (3 * H, H), (H,))
     if not x.is_cuda:
         raise ValueError(f"attention_block: no kernel for device {x.device}")
@@ -149,12 +151,12 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
         if t is not None and (tuple(t.shape) != (B, L) or t.device != x.device):
             raise ValueError(f"attention_block: {name} must be ({B}, {L}) on {x.device}")
     dev = x.device
-    x = _aligned(x)
+    x = _build.aligned16(x)
     maskf = mask.float().contiguous() if mask is not None else None
     kb = kbias.to(dtype).contiguous() if kbias is not None else None
     wqkv_t, wo_t = pack_weights(wq, wk, wv), pack_weights(wo)
     bqkv = torch.cat([bq, bk, bv]).contiguous()
-    bo = _aligned(bo)
+    bo = _build.aligned16(bo)
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
     ctx = torch.empty(M, H, dtype=dtype, device=dev)

@@ -47,6 +47,9 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _MASK_ROWS = 4096  # rows of the plain keep mask computed at a time
+# heads of a row in the bf16 forward (csrc/attention.cuh: one warp a head,
+# the row's heads in one CTA)
+MAX_HEADS_BF16 = 16
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -276,6 +279,14 @@ def _check(qm, km, vm, num_heads, what):
     return B, Lq, Lk
 
 
+def check_heads(what: str, dtype, num_heads: int) -> None:
+    """The bf16 forward runs one warp per head of a row: at most
+    ``MAX_HEADS_BF16``."""
+    if dtype == torch.bfloat16 and num_heads > MAX_HEADS_BF16:
+        raise ValueError(f"{what}: {num_heads} heads; the bf16 kernel takes at most "
+                         f"{MAX_HEADS_BF16}")
+
+
 def _dropout_args(rate: float, seed: int, dtype):
     """(dropout flag, seed, threshold, 1-rate in T, 1/(1-rate) in T,
     1/(1-rate) in f32) for the C entry points."""
@@ -292,7 +303,8 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
     if not qm.is_cuda:
         raise ValueError(f"attention_core: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core")
-    qm, km, vm = qm.contiguous(), km.contiguous(), vm.contiguous()
+    check_heads("attention_core", qm.dtype, num_heads)
+    qm, km, vm = (_build.aligned16(t) for t in (qm, km, vm))
     maskf = kmaskf.float().contiguous()
     out = torch.empty_like(qm)
     drop, seed32, thr, div, _, _ = _dropout_args(rate, seed, qm.dtype)
@@ -342,11 +354,12 @@ def _launch_merged(qm, km, vm, kmask, kbias, num_heads):
     if not qm.is_cuda:
         raise ValueError(f"merged_attention: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "merged_attention")
+    check_heads("merged_attention", qm.dtype, num_heads)
     Lkh = Lk * num_heads
     for name, t in (("kmask", kmask), ("kbias", kbias)):
         if t is not None and (tuple(t.shape) != (B, Lkh) or t.device != qm.device):
             raise ValueError(f"merged_attention: {name} must be ({B}, {Lkh}) on {qm.device}")
-    qm, km, vm = qm.contiguous(), km.contiguous(), vm.contiguous()
+    qm, km, vm = (_build.aligned16(t) for t in (qm, km, vm))
     maskf = kmask.float().contiguous() if kmask is not None else None
     kb = kbias.to(qm.dtype).contiguous() if kbias is not None else None
     out = torch.empty_like(qm)

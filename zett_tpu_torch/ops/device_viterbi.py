@@ -5,13 +5,16 @@ Pretokens are padded byte rows (B, L). The vocab is compiled on the host
 into a bucket-4 hash table: (M, 16) int32 rows of four entries
 [key1, key2, score_bits, piece_id], slot = fmix32(h1 ^ salt) % M, built
 natively (``csrc/host_lib.bucket4_build_native``; ``_bucket4_build_py`` is
-the Python reference, bit-identical). On the device, double fingerprints of
-every (start, length <= K) span are rolled in one vectorized pass, one table
-row is gathered per span and compared against its four entries
-(``compute_span_scores``, PyTorch, as it is XLA in JAX), and the DP runs as
-kernel 6 (``ops/viterbi_dp.py``, CUDA on the card, its plain version on the
-CPU). Backtracking and counting follow the backpointer chains with PyTorch
-gathers.
+the Python reference, bit-identical). Double fingerprints of every (start,
+length <= K) span are rolled, one table row is looked up per span and
+compared against its four entries (``compute_span_scores``, PyTorch, as it
+is XLA in JAX), and the DP runs over those span scores (kernel 6,
+``ops/viterbi_dp.py``). On the card ``viterbi_device`` runs both in one
+launch, ``viterbi_spans_dp`` (the fused entry point of
+``csrc/viterbi_dp.cu``: the spans are computed in registers and never reach
+device memory, and only spans inside the pretoken are looked up); on the
+CPU it runs their plain composition. Backtracking and counting follow the
+backpointer chains with PyTorch gathers.
 
 Every function runs on the device of its input tensors, or takes a
 ``device`` argument that defaults to the card. PyTorch has no full uint32
@@ -32,13 +35,15 @@ Differences from the JAX module, none of them visible in the results:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..csrc import host_lib
-from .viterbi_dp import NEG, viterbi_dp
+from . import _build
+from .viterbi_dp import _MAX_K, NEG, viterbi_dp_plain
 
 _P1 = 0x01000193  # FNV-ish multipliers
 _P2 = 0x85EBCA6B
@@ -204,14 +209,76 @@ def compute_span_scores(rows: torch.Tensor, lens: torch.Tensor, table: torch.Ten
     return S, I
 
 
+def viterbi_spans_dp_plain(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
+                           salt: int, unk_score: float, K: int):
+    """Plain version of the fused kernel: kernel 6's plain DP over
+    ``compute_span_scores``. (dp, bk, bi), each (B, L+K)."""
+    return viterbi_dp_plain(*compute_span_scores(rows, lens, table, salt, unk_score, K))
+
+
+def viterbi_spans_dp(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor, salt: int,
+                     unk_score: float, K: int):
+    """(dp, bk, bi) of the Viterbi DP over the span scores of ``rows``
+    (B, L) int32 bytes with ``lens`` (B,) in 0..L and a table as
+    ``build_vocab_table`` makes it (each bucket's entries filled in order,
+    keys unique), bit-equal to ``viterbi_spans_dp_plain``. CPU tensors take
+    the plain version; on the card this launches the fused kernel
+    (``csrc/viterbi_dp.cu`` zt_viterbi_spans_dp); any other device raises."""
+    if rows.device.type == "cpu":
+        return viterbi_spans_dp_plain(rows, lens, table, salt, unk_score, K)
+    return _launch_spans(rows, lens, table, salt, unk_score, K)
+
+
+def _launch_spans(rows, lens, table, salt, unk_score, K):
+    lib = _build.load("viterbi_dp")
+    if not rows.is_cuda:
+        raise ValueError(f"viterbi_spans_dp: no kernel for device {rows.device}")
+    if rows.dim() != 2 or lens.shape != rows.shape[:1] or table.dim() != 2 \
+            or table.shape[1] != 16:
+        raise ValueError(f"viterbi_spans_dp: rows {tuple(rows.shape)}, lens "
+                         f"{tuple(lens.shape)}, table {tuple(table.shape)} must be (B, L), "
+                         "(B,), (M, 16)")
+    if lens.device != rows.device or table.device != rows.device:
+        raise ValueError("viterbi_spans_dp: rows, lens and table must share a device")
+    B, L = rows.shape
+    M = table.shape[0]
+    if M & (M - 1):
+        raise ValueError(f"vocab table rows {M} is not a power of two")
+    if not 1 <= K <= _MAX_K:
+        raise ValueError(f"viterbi_spans_dp: K = {K} outside 1..{_MAX_K}")
+    rows = _build.aligned16(rows.to(torch.int32))
+    lens = lens.to(torch.int32).contiguous()
+    table = table.to(torch.int32).contiguous()
+    dp = torch.empty((B, L + K), dtype=torch.float32, device=rows.device)
+    bk = torch.empty((B, L + K), dtype=torch.int32, device=rows.device)
+    bi = torch.empty((B, L + K), dtype=torch.int32, device=rows.device)
+    if B == 0 or L == 0:
+        dp.fill_(NEG)
+        dp[:, :1] = 0.0
+        bk.zero_()
+        bi.fill_(-1)
+        return dp, bk, bi
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.zt_viterbi_spans_dp
+    fn.restype = i
+    fn.argtypes = [p, p, p, i, ctypes.c_uint, ctypes.c_float, p, p, p, ctypes.c_longlong, i, i,
+                   p]
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    err = fn(rows.data_ptr(), lens.data_ptr(), table.data_ptr(), M, int(salt) & 0xFFFFFFFF,
+             float(unk_score), dp.data_ptr(), bk.data_ptr(), bi.data_ptr(), B, L, K, stream)
+    _build.check(err, "viterbi_spans_dp kernel launch")
+    _build.count_launch("viterbi_spans_dp")
+    return dp, bk, bi
+
+
 def viterbi_device(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor, salt: int,
                    unk_score: float, K: int = 16, with_backtrack: bool = True):
     """Batched Viterbi: (best_scores (B,), back_k (B, L+1) int32, back_id
     (B, L+1) int32), where back_k[j] is the length of the best piece ending
-    at j (0 where unreachable). The DP is kernel 6 on the card."""
-    S, I = compute_span_scores(rows, lens, table, salt, unk_score, K)
+    at j (0 where unreachable). The span scores and the DP are one fused
+    kernel on the card."""
     L = rows.shape[1]
-    dp, bk, bi = viterbi_dp(S, I)
+    dp, bk, bi = viterbi_spans_dp(rows, lens, table, salt, unk_score, K)
     best = dp.gather(1, lens.to(torch.int64)[:, None])[:, 0]
     if not with_backtrack:
         return best, None, None

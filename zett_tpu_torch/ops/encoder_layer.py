@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_core import merged_attention_reference
+from .attention_core import check_heads, merged_attention_reference
 
 _NAME = "encoder_layer"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -101,34 +101,17 @@ def encoder_layer(x, mask: Optional[torch.Tensor], wq, bq, wk, bk, wv, bv, wo, b
     return _launch(*args, num_heads=num_heads, eps=eps)
 
 
-def _aligned(t):
-    """Contiguous and 16-byte aligned, as the GEMM's TMA loads need."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
-# csrc/gemm.cuh's bf16 block tile over the output width N and the depth K
-GEMM_TILE_N, GEMM_TILE_K = 256, 64
-
-
 def check_gemm_widths(what: str, dtype, widths, depths) -> None:
     """Raise ValueError on what the GEMMs of ``csrc/gemm.cuh`` refuse: rows
     (output ``widths`` N and ``depths`` K) that are not whole 16-byte units,
-    as TMA reads them, an N that is not a multiple of the N tile, a K that
-    is not a multiple of the k tile."""
+    TMA's stride rule. Any other width is taken: the last N and k tiles may
+    be partial (TMA zero-fills the loads past the edge and clips the
+    stores)."""
     size = torch.finfo(dtype).bits // 8
     for n in (*widths, *depths):
         if n * size % 16:
             raise ValueError(f"{what}: rows of {n} {dtype} values are not a multiple of "
                              "16 bytes")
-    for n in widths:
-        if n % GEMM_TILE_N:
-            raise ValueError(f"{what}: width {n} is not a multiple of the GEMM's N tile "
-                             f"{GEMM_TILE_N}")
-    for k in depths:
-        if k % GEMM_TILE_K:
-            raise ValueError(f"{what}: depth {k} is not a multiple of the GEMM's k tile "
-                             f"{GEMM_TILE_K}")
 
 
 def pack_weights(*ws):
@@ -151,6 +134,7 @@ def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
         raise ValueError(f"encoder_layer: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"encoder_layer: sequence length {L} outside 1..32")
+    check_heads("encoder_layer", dtype, num_heads)
     check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
     if not x.is_cuda:
         raise ValueError(f"encoder_layer: no kernel for device {x.device}")
@@ -158,12 +142,12 @@ def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     if any(t.dtype != dtype or t.device != x.device for t in weights):
         raise TypeError("encoder_layer: weights must match x's dtype and device")
     dev = x.device
-    x = _aligned(x)
+    x = _build.aligned16(x)
     maskf = (torch.ones(B, L, device=dev) if mask is None else mask.float()).contiguous()
     wqkv_t = pack_weights(wq, wk, wv)
     wo_t, w1_t, w2_t = (pack_weights(w) for w in (wo, w1, w2))
     bqkv = torch.cat([bq, bk, bv]).contiguous()
-    bo, b1, b2 = (_aligned(t) for t in (bo, b1, b2))
+    bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
     ln = [t.float().contiguous() for t in (ln1_s, ln1_b, ln2_s, ln2_b)]
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)

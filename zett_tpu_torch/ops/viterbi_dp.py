@@ -12,6 +12,10 @@ dp[:, 0] = 0 and every other dp entry NEG, bk 0, bi -1; then for j = 0..L-1
 in order, ``dp[j+1+k] = dp[j] + S[j, k]`` only where strictly greater, which
 also sets bk = k+1 and bi = I[j, k]. The kernel is bit-identical to the
 plain version: one f32 add per candidate, ties keep the earlier writer.
+
+The device Viterbi's main path runs this DP fused with its span scores
+(``ops/device_viterbi.py`` ``viterbi_spans_dp``, a second entry point of the
+same library); ``viterbi_dp`` is the counterpart of ``viterbi_dp_pallas``.
 """
 
 from __future__ import annotations
