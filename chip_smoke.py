@@ -7,15 +7,19 @@ Phases (any failure exits non-zero and prints no result):
      zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
      host library (g++); print ptxas's registers, shared memory and spills
      of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
-     HMMA (kernels 1 to 5: the attention core's mma.sync) in their SASS
+     HMMA (kernels 1 to 5: the attention core's mma.sync; in kernel 1 within
+     its [q|k|v] GEMM, whose epilogue runs the core) in their SASS
      (cuobjdump): a count of zero fails;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
-     call, beside the least time the card could take; kernel 1's device
-     time by kernel and each GEMM's TFLOP/s beside torch.matmul's (cuBLAS,
-     timed only); kernel 1 at widths off the GEMM's 256 tile (H 640 with 10
-     heads and I 1600, H 896 with 14 heads);
+     call, beside the least time the card could take; kernel 1 also back to
+     back (20 calls), its wrapper's host ms, its plan (launches, cluster,
+     [q|k|v] tile rows), its device kernels a call (at most four in bf16, at
+     every width), its device time by kernel and each GEMM's TFLOP/s beside
+     torch.matmul's (cuBLAS, timed only); kernel 1 at widths off the GEMMs'
+     tiles (H 640 with 10 heads and I 1600, H 896 with 14 heads) and at the
+     widest bf16 width (H 1024, 16 heads, I 4096);
   3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 2048
      rows: the card (kernels) against the CPU (plain versions), f32;
   4. zero-shot transfer end to end through ``zett_tpu_torch.transfer``'s
@@ -193,6 +197,11 @@ SASS_REQUIRED = {"attention_core": ("HMMA",),
                  "attention_block": ("HGMMA", "UTMALDG", "HMMA"),
                  "encoder_layer": ("HGMMA", "UTMALDG", "HMMA"),
                  "merged_attention": ("HMMA",), "attention_core_bwd": ("HMMA",)}
+# kernel 1's three bf16 kernels, each on its own: wgmma and TMA loads in
+# every one, and the core's mma.sync in the [q|k|v] GEMM
+SASS_REQUIRED_IN = {"gemm_qkv_attention_kernel": ("HGMMA", "UTMALDG", "HMMA"),
+                    "gemm_ln_kernel": ("HGMMA", "UTMALDG"),
+                    "gemm_gelu_kernel": ("HGMMA", "UTMALDG")}
 
 
 def check_build():
@@ -215,6 +224,12 @@ def check_build():
         log(f"  SASS of lib{name}.so: {counts}")
         if not all(counts.values()):
             raise AssertionError(f"lib{name}.so lacks {[op for op, n in counts.items() if not n]}")
+    # kernel 1's core runs in its [q|k|v] GEMM's epilogue: mma.sync there
+    for function, ops in SASS_REQUIRED_IN.items():
+        counts = _build.sass_counts("encoder_layer", ops, function=function)
+        log(f"  SASS of {function} (libencoder_layer.so): {counts}")
+        if not all(counts.values()):
+            raise AssertionError(f"{function} lacks {[op for op, n in counts.items() if not n]}")
 
 
 # --------------------------------------------------------------------- phase 2
@@ -260,13 +275,31 @@ def library_encoder_layer(args, h):
     return lambda: layer(x, src_key_padding_mask=pad)
 
 
+# kernel 1 at B 16384, L 7, bf16 as the unfused seven-launch sequence that
+# the four-launch design replaced ran it (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md), printed beside this run's
+K1_UNFUSED = "3.084 ms single-call, 7 device kernels a layer"
+
+
+def port_kernels_per_call(run, reps=3):
+    """The port's device kernels (``zt::``) that one call of ``run``
+    launches, from a profile of ``reps`` calls: (count, names)."""
+    run()  # warm
+    kernels, _ = device_events(lambda: [run() for _ in range(reps)])
+    ours = [name for name, _, _ in kernels if "zt::" in name]
+    return len(ours) / reps, sorted({n.split("(")[0] for n in ours})
+
+
 def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
-    """Kernel 1 against its plain version; with ``timed``, its median time
-    beside the plain version's, nn.TransformerEncoderLayer's and the bound;
-    with ``split``, its device time by kernel and each GEMM against
+    """Kernel 1 against its plain version, and (bf16) its plan and the
+    device kernels a call launches (at most four); with ``timed``, its
+    median single-call time, its back-to-back time and its wrapper's host
+    ms beside the plain version's, nn.TransformerEncoderLayer's and the
+    bound; with ``split``, its device time by kernel and each GEMM against
     cuBLAS."""
     from zett_tpu_torch.ops import _build
-    from zett_tpu_torch.ops.encoder_layer import encoder_layer, encoder_layer_reference
+    from zett_tpu_torch.ops.encoder_layer import (encoder_layer, encoder_layer_reference,
+                                                   layer_plan)
 
     eps = 1e-5
     args = layer_inputs(B, L, dtype, gen, H, I)
@@ -279,11 +312,34 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
         ref = encoder_layer_reference(*args, h, eps)
     tag = f"kernel 1 B={B} L={L} {str(dtype)[6:]}" + ("" if H == 768 else f" H={H} h={h} I={I}")
     err = compare(got, ref, dtype, tag)
+    del got, ref
+
+    def run():
+        return encoder_layer(*args, num_heads=h, eps=eps)
+
+    # the profile may drop a window's first launches, never add one: a bf16
+    # count over four is a fault
+    plan = layer_plan(dtype, L, H, h, I)
+    n_kernels, names = port_kernels_per_call(run)
+    log(f"  {tag}: plan {plan}; {n_kernels:g} device kernels of the port a call: {names}")
+    if plan.cluster:
+        fit = _build.load("encoder_layer").zt_encoder_layer_ln_clusters(plan.cluster)
+        log(f"  {tag}: {fit} LayerNorm clusters of {plan.cluster} resident at once "
+            f"({fit * plan.cluster} of {torch.cuda.get_device_properties(0).multi_processor_count}"
+            f" SMs)")
+    if dtype == torch.bfloat16 and n_kernels > 4:
+        raise AssertionError(f"{tag}: {n_kernels} device kernels a call (at most 4 in bf16)")
     if not timed:
         return None
-    del got, ref
     M = B * L
-    ms = median_ms(lambda: encoder_layer(*args, num_heads=h, eps=eps))
+    ms = median_ms(run)
+    b2b = burst_ms(run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3  # enqueue: the repack, allocations, launch
+    torch.cuda.synchronize()
     with torch.no_grad():
         plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=5)
         lib = library_encoder_layer(args, h)
@@ -292,12 +348,18 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
     flops = 2 * M * (4 * H * H + 2 * H * I) + 2 * 2 * B * h * L * L * 64
     nbytes = (2 * M * H + 4 * H * H + 2 * H * I + 6 * H + I) * size + B * L * 4 + 4 * H * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"TransformerEncoderLayer {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  {tag}: {ms:.4f} ms (back to back {b2b:.4f} ms; wrapper host {host_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); back to back at {bound_ms / b2b:.3f} of the bound")
     if split:
-        gemm_split(lambda: encoder_layer(*args, num_heads=h, eps=eps),
-                   [("[q|k|v]", M, H, 3 * H), ("out", M, H, H), ("FFN in", M, H, I),
-                    ("FFN out", M, I, H)], dtype, f"kernel 1 B={B} L={L}")
+        log(f"  {tag}: the unfused sequence: {K1_UNFUSED}")
+        if dtype == torch.bfloat16:
+            shapes = [("[q|k|v] + core", M, H, 3 * H), ("out + LN1", M, H, H),
+                      ("FFN in + gelu", M, H, I), ("FFN out + LN2", M, I, H)]
+        else:
+            shapes = [("[q|k|v]", M, H, 3 * H), ("out", M, H, H), ("FFN in", M, H, I),
+                      ("FFN out", M, I, H)]
+        gemm_split(run, shapes, dtype, f"kernel 1 B={B} L={L}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -353,9 +415,12 @@ def phase_kernels():
             if main:
                 results["encoder_layer"] = r
         check_kernel1(1000, 7, dtype, gen, timed=False)  # ragged: 7000 rows, not a tile multiple
-        # widths off the GEMM's 256 tile: partial last N (and k) tiles
+        # widths off the GEMMs' tiles: partial last N (and k) tiles and
+        # LayerNorm slices
         for H, h in ((640, 10), (896, 14)):
             check_kernel1(16384, 7, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=1600)
+        # the widest bf16 width: 16 heads, the largest LayerNorm cluster
+        check_kernel1(4096, 7, dtype, gen, timed=dtype == torch.bfloat16, H=1024, h=16, I=4096)
         for Lk in (7, 4):
             r = check_kernel2(16384, Lk, dtype, gen, timed=True)
             if dtype == torch.bfloat16 and Lk == 7:
@@ -1168,6 +1233,7 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
     if not timed:
         return None
     ms = median_ms(lambda: attention_block(x, mask, kb, *w, num_heads=h))
+    b2b = burst_ms(lambda: attention_block(x, mask, kb, *w, num_heads=h))
     with torch.no_grad():
         plain_ms = median_ms(lambda: attention_block_reference(x, mask, kb, *w, h), reps=5)
     wq, bq, wk, bk, wv, bv, wo, bo = w
@@ -1188,8 +1254,8 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
     flops = 2 * M * 4 * H * H + 2 * 2 * B * h * L * L * 64
     nbytes = (2 * M * H + 4 * H * H + 4 * H + (B * L if with_bias else 0)) * size + B * L * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  {tag}: {ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear x3 + SDPA + F.linear "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  {tag}: {ms:.4f} ms (back to back {b2b:.4f} ms), plain {plain_ms:.4f} ms, F.linear "
+        f"x3 + SDPA + F.linear {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if split:
         gemm_split(lambda: attention_block(x, mask, kb, *w, num_heads=h),
                    [("[q|k|v]", M, H, 3 * H), ("out", M, H, H)], dtype, tag)
@@ -1296,6 +1362,9 @@ def phase_block_kernels():
                     # core's row is the one with its key bias
                     if not with_bias:
                         results["attention_block"] = r4
+                        log(f"  kernel 4 B=16384 L=8: {r4['ms']:.4f} ms single-call; before "
+                            f"the GEMM's ring was shared with kernel 1's kernels: 1.482-1.561 "
+                            f"ms (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)")
                     else:
                         results["merged_attention"] = r5
             torch.cuda.empty_cache()

@@ -6,7 +6,10 @@
 // (kernel 4, the attention inside the tier-2 block) and merged_attention.cu
 // (kernel 5, the tier-1 core). Nothing of a row leaves the SM between the
 // score and the context: the score plane never touches device memory, as in
-// the TPU kernels this replaces.
+// the TPU kernels this replaces. attention_head, one head of one row from
+// operands already in shared memory, is the body of attention_row below and
+// runs, as it stands, in kernel 1's [q|k|v] GEMM epilogue on the GEMM's
+// output tile (bf16); kernel 1's f32 path launches attention_kernel.
 //
 // What bounds it on an H100: memory. At the training shapes (B = 32896,
 // Lq*h = Lk*h = 84, bf16) it reads q, k, v and writes the context, 1.4 GB
@@ -344,111 +347,19 @@ __device__ __forceinline__ void store_head(const bf16* so, int RS, int Lq, bf16*
   }
 }
 
-// One staged row b (buffer sq) through this warp's head hd: valid holds the
-// head's valid keys, any_padding whether some head of the row has none.
-// MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
-// keys (Lk <= 8 * NK8).
+// One head of one row, with at least one valid key (bit j of valid: key j),
+// from staged operands: the head's q, k and v positions at hq, hk and hv,
+// row stride RS (elements). Its Lq context rows go to dst (row stride
+// o_sl), staged through hq. a supplies the key bias and dropout (kernels 2,
+// 4 and 5) and h; kernel 1's fused [q|k|v] epilogue passes neither.
 template <int MQ, int NK8>
-__device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq, int RS,
-                                              const bf16* zero, float2* part, unsigned valid,
-                                              int any_padding) {
+__device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd, int Lq, int Lk,
+                                               bf16* hq, const bf16* hk, const bf16* hv, int RS,
+                                               const bf16* zero, unsigned valid, bf16* dst,
+                                               long long o_sl) {
   constexpr int MK = (NK8 + 1) / 2;  // k16 steps of PV over the keys
-  const int h = a.h, Lq = a.Lq, Lk = a.Lk;
-  const bf16* sk = sq + Lq * RS;
-  const bf16* sv = sk + Lk * RS;
-  const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
-
+  const int h = a.h, lane = threadIdx.x % 32;
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
-  bf16* hq = sq + hd * kHeadDim;  // this head's slices; hq stages the output
-  const bf16* hk = sk + hd * kHeadDim;
-  const bf16* hv = sv + hd * kHeadDim;
-  bf16* dst = (bf16*)a.out + b * a.o_sb + hd * kHeadDim;
-  const float w_uniform = Num<bf16>::round(1.0f / (float)(Lk * h));
-
-  if (any_padding && !a.dropout) {
-    // uniform weights over all Lk*h merged value rows: the row's sum, once
-    // (warp w sums head w's slice over the positions, lane t dims 2t, 2t+1)
-    float2 acc = make_float2(0.0f, 0.0f);
-    for (int j = 0; j < Lk; ++j) {
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 2 * lane));
-      acc.x += v.x;
-      acc.y += v.y;
-    }
-    part[hd * 32 + lane] = acc;
-    __syncthreads();
-    if (valid == 0u) {
-      float2 tot = make_float2(0.0f, 0.0f);
-      for (int w = 0; w < h; ++w) {
-        tot.x += part[w * 32 + lane].x;
-        tot.y += part[w * 32 + lane].y;
-      }
-      const uint32_t o = pack_bf16(tot.x * w_uniform, tot.y * w_uniform);
-      for (int i = 0; i < Lq; ++i)
-        *reinterpret_cast<uint32_t*>(dst + i * a.o_sl + 2 * lane) = o;
-      return;
-    }
-  }
-
-  if (valid == 0u) {
-    // dropout on a head with no valid key: its queries' dropped uniform
-    // weights over all Lk*h merged keys, built as A fragments in registers
-    // (entry (i, kk) kept by its own Philox word), times the merged V rows
-    const int Lkh = Lk * h;
-    const float wd = Num<bf16>::round(w_uniform / a.keep_div);
-    float acc[MQ][8][4];
-#pragma unroll
-    for (int mt = 0; mt < MQ; ++mt)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
-    for (int ks = 0; ks < (Lkh + 15) / 16; ++ks) {
-      uint32_t af[MQ][4];
-#pragma unroll
-      for (int mt = 0; mt < MQ; ++mt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int kh = 0; kh < 2; ++kh) {
-            const int i = 16 * mt + g + 8 * r, kk = 16 * ks + 8 * kh + 2 * q4;
-            float e[2];
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-              e[t] = (i < Lq && kk + t < Lkh &&
-                      dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
-                         ? wd
-                         : 0.0f;
-            af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);
-          }
-      const int kk = 16 * ks + lr + 8 * (mat & 1);
-      const bf16* vrow = kk < Lkh ? sv + (kk / h) * RS + (kk % h) * kHeadDim : zero;
-#pragma unroll
-      for (int pp = 0; pp < 4; ++pp) {  // 16 of the 64 output columns at a time
-        uint32_t bf[4];
-        ldsm_x4_t(bf, saddr(vrow + 16 * pp + 8 * (mat >> 1)));
-#pragma unroll
-        for (int mt = 0; mt < MQ; ++mt) {
-          mma16816(acc[mt][2 * pp], af[mt], bf[0], bf[1]);
-          mma16816(acc[mt][2 * pp + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MQ; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = 16 * mt + g + 8 * r;
-        if (i < Lq)
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-            *reinterpret_cast<uint32_t*>(hq + i * RS + 8 * n + 2 * q4) =
-                pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
-      }
-    store_head(hq, RS, Lq, dst, a.o_sl, lane);
-    return;
-  }
-
   // S = Q K^T over d = 64
   float sacc[MQ][NK8][4];
 #pragma unroll
@@ -589,7 +500,114 @@ __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq
                 pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
       }
   }
-  store_head(hq, RS, Lq, dst, a.o_sl, lane);
+  store_head(hq, RS, Lq, dst, o_sl, lane);
+}
+
+// One staged row b (buffer sq) through this warp's head hd: valid holds the
+// head's valid keys, any_padding whether some head of the row has none.
+// MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
+// keys (Lk <= 8 * NK8).
+template <int MQ, int NK8>
+__device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq, int RS,
+                                              const bf16* zero, float2* part, unsigned valid,
+                                              int any_padding) {
+  const int h = a.h, Lq = a.Lq, Lk = a.Lk;
+  const bf16* sk = sq + Lq * RS;
+  const bf16* sv = sk + Lk * RS;
+  const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
+  bf16* hq = sq + hd * kHeadDim;  // this head's slices; hq stages the output
+  const bf16* hk = sk + hd * kHeadDim;
+  const bf16* hv = sv + hd * kHeadDim;
+  bf16* dst = (bf16*)a.out + b * a.o_sb + hd * kHeadDim;
+  const float w_uniform = Num<bf16>::round(1.0f / (float)(Lk * h));
+
+  if (any_padding && !a.dropout) {
+    // uniform weights over all Lk*h merged value rows: the row's sum, once
+    // (warp w sums head w's slice over the positions, lane t dims 2t, 2t+1)
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int j = 0; j < Lk; ++j) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 2 * lane));
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    part[hd * 32 + lane] = acc;
+    __syncthreads();
+    if (valid == 0u) {
+      float2 tot = make_float2(0.0f, 0.0f);
+      for (int w = 0; w < h; ++w) {
+        tot.x += part[w * 32 + lane].x;
+        tot.y += part[w * 32 + lane].y;
+      }
+      const uint32_t o = pack_bf16(tot.x * w_uniform, tot.y * w_uniform);
+      for (int i = 0; i < Lq; ++i)
+        *reinterpret_cast<uint32_t*>(dst + i * a.o_sl + 2 * lane) = o;
+      return;
+    }
+  }
+
+  if (valid == 0u) {
+    // dropout on a head with no valid key: its queries' dropped uniform
+    // weights over all Lk*h merged keys, built as A fragments in registers
+    // (entry (i, kk) kept by its own Philox word), times the merged V rows
+    const int Lkh = Lk * h;
+    const float wd = Num<bf16>::round(w_uniform / a.keep_div);
+    float acc[MQ][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
+    for (int ks = 0; ks < (Lkh + 15) / 16; ++ks) {
+      uint32_t af[MQ][4];
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh) {
+            const int i = 16 * mt + g + 8 * r, kk = 16 * ks + 8 * kh + 2 * q4;
+            float e[2];
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+              e[t] = (i < Lq && kk + t < Lkh &&
+                      dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
+                         ? wd
+                         : 0.0f;
+            af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);
+          }
+      const int kk = 16 * ks + lr + 8 * (mat & 1);
+      const bf16* vrow = kk < Lkh ? sv + (kk / h) * RS + (kk % h) * kHeadDim : zero;
+#pragma unroll
+      for (int pp = 0; pp < 4; ++pp) {  // 16 of the 64 output columns at a time
+        uint32_t bf[4];
+        ldsm_x4_t(bf, saddr(vrow + 16 * pp + 8 * (mat >> 1)));
+#pragma unroll
+        for (int mt = 0; mt < MQ; ++mt) {
+          mma16816(acc[mt][2 * pp], af[mt], bf[0], bf[1]);
+          mma16816(acc[mt][2 * pp + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + g + 8 * r;
+        if (i < Lq)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<uint32_t*>(hq + i * RS + 8 * n + 2 * q4) =
+                pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
+      }
+    store_head(hq, RS, Lq, dst, a.o_sl, lane);
+    return;
+  }
+
+  attention_head<MQ, NK8>(a, b, hd, Lq, Lk, hq, hk, hv, RS, zero, valid, dst, a.o_sl);
 }
 
 // Whether key `lane` of head hd in row b is valid (lanes past Lk: no).

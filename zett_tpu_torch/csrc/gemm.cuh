@@ -1,5 +1,9 @@
-// Row-major GEMM with a fused bias (and optional tanh-gelu) epilogue, shared
-// by encoder_layer.cu (kernel 1) and attention_block.cu (kernel 4).
+// Row-major GEMM with a fused bias (and optional tanh-gelu) epilogue, used
+// by attention_block.cu (kernel 4) and, for its f32 path, encoder_layer.cu
+// (kernel 1); and the pieces of its bf16 pipeline that kernel 1's fused
+// kernels are built from: the ring (Ring, ring_init), its producer
+// (produce_tile) and consumer (consume_tile) over a BN-wide weight tile, BN
+// 256 (wgmma m64n256k16) or 192 (m64n192k16: one head's [q | k | v]).
 //
 // C[M, N] = epilogue(A[M, K] @ Wt[N, K]^T): A row-major, the weight given
 // transposed (N, K), K contiguous (PyTorch's Linear layout; the wrappers
@@ -181,11 +185,137 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] * B[16 x 192]: one head's [q | k | v] (kernel 1)
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_tile<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  wgmma_m64n256k16(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<192>(float (&d)[96], uint64_t da, uint64_t db) {
+  wgmma_m64n192k16(d, da, db);
+}
+
 // Keeps the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma (their values are defined only after the wait).
-__device__ __forceinline__ void fence_accumulators(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 1024-byte aligned start of dynamic shared memory (128-byte swizzled TMA
+// tiles want it); the launches reserve 1024 bytes for this.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// The ring every Hopper kernel here runs on: nst stages, each a GM x GK
+// tile of A and a BN x GK tile of the transposed weight, guarded by
+// full/empty mbarriers. The producer thread and each consumer warpgroup
+// keep their own copy and walk the same tiles in the same order.
+template <int BN>
+struct Ring {
+  static constexpr int kStageW = BN * GK * 2;  // bytes
+  uint8_t* sa;
+  uint8_t* sb;
+  uint64_t* full;
+  uint64_t* empty;
+  int nst;
+  int stage;
+  unsigned phase;
+  __device__ __forceinline__ Ring(uint8_t* smem, uint64_t* f, uint64_t* e, int n)
+      : sa(smem), sb(smem + n * kStageA), full(f), empty(e), nst(n), stage(0), phase(0) {}
+  __device__ __forceinline__ uint8_t* end() const { return sb + nst * kStageW; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == nst) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// One thread: full counts the producer's arrival, empty both consumers'.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int nst) {
+  for (int s = 0; s < nst; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], kGemmConsumers);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer: rows [m0, m0 + GM) of A and [n0, n0 + BN) of the weight,
+// over k blocks [kb0, kb1), running ahead of the consumers by the ring's
+// depth.
+template <int BN>
+__device__ __forceinline__ void produce_tile(Ring<BN>& r, const CUtensorMap* map_a,
+                                             const CUtensorMap* map_w, int m0, int n0, int kb0,
+                                             int kb1) {
+  for (int kb = kb0; kb < kb1; ++kb) {
+    mbar_wait(&r.empty[r.stage], r.phase ^ 1);
+    mbar_expect_tx(&r.full[r.stage], kStageA + Ring<BN>::kStageW);
+    tma_load_2d(r.sa + r.stage * kStageA, map_a, &r.full[r.stage], kb * GK, m0);
+    tma_load_2d(r.sb + r.stage * Ring<BN>::kStageW, map_w, &r.full[r.stage], kb * GK, n0);
+    r.advance();
+  }
+}
+
+// Consumer warpgroup c: its 64 rows of the tile into d (f32), one k
+// block's wgmma batch in flight, each stage released once the batch after
+// it is issued.
+template <int BN>
+__device__ __forceinline__ void consume_tile(Ring<BN>& r, float (&d)[BN / 2], int c,
+                                             int kblocks) {
+  const int t128 = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
+  int held = -1;  // the stage the batch in flight reads
+  for (int kb = 0; kb < kblocks; ++kb) {
+    mbar_wait(&r.full[r.stage], r.phase);
+    fence_accumulators(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint8_t* a = r.sa + r.stage * kStageA + c * 64 * GK * 2;
+    const uint8_t* b = r.sb + r.stage * Ring<BN>::kStageW;
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)  // a k16 step is 32 bytes into the swizzled row
+      wgmma_tile<BN>(d, wgmma_desc(a + 32 * kk), wgmma_desc(b + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous batch
+    fence_accumulators(d);
+    if (held >= 0 && t128 == 0) mbar_arrive(&r.empty[held]);
+    held = r.stage;
+    r.advance();
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_accumulators(d);
+  if (t128 == 0) mbar_arrive(&r.empty[held]);
 }
 
 __global__ void __launch_bounds__(kGemmTcThreads, 1)
@@ -194,20 +324,11 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
                  int N, int K, int act) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[GSTAGES], empty[GSTAGES];
-  // 128-byte swizzled TMA tiles want 1024-byte aligned buffers
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sa = smem;                      // [GSTAGES][GM][GK]
-  uint8_t* sb = smem + GSTAGES * kStageA;  // [GSTAGES][GN][GK]
-  uint8_t* se = sb + GSTAGES * kStageB;    // [consumer][2 slots][64][64], swizzled
+  Ring<GN> ring(align1024(smem_raw), full, empty, GSTAGES);
+  uint8_t* se = ring.end();  // [consumer][2 slots][64][64], swizzled
 
   const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < GSTAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kGemmConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring_init(full, empty, GSTAGES);
   __syncthreads();
 
   const int n_tiles = (N + GN - 1) / GN;
@@ -217,60 +338,20 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
   if (wg == 0) {
     // producer: one thread keeps the ring full, across tiles
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      int stage = 0;
-      unsigned phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
-        for (int kb = 0; kb < kblocks; ++kb) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], kStageA + kStageB);
-          tma_load_2d(sa + stage * kStageA, &map_a, &full[stage], kb * GK, m0);
-          tma_load_2d(sb + stage * kStageB, &map_w, &full[stage], kb * GK, n0);
-          if (++stage == GSTAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
+    if (threadIdx.x == 0)
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        produce_tile(ring, &map_a, &map_w, (t / n_tiles) * GM, (t % n_tiles) * GN, 0, kblocks);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;  // this warpgroup's 64 rows of the tile
     const int t128 = threadIdx.x % 128;
     const int frag_row = 16 * (t128 / 32) + (t128 % 32) / 4;  // within the 64
     const int frag_col = 2 * (t128 % 4);
-    int stage = 0;
-    unsigned phase = 0;
     int chunk = 0;  // epilogue chunks stored so far: their slots alternate
     float d[128];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
-#pragma unroll
-      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
-      int held = -1;  // the stage the batch in flight reads
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(&full[stage], phase);
-        fence_accumulators(d);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        const uint8_t* a = sa + stage * kStageA + c * 64 * GK * 2;
-        const uint8_t* b = sb + stage * kStageB;
-#pragma unroll
-        for (int kk = 0; kk < GK / 16; ++kk)  // a k16 step is 32 bytes into the swizzled row
-          wgmma_m64n256k16(d, wgmma_desc(a + 32 * kk), wgmma_desc(b + 32 * kk));
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous batch
-        fence_accumulators(d);
-        if (held >= 0 && t128 == 0) mbar_arrive(&empty[held]);
-        held = stage;
-        if (++stage == GSTAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_accumulators(d);
-      if (t128 == 0) mbar_arrive(&empty[held]);
+      consume_tile(ring, d, c, kblocks);
       // accumulator j of m64nNk16: row 8*((j/2)%2) + the thread's row,
       // column 8*(j/4) + (j%2) + the thread's column pair
 #pragma unroll

@@ -115,14 +115,20 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> float
     return time.perf_counter() - t0
 
 
-def sass_counts(name: str, opcodes: Iterable[str]) -> Optional[Dict[str, int]]:
+def sass_counts(name: str, opcodes: Iterable[str],
+                function: Optional[str] = None) -> Optional[Dict[str, int]]:
     """How often each SASS opcode occurs in a built kernel library
-    (``cuobjdump -sass``); None where the toolkit has no cuobjdump."""
+    (``cuobjdump -sass``), or only in its kernels whose mangled name holds
+    ``function``; None where the toolkit has no cuobjdump."""
     tool = _tool("cuobjdump")
     if tool is None:
         return None
     sass = subprocess.run([tool, "-sass", _lib_path(name)], capture_output=True, text=True,
                           check=True).stdout
+    if function is not None:
+        # one section per kernel, each opened by a "Function : <mangled name>" line
+        sections = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
+        sass = "".join(s for s in sections if function in s.split("\n", 1)[0])
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 

@@ -5,6 +5,11 @@ Replaces ``zett_tpu/ops/pallas_attention.py`` ``_layer_kernel`` /
 ``encoder_layer_pallas`` (:727, :825), the tier-3 TPU kernel. The CUDA
 source is ``zett_tpu_torch/csrc/encoder_layer.cu``; its header note gives
 the bound (tensor-core operations at the transfer's shapes) and the design.
+``layer_plan`` says how a shape runs: in bf16 four device kernels a layer
+(the [q|k|v] GEMM with the attention core in its epilogue, the output
+projection and the FFN-out each with the residual LayerNorm in theirs, on
+thread-block clusters of ``cluster`` CTAs, and the gelu FFN-in GEMM); in f32
+the seven launches of the unfused sequence.
 
 ``encoder_layer`` keeps the JAX function's signature. On CPU tensors it runs
 ``encoder_layer_reference``; on any other device it launches the kernel or
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -114,41 +120,146 @@ def check_gemm_widths(what: str, dtype, widths, depths) -> None:
                              "16 bytes")
 
 
-def pack_weights(*ws):
-    """The GEMM's B operand: the (K, N_i) weights side by side, transposed to
-    (sum N_i, K) row-major (K contiguous, as the wgmma reads it). Rebuilt
-    at every call, never cached: the optimizer updates weights in place."""
-    return torch.cat(ws, dim=1).t().contiguous()
+TILE_ROWS = 128       # the Hopper GEMMs' row tile (gemm.cuh GM)
+CLUSTER_SLICE = 192   # the columns of one CTA of a LayerNorm cluster (encoder_layer.cu kLnN)
+GELU_TILE_COLS = 192  # the gelu GEMM's column tile (encoder_layer.cu kGeluN)
 
 
-def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
-            ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, *,
-            num_heads, eps):
-    lib = _build.load(_NAME)
-    dtype = x.dtype
+@dataclass(frozen=True)
+class LayerPlan:
+    """How kernel 1 runs one shape. ``launches``: device kernels a layer;
+    ``cluster``: CTAs of a LayerNorm GEMM's cluster (a row's H columns,
+    ``CLUSTER_SLICE`` each); ``tile_forms``, ``tile_rows``: the surface
+    forms and rows of a [q|k|v] tile (whole forms within ``TILE_ROWS``).
+    The f32 route runs the unfused sequence and has no tiles or clusters
+    (0)."""
+
+    route: str
+    launches: int
+    cluster: int
+    tile_forms: int
+    tile_rows: int
+
+
+def layer_plan(dtype, L: int, H: int, num_heads: int, I: int) -> LayerPlan:
+    """The plan for x (B, L, H) with ``num_heads`` heads and FFN width I, or
+    the error the kernel's wrapper raises before any launch. A pure
+    function of the shape: nothing is built or launched."""
     if dtype not in _DTYPES:
         raise TypeError(f"encoder_layer: unsupported dtype {dtype}")
-    B, L, H = x.shape
-    I = w1.shape[1]
     if H != num_heads * 64:
         raise ValueError(f"encoder_layer: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"encoder_layer: sequence length {L} outside 1..32")
     check_heads("encoder_layer", dtype, num_heads)
     check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
+    if dtype == torch.float32:
+        return LayerPlan("unfused", 7, 0, 0, 0)
+    forms = TILE_ROWS // L
+    return LayerPlan("fused", 4, -(-H // CLUSTER_SLICE), forms, forms * L)
+
+
+def pack_weights(*ws):
+    """The GEMM's B operand: the (K, N_i) weights side by side, transposed to
+    (sum N_i, K) row-major (K contiguous, as the wgmma reads it). Rebuilt
+    at every call, never cached: the optimizer updates weights in place."""
+    return torch.cat([w.t() for w in ws], dim=0)
+
+
+def pack_qkv_by_head(wq, wk, wv, num_heads: int):
+    """The bf16 [q|k|v] GEMM's weight, head by head: rows [192 i, 192 i +
+    192) of the (3H, H) result are head i's q, k and v output columns,
+    transposed (K contiguous). One copy, rebuilt at every call like
+    ``pack_weights``."""
+    K, h = wq.shape[0], num_heads
+    w = torch.cat([t.t().reshape(h, 1, 64, K) for t in (wq, wk, wv)], dim=1)
+    return w.view(3 * h * 64, K)
+
+
+def pack_biases(bq, bk, bv, bo, b2, b1):
+    """Every bias of the bf16 layer in one copy: [q | k | v], bo, b2, then
+    b1 grown to whole gelu tiles (``GELU_TILE_COLS``) by repeating its own
+    values (the columns past I are computed and never stored). Returns the
+    (3H,), (H,), (H,) and padded b1 views, each 16-byte aligned."""
+    I = b1.shape[0]
+    parts, n = [bq, bk, bv, bo, b2, b1], I
+    while n % GELU_TILE_COLS:
+        take = min(I, -n % GELU_TILE_COLS)
+        parts.append(b1[:take])
+        n += take
+    flat = torch.cat(parts)
+    H = bo.shape[0]
+    return flat[:3 * H], flat[3 * H:4 * H], flat[4 * H:5 * H], flat[5 * H:]
+
+
+def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
+            ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, *,
+            num_heads, eps):
+    B, L, H = x.shape
+    I = w1.shape[1]
+    lib = _build.load(_NAME)
+    plan = layer_plan(x.dtype, L, H, num_heads, I)
     if not x.is_cuda:
         raise ValueError(f"encoder_layer: no kernel for device {x.device}")
     weights = (wq, bq, wk, bk, wv, bv, wo, bo, w1, b1, w2, b2)
-    if any(t.dtype != dtype or t.device != x.device for t in weights):
+    if any(t.dtype != x.dtype or t.device != x.device for t in weights):
         raise TypeError("encoder_layer: weights must match x's dtype and device")
-    dev = x.device
     x = _build.aligned16(x)
+    ln = [t.float().contiguous() for t in (ln1_s, ln1_b, ln2_s, ln2_b)]
+    if plan.route == "fused":
+        out = _launch_fused(lib, plan, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1,
+                            w2, b2, num_heads, eps)
+    else:
+        out = _launch_unfused(lib, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2,
+                              b2, num_heads, eps)
+    _build.count_launch(_NAME)
+    return out
+
+
+def _launch_fused(lib, plan, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2, b2,
+                  num_heads, eps):
+    B, L, H = x.shape
+    I = w1.shape[1]
+    dev = x.device
+    # four copies: the weights transposed (K contiguous), [q|k|v] head by
+    # head, Wo and W1 in one, W2; every bias in one
+    w_qkv = pack_qkv_by_head(wq, wk, wv, num_heads)
+    wo1_t = pack_weights(wo, w1)
+    wo_t, w1_t = wo1_t[:H], wo1_t[H:]
+    w2_t = pack_weights(w2)
+    b_qkv, bo, b2, b1 = pack_biases(bq, bk, bv, bo, b2, b1)
+    if mask is not None:
+        mask = (mask if mask.dtype == torch.bool else mask > 0).contiguous().view(torch.uint8)
+    M = B * L
+    ctx = torch.empty(M, H, dtype=x.dtype, device=dev)
+    y1 = torch.empty(M, H, dtype=x.dtype, device=dev)
+    mid = torch.empty(M, I, dtype=x.dtype, device=dev)
+    out = torch.empty(B, L, H, dtype=x.dtype, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.zt_encoder_layer_bf16
+    fn.restype = i
+    fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p,
+                   ctypes.c_float, p, p, p, p, p]
+    err = fn(x.data_ptr(), None if mask is None else mask.data_ptr(), B, L, H, num_heads, I,
+             plan.tile_forms, plan.cluster, w_qkv.data_ptr(), b_qkv.data_ptr(), wo_t.data_ptr(),
+             bo.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
+             w2_t.data_ptr(), b2.data_ptr(), ln[2].data_ptr(), ln[3].data_ptr(), float(eps),
+             ctx.data_ptr(), y1.data_ptr(), mid.data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "encoder_layer kernel launch")
+    return out
+
+
+def _launch_unfused(lib, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2, b2,
+                    num_heads, eps):
+    B, L, H = x.shape
+    I = w1.shape[1]
+    dev, dtype = x.device, x.dtype
     maskf = (torch.ones(B, L, device=dev) if mask is None else mask.float()).contiguous()
     wqkv_t = pack_weights(wq, wk, wv)
     wo_t, w1_t, w2_t = (pack_weights(w) for w in (wo, w1, w2))
     bqkv = torch.cat([bq, bk, bv]).contiguous()
     bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
-    ln = [t.float().contiguous() for t in (ln1_s, ln1_b, ln2_s, ln2_b)]
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
     ctx = torch.empty(M, H, dtype=dtype, device=dev)
@@ -156,20 +267,17 @@ def _launch(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     y1 = torch.empty(M, H, dtype=dtype, device=dev)
     mid = torch.empty(M, I, dtype=dtype, device=dev)
     out = torch.empty(B, L, H, dtype=dtype, device=dev)
-    p = ctypes.c_void_p
-    fn = lib.zt_encoder_layer
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p, p, p, p, p,
-                   ctypes.c_float, ctypes.c_int, p, p, p, p, p, p, p]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_DTYPES[dtype], x.data_ptr(), maskf.data_ptr(), B, L, H, num_heads, I,
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.zt_encoder_layer_f32
+    fn.restype = i
+    fn.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p,
+                   ctypes.c_float, i, p, p, p, p, p, p, p]
+    err = fn(x.data_ptr(), maskf.data_ptr(), B, L, H, num_heads, I,
              wqkv_t.data_ptr(), bqkv.data_ptr(), wo_t.data_ptr(), bo.data_ptr(),
              ln[0].data_ptr(), ln[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
              w2_t.data_ptr(), b2.data_ptr(), ln[2].data_ptr(), ln[3].data_ptr(),
              float(eps), 1,
              qkv.data_ptr(), ctx.data_ptr(), tmp.data_ptr(), y1.data_ptr(),
-             mid.data_ptr(), out.data_ptr(), stream)
+             mid.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "encoder_layer kernel launch")
-    _build.count_launch(_NAME)
     return out
