@@ -41,10 +41,10 @@ Phases (any failure exits non-zero and prints no result):
   7. training through ``zett_tpu_torch.training``'s CLI on its default
      device at configs/zeroshot/gpt2_en.json's widths (6 steps, 2 of them
      identity steps, on text made from the repo's Markdown files, phase 4's
-     seeded source model): finite losses, both kernels launched 3 times per
-     step, frozen weights unchanged, a transfer from the written final/;
-     times per step, host collate time, peak memory and a profile of one
-     train step;
+     seeded source model; the collate inline, prefetch_batches 0): finite
+     losses, both kernels launched 3 times per step, frozen weights
+     unchanged, a transfer from the written final/; times per step, host
+     collate time, peak memory and a profile of one train step;
   8. kernels 4 and 5 (the tier-2 attention block and the tier-1 core with
      key bias) against their plain versions, bf16 and f32, with and without
      key bias, a ragged batch and all-padding rows, at the transfer's B =
@@ -62,11 +62,15 @@ Phases (any failure exits non-zero and prints no result):
      (bf16, gpt_neox0001, batch 16384): kernel 4 on every layer of every
      batch, kernel 1 on none; the hypernet per 32k vocab, the device
      breakdown;
- 11. training through the CLI at that config with in-training eval (step 0
-     and the last step; gpt_neox0001 and en_raw as fixed tokenizers with
-     cached embeddings, sampled validation tokenizers, held-out paragraphs):
-     finite losses and eval rows, one embedding pass per fixed tokenizer per
-     eval, eval time per fixed tokenizer, peak memory;
+ 11. training through the CLI at that config at its own batch 128: each of
+     remat_hypernet, loss_chunk_size 32 (L - 1 = 127 pads) and
+     remat_backbone alone (peak memory and train step ms, or out of
+     memory), then all three with in-training eval (step 0 and the last
+     step; gpt_neox0001 and en_raw as fixed tokenizers with cached
+     embeddings and the chunked eval, sampled validation tokenizers,
+     held-out paragraphs): finite losses and eval rows, kernel 2 twice a
+     train step for each layer (remat), one embedding pass per fixed
+     tokenizer per eval, eval time per fixed tokenizer, peak memory;
  12. the device prior pipeline: kernel 6 (the Viterbi DP) bit-equal to its
      plain version at B = 65536 (L 48, K 16; L 8, K 8; L 24, K 7) and
      2^20 rows, with exact ties, all-NEG rows and ragged batches, and on
@@ -80,17 +84,35 @@ Phases (any failure exits non-zero and prints no result):
      native C++ Viterbi's counts and DeviceRetokenizer.encode equal to its
      segmentations (exact ties aside, logged), a memoized second call that
      launches nothing; compute_prior's CLI with --device on the repo's
-     Markdown and Python, its token prior equal to the native oracle's.
+     Markdown and Python, its token prior equal to the native oracle's;
+ 13. the trainer's levers through the training CLI at gpt2_en's widths on
+     phase 7's text: (a) at LM batch 32 with dropout on (kernels 2 and 3 at
+     rate 0.1), remat_hypernet, remat_backbone, the chunked loss and all
+     three against the plain run for 3 steps (losses, every hypernet
+     gradient, kernel 2 and 3 launches), the plain run twice for the card's
+     own gap; (b) a SIGTERM sent from the log callback at step 2 writes
+     preempt_step_2, and resume_from_checkpoint continues it: steps 3-4
+     against an uninterrupted run (and two uninterrupted runs' gap); (c)
+     Adafactor on a repeated batch, losses finite and falling; (d) at the
+     config's batch 128, prefetch_batches 0 and 2 with num_workers 0 and 4:
+     the loop's wall per train step, its idle share (a profiled step's
+     device busy time over the loop's wall per step), collate, wait and
+     device ms, no worker process left; (e) the in-training eval with
+     loss_chunk_size 32 on held-out paragraphs (kernel 1 on the inference
+     route, no (B, L, V) logits), and on its first batch the chunked eval
+     against the whole-logits eval; the phase's wall time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -712,7 +734,8 @@ def phase_training(model_dir):
         config.pop(key)
     reduced = dict(model_dir=model_dir, train_directory=train_dir, output_dir=out, steps=6,
                    identity_steps=2, warmup_steps=[2, 4], random_warmup_steps=0,
-                   logging_steps=1, save_steps=0, num_workers=0, eval_at_step_zero=False)
+                   logging_steps=1, save_steps=0, num_workers=0, prefetch_batches=0,
+                   eval_at_step_zero=False)
     config.update(reduced)
     config_path = os.path.join(WORK, "gpt2_en_smoke.json")
     with open(config_path, "w") as f:
@@ -1381,10 +1404,41 @@ def phase_block_kernels():
 
 
 # -------------------------------------------------------------------- phase 11
+PITA_LEVERS = dict(remat_hypernet=True, loss_chunk_size=32, remat_backbone=True)
+
+
+def train_peak(config_path, train_main):
+    """One run of the training CLI: (peak GiB, median train-step device ms
+    after the first, or None), or None when it ran out of the card's
+    memory (printed with what was allocated)."""
+    gc_free()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer, _ = train_main([config_path])
+    except torch.cuda.OutOfMemoryError as exc:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"    out of memory (peak {peak:.2f} GiB allocated): {str(exc).splitlines()[0][:160]}")
+        return None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [r["device_ms"] for r in trainer.records if r["kind"] == "train"][1:]
+    del trainer
+    return peak, (float(np.median(ms)) if ms else None)
+
+
+def gc_free():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_training_eval(model_dir):
     """python -m zett_tpu_torch.training at the prior + inter-token-attention
     config with phase 7's widths and text (every 8th paragraph held out as
-    the validation set), eval at step 0 and at the last step."""
+    the validation set) at its own batch 128: first each memory lever alone
+    (two train steps, peak memory or out of memory), then all three with
+    eval at step 0 and at the last step."""
     import zett_tpu_torch.evaluation as evaluation
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.training import engine
@@ -1400,22 +1454,39 @@ def phase_training_eval(model_dir):
     tokenizers = [os.path.join(REPO, "artifacts", "tokenizers", t)
                   for t in ("gpt_neox0001", "en_raw")]
     steps = 4
-    # batch_size 64 (not 128): at 128 the train step's backward ran out of
-    # the card's 80 GB (74.5 GiB allocated when the CLM loss's gradient
-    # asked for 1.99 GiB more)
+    if config["batch_size"] != 128:
+        raise AssertionError(f"the pita config's batch is {config['batch_size']}, not 128")
     reduced = dict(model_dir=model_dir, train_directory=train_dir, valid_directory=valid_dir,
                    output_dir=out, steps=steps, identity_steps=1, warmup_steps=[1, 2],
-                   batch_size=64,
                    random_warmup_steps=0, logging_steps=1, save_steps=0, num_workers=0,
                    eval_steps=steps, eval_at_step_zero=True, extra_valid_tokenizers=tokenizers)
     config.update(reduced)
-    config_path = os.path.join(WORK, "gpt2_en_pita_smoke.json")
-    with open(config_path, "w") as f:
-        json.dump(config, f)
-    log(f"  {n_train} training and {n_valid} held-out paragraphs; overrides "
+    log(f"  {n_train} training and {n_valid} held-out paragraphs; batch "
+        f"{config['batch_size']}; overrides "
         f"{ {k: v for k, v in reduced.items() if k != 'extra_valid_tokenizers'} }, "
         f"extra_valid_tokenizers {[os.path.basename(t) for t in tokenizers]}")
 
+    # each lever alone at batch 128: 2 train steps (the second timed), no eval
+    peaks = {}
+    for name, value in PITA_LEVERS.items():
+        one = dict(config, steps=2, identity_steps=0, eval_steps=0, eval_at_step_zero=False,
+                   output_dir=os.path.join(WORK, f"pita_{name}"), **{name: value})
+        path = os.path.join(WORK, f"gpt2_en_pita_{name}.json")
+        with open(path, "w") as f:
+            json.dump(one, f)
+        t0 = time.perf_counter()
+        got = train_peak(path, train_main)
+        peaks[name] = got
+        shown = ("out of memory" if got is None else
+                 f"peak {got[0]:.2f} GiB, train step {got[1]:.3f} ms (CUDA events)")
+        log(f"  on {CARD}: batch 128 with {name}={value} alone: {shown}; "
+            f"{time.perf_counter() - t0:.3f} s wall")
+    gc_free()
+
+    config.update(PITA_LEVERS)
+    config_path = os.path.join(WORK, "gpt2_en_pita_smoke.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
     evals = []  # (name, wall s, embedding passes, kernel 4 launches)
     passes = [0]
     orig_loop, orig_embed = evaluation.eval_loop, engine.Trainer.compute_embeddings
@@ -1452,8 +1523,12 @@ def phase_training_eval(model_dir):
     eval_rows = [r for r in rows if any(k.startswith("eval") for k in r)]
     train_rows = [r for r in rows if r not in eval_rows]
     losses = [r.get("loss", r.get("identity_loss")) for r in train_rows]
-    log(f"  trained {steps} steps in {wall:.3f} s wall (evals included); logged losses "
-        f"{['%.4f' % x for x in losses]}; peak memory {peak_gb:.2f} GiB")
+    train_ms = [r["device_ms"] for r in trainer.records if r["kind"] == "train"][1:]
+    log(f"  batch 128 with {PITA_LEVERS}: trained {steps} steps in {wall:.3f} s wall (evals "
+        f"included); logged losses {['%.4f' % x for x in losses]}")
+    log(f"  on {CARD}: peak memory {peak_gb:.2f} GiB; train step "
+        f"{float(np.median(train_ms)):.3f} ms (CUDA events, median of "
+        f"{['%.3f' % x for x in train_ms]})")
     if len(train_rows) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"bad training rows {train_rows}")
     names = [f"eval_{os.path.basename(t)}" for t in tokenizers] + ["eval"]
@@ -1478,8 +1553,12 @@ def phase_training_eval(model_dir):
         if k4 != n_pass * n_layers:
             raise AssertionError(f"{name}: kernel 4 launched {k4} times for {n_pass} passes")
     n_evals = len(eval_rows)
+    n_ident = config["identity_steps"]
     expected = dict.fromkeys(_build.launch_counts, 0)
-    expected["attention_core"] = expected["attention_core_bwd"] = steps * n_layers
+    # remat_hypernet runs a train step's hypernet forward twice (the
+    # identity step's once)
+    expected["attention_core"] = (n_ident + 2 * (steps - n_ident)) * n_layers
+    expected["attention_core_bwd"] = steps * n_layers
     expected["attention_block"] = n_evals * (len(tokenizers) + n_sampled) * n_layers
     log(f"  launches {launches} (expected {expected})")
     if launches != expected:
@@ -1487,7 +1566,9 @@ def phase_training_eval(model_dir):
     per_tok = {name: [secs for n, secs, _, _ in evals if n == name] for name in names[:-1]}
     log(f"  on {CARD}: eval wall per fixed tokenizer (s, step 0 then step {steps}): "
         + ", ".join(f"{n} {['%.3f' % t for t in ts]}" for n, ts in per_tok.items()))
-    return launches, wall, peak_gb
+    if peak_gb > 80:
+        raise AssertionError(f"peak {peak_gb:.2f} GiB")
+    return launches, wall, peak_gb, peaks
 
 
 # -------------------------------------------------------------------- phase 12
@@ -1889,6 +1970,308 @@ def phase_prior_pipeline():
     return row, fused_row, launches
 
 
+# -------------------------------------------------------------------- phase 13
+# (a) and (b) run at this LM batch, where the plain step fits as well as the
+# levered one; (d) at the config's own 128
+LEVER_BATCH = 32
+LEVER_LOSS_TOL, LEVER_GRAD_TOL = 2e-3, 5e-2  # bf16: the chunked loss, see phase 13
+PREFETCH_WORKERS = 4
+
+
+def lever_config(model_dir, train_dir, name, **overrides):
+    """configs/zeroshot/gpt2_en.json cut as phase 7 cuts it, with
+    ``overrides``, written to a file of its own; returns its path."""
+    from zett_tpu_torch.training.__main__ import load_config_file
+
+    config = load_config_file(os.path.join(REPO, "configs", "zeroshot", "gpt2_en.json"))
+    for key in ("valid_directory", "extra_valid_tokenizers"):
+        config.pop(key)
+    out = os.path.join(WORK, "levers", name)
+    shutil.rmtree(out, ignore_errors=True)
+    config.update(model_dir=model_dir, train_directory=train_dir, output_dir=out,
+                  warmup_steps=[2, 4], random_warmup_steps=0, logging_steps=1, save_steps=0,
+                  num_workers=0, eval_at_step_zero=False)
+    config.update(overrides)
+    path = os.path.join(WORK, "levers", f"{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def grad_gap(got, ref):
+    """The largest |difference| over the steps and hypernet leaves, each
+    over its leaf's largest |gradient| (at least 1% of the model's largest:
+    the key biases' exact gradient is 0)."""
+    worst = 0.0
+    for g_step, r_step in zip(got, ref):
+        floor = 1e-2 * max(float(g.abs().max()) for g in r_step.values())
+        for path, r in r_step.items():
+            d = float((g_step[path].float() - r.float()).abs().max())
+            worst = max(worst, d / max(float(r.abs().max()), floor))
+    return worst
+
+
+def loss_gap(got, ref):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+
+def phase_trainer_levers(model_dir):
+    """The trainer's levers through ``zett_tpu_torch.training``'s CLI at
+    configs/zeroshot/gpt2_en.json's widths on phase 7's text: (a) remat and
+    the chunked loss against the plain run with dropout on, (b) preemption
+    by SIGTERM and resume, (c) Adafactor, (d) the prefetcher with and
+    without DataLoader workers. Returns the kernel launches of its runs."""
+    import multiprocessing
+
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.training import engine
+    from zett_tpu_torch.training.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    train_dir = os.path.join(WORK, "train_text")
+    write_training_text(train_dir)
+    launches = dict.fromkeys(_build.launch_counts, 0)
+    n_layers = GPT2_EN["num_hidden_layers"]
+
+    def run(path):
+        """The CLI on ``path``: (trainer, history, this run's launches)."""
+        gc_free()
+        _build.reset_launch_counts()
+        trainer, history = train_main([path])
+        torch.cuda.synchronize()
+        counted = dict(_build.launch_counts)
+        for k, v in counted.items():
+            launches[k] += v
+        return trainer, history, counted
+
+    # (a) each lever against the plain run, dropout on (kernels 2 and 3 at
+    # rate 0.1), 3 steps; the plain run twice for the card's own gap
+    steps = 3
+    common = dict(batch_size=LEVER_BATCH, steps=steps, identity_steps=0,
+                  run_backbone_in_training_mode=True)
+    variants = {"plain": {}, "plain again": {}, "remat_hypernet": dict(remat_hypernet=True),
+                "remat_backbone": dict(remat_backbone=True), "chunked": dict(loss_chunk_size=32),
+                "all three": dict(PITA_LEVERS)}
+    captured = []
+    orig_apply = engine.Trainer._apply_gradients
+
+    def capture(self, loss):
+        orig_apply(self, loss)
+        captured.append({p: g.detach().clone() for p, g in self.last_grads.items()
+                         if p[0] == "hypernet" and g is not None})
+
+    results = {}
+    engine.Trainer._apply_gradients = capture
+    try:
+        for name, lever in variants.items():
+            captured.clear()
+            trainer, history, counted = run(lever_config(model_dir, train_dir, f"a_{name}",
+                                                         **common, **lever))
+            losses = [h["loss"] for h in history]
+            results[name] = (losses, list(captured))
+            core = steps * n_layers * (2 if lever.get("remat_hypernet") else 1)
+            log(f"  (a) {name}: losses {['%.6f' % x for x in losses]}, kernel 2 launches "
+                f"{counted['attention_core']} (expected {core}), kernel 3 "
+                f"{counted['attention_core_bwd']}")
+            if (counted["attention_core"], counted["attention_core_bwd"]) != \
+                    (core, steps * n_layers):
+                raise AssertionError(f"(a) {name}: launches {counted}")
+            if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+                raise AssertionError(f"(a) {name}: history {history}")
+            del trainer
+    finally:
+        engine.Trainer._apply_gradients = orig_apply
+    ref = results["plain"]
+    gap_loss = loss_gap(results["plain again"][0], ref[0])
+    gap_grad = grad_gap(results["plain again"][1], ref[1])
+    log(f"  (a) on {CARD}: the plain run against itself: loss {gap_loss:.3e}, hypernet "
+        f"gradients {gap_grad:.3e} (relative)")
+    for name in ("remat_hypernet", "remat_backbone", "chunked", "all three"):
+        dl, dg = loss_gap(results[name][0], ref[0]), grad_gap(results[name][1], ref[1])
+        # remat recomputes the same operations: within twice the card's
+        # own gap (bitwise where the plain run repeats bitwise); the chunked
+        # loss also rounds its bf16 logits chunk by chunk
+        chunked = "remat" not in name
+        tol_l = max(2 * gap_loss, LEVER_LOSS_TOL if chunked else 0.0)
+        tol_g = max(2 * gap_grad, LEVER_GRAD_TOL if chunked else 0.0)
+        log(f"  (a) {name} against plain over {steps} steps: largest loss difference "
+            f"{dl:.3e} (limit {tol_l:.3e}), largest hypernet gradient difference {dg:.3e} "
+            f"(limit {tol_g:.3e}), relative")
+        if dl > tol_l or dg > tol_g:
+            raise AssertionError(f"(a) {name} differs from the plain run")
+    results.clear()
+
+    # (b) preemption by SIGTERM at step 2 and resume through the CLI
+    common = dict(batch_size=LEVER_BATCH, steps=4, identity_steps=1,
+                  run_backbone_in_training_mode=True)
+    _, hist_a, _ = run(lever_config(model_dir, train_dir, "b_uninterrupted", **common))
+    _, hist_a2, _ = run(lever_config(model_dir, train_dir, "b_uninterrupted_again", **common))
+    orig_fit = engine.Trainer.fit
+
+    def fit_killed_at_2(self, *args, on_log=None, **kw):
+        def kill(step, metrics):
+            on_log(step, metrics)
+            if step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return orig_fit(self, *args, on_log=kill, **kw)
+
+    engine.Trainer.fit = fit_killed_at_2
+    try:
+        path_b = lever_config(model_dir, train_dir, "b_preempted", preempt_signal="SIGTERM",
+                              **common)
+        _, hist_b, _ = run(path_b)
+    finally:
+        engine.Trainer.fit = orig_fit
+    out_b = os.path.join(WORK, "levers", "b_preempted")
+    ckpt = os.path.join(out_b, "preempt_step_2")
+    if hist_b[-1] != {"step": 2, "preempted": 1.0} or not os.path.isdir(
+            os.path.join(ckpt, "resume")) or os.path.exists(os.path.join(out_b, "final")):
+        raise AssertionError(f"(b) the preempted run: history {hist_b[-2:]}, "
+                             f"{sorted(os.listdir(out_b))}")
+    if signal.getsignal(signal.SIGTERM) != signal.SIG_DFL:
+        raise AssertionError("(b) SIGTERM's handler was not restored")
+    t0 = time.perf_counter()
+    trainer, hist_c, _ = run(lever_config(model_dir, train_dir, "b_resumed",
+                                          resume_from_checkpoint=ckpt, **common))
+    resume_wall = time.perf_counter() - t0
+    loss_a = {h["step"]: h.get("loss", h.get("identity_loss")) for h in hist_a}
+    loss_a2 = {h["step"]: h.get("loss", h.get("identity_loss")) for h in hist_a2}
+    loss_c = {h["step"]: h["loss"] for h in hist_c}
+    gap = max(abs(loss_a2[s] - loss_a[s]) for s in (3, 4))
+    diff = max(abs(loss_c[s] - loss_a[s]) for s in (3, 4)) if sorted(loss_c) == [3, 4] else None
+    log(f"  (b) uninterrupted losses {[loss_a[s] for s in sorted(loss_a)]}; again "
+        f"{[loss_a2[s] for s in sorted(loss_a2)]}; preempted at step 2 into "
+        f"preempt_step_2; resumed steps {sorted(loss_c)}: {[loss_c[s] for s in sorted(loss_c)]}")
+    log(f"  (b) on {CARD}: steps 3-4, resumed against uninterrupted: largest |difference| "
+        f"{diff}; two uninterrupted runs: {gap} (bit-identical: "
+        f"{diff == 0.0}); the resumed run {resume_wall:.3f} s wall, step {trainer.state.step}")
+    if diff is None or diff > 2 * gap or trainer.state.step != 4:
+        raise AssertionError("(b) the resumed run does not continue the uninterrupted one")
+    del trainer
+
+    # (c) Adafactor on a repeated batch
+    trainer, hist, _ = run(lever_config(model_dir, train_dir, "c_adafactor",
+                                        batch_size=LEVER_BATCH, steps=1, identity_steps=0,
+                                        use_adafactor=True, learning_rate=1e-2,
+                                        warmup_steps=0, weight_decay=0.0))
+    losses = [hist[0]["loss"]]
+    for _ in range(4):
+        losses.append(trainer.train_step(trainer.last_train_batch)["loss"])
+    n_factored = len(trainer.optimizer.state["v_row"])
+    log(f"  (c) Adafactor (learning rate 1e-2, no weight decay) on one batch: losses "
+        f"{['%.5f' % x for x in losses]}; {n_factored} factored second moments")
+    if not all(math.isfinite(x) for x in losses) or \
+            not all(b < a for a, b in zip(losses, losses[1:])) or n_factored == 0:
+        raise AssertionError(f"(c) Adafactor losses {losses}")
+    del trainer
+
+    # (d) the prefetcher and DataLoader workers at the config's batch 128
+    for depth, workers in ((0, 0), (2, 0), (0, PREFETCH_WORKERS), (2, PREFETCH_WORKERS)):
+        t0 = time.perf_counter()
+        trainer, hist, _ = run(lever_config(model_dir, train_dir, f"d_{depth}_{workers}",
+                                            steps=6, identity_steps=1,
+                                            prefetch_batches=depth, num_workers=workers))
+        wall = time.perf_counter() - t0
+        recs = [r for r in trainer.records if r["kind"] == "train"][1:]
+        losses = [h["loss"] for h in hist if "loss" in h]
+        if len(recs) < 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(d) prefetch {depth}, workers {workers}: {hist}")
+        loop = float(np.mean([r["loop_ms"] for r in recs]))
+
+        def med(key):
+            return float(np.median([r[key] for r in recs]))
+
+        # the step's device work from a trace of one step on the run's last
+        # batch, alone (after the run, outside the counted launches): a
+        # step's CUDA-event span also holds the time its launching thread
+        # waits for the interpreter lock while the prefetch thread collates
+        batch = trainer.last_train_batch
+        trainer.train_step(batch)
+        busy, _, _ = device_breakdown(lambda: trainer.train_step(batch), top=0)
+        traced = ("not measured" if busy is None else
+                  f"{1 - busy / loop:.3f} (1 - traced device busy of one step, {busy:.3f} ms, "
+                  f"/ loop wall)")
+        log(f"  (d) on {CARD}: prefetch_batches {depth}, num_workers {workers}: loop "
+            f"{loop:.3f} ms a train step (mean of {len(recs)} after the first), loop idle "
+            f"share {traced}; "
+            f"step CUDA-event span median {med('device_ms'):.3f}, mean "
+            f"{float(np.mean([r['device_ms'] for r in recs])):.3f} ms; medians: collate "
+            f"{med('collate_ms'):.3f}, wait {med('wait_ms'):.3f}, step host "
+            f"{med('host_ms'):.3f} ms; {wall:.3f} s wall")
+        del trainer, batch
+        gc_free()
+        if multiprocessing.active_children():
+            raise AssertionError(f"(d) worker processes left: {multiprocessing.active_children()}")
+
+    # (e) the in-training eval with the chunked loss: kernel 1 on gpt2_en's
+    # inference route, the CLM loss from the final hidden states chunk by
+    # chunk
+    train_e, valid_e = os.path.join(WORK, "levers_train"), os.path.join(WORK, "levers_valid")
+    write_training_text(train_e, valid_e, hold_out_every=8)
+    steps = 2
+    passes, first_eval, routes = [0], [], {"chunked": 0, "logits": 0}
+    orig_embed, orig_cached = engine.Trainer.compute_embeddings, engine.Trainer.eval_step_cached
+    orig_chunked, orig_logits = engine.chunked_clm_eval, engine.Trainer._logits
+
+    def counted_embed(self, b):
+        passes[0] += 1
+        return orig_embed(self, b)
+
+    def kept_cached(self, b, *embeddings):
+        if not first_eval:
+            first_eval.append((b, *embeddings))
+        return orig_cached(self, b, *embeddings)
+
+    def counted_chunked(*args, **kw):
+        routes["chunked"] += 1
+        return orig_chunked(*args, **kw)
+
+    def counted_logits(self, *args):
+        routes["logits"] += 1
+        return orig_logits(self, *args)
+
+    (engine.Trainer.compute_embeddings, engine.Trainer.eval_step_cached, engine.chunked_clm_eval,
+     engine.Trainer._logits) = counted_embed, kept_cached, counted_chunked, counted_logits
+    try:
+        trainer, _, counted = run(lever_config(
+            model_dir, train_e, "e_chunked_eval", valid_directory=valid_e, steps=steps,
+            identity_steps=0, eval_steps=steps, eval_at_step_zero=True, loss_chunk_size=32))
+    finally:
+        (engine.Trainer.compute_embeddings, engine.Trainer.eval_step_cached,
+         engine.chunked_clm_eval, engine.Trainer._logits) = \
+            orig_embed, orig_cached, orig_chunked, orig_logits
+    # the step-0 row goes to metrics.jsonl only, and carries no "step" key
+    rows = [json.loads(line) for line in
+            open(os.path.join(WORK, "levers", "e_chunked_eval", "metrics.jsonl"))]
+    evals = [(r.get("step", 0), r["eval/eval_loss"], r["eval/eval_bpb"])
+             for r in rows if "eval/eval_loss" in r]
+    expected = dict.fromkeys(counted, 0)
+    expected["encoder_layer"] = passes[0] * (n_layers - 1)
+    expected["attention_core"] = steps * n_layers + passes[0]
+    expected["attention_core_bwd"] = steps * n_layers
+    log(f"  (e) in-training evals with loss_chunk_size 32 (step, loss, bpb): {evals}; "
+        f"{passes[0]} embedding passes, {routes['chunked']} chunked evals, "
+        f"{routes['logits']} whole-logits builds; launches {counted} (expected {expected})")
+    if counted != expected or routes["logits"] or not routes["chunked"] or \
+            [e[0] for e in evals] != [0, steps] or \
+            not all(math.isfinite(x) for e in evals for x in e[1:]):
+        raise AssertionError(f"(e) the chunked in-training eval: {evals}, {counted}, {routes}")
+    # on the first eval batch and its embeddings (no kernel launches): the
+    # whole-logits eval against the chunked one
+    chunked = orig_cached(trainer, *first_eval[0])
+    trainer.cfg = dataclasses.replace(trainer.cfg, loss_chunk_size=0)
+    full = orig_cached(trainer, *first_eval[0])
+    gaps = {k: abs(float(chunked[k]) - float(full[k])) / abs(float(full[k])) for k in full}
+    log(f"  (e) on {CARD}: chunked eval (chunks of 32) vs whole-logits eval on the first eval "
+        f"batch: relative differences {gaps} (limit {LEVER_LOSS_TOL})")
+    if max(gaps.values()) > LEVER_LOSS_TOL:
+        raise AssertionError(f"(e) chunked eval: {gaps}")
+    del trainer, first_eval[:]
+    log(f"  phase 13: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -1946,11 +2329,13 @@ def main():
         log("phase 10: transfer through the CLI at the prior + inter-token-attention config")
         pita_launches, pita_wall, pita_ms, pita_vocab = phase_transfer(PITA, tag="pita_ckpt")
         log("phase 11: training with eval through the CLI at the prior + "
-            "inter-token-attention config")
-        eval_launches, eval_wall, eval_peak = phase_training_eval(model_dir)
+            "inter-token-attention config, batch 128, with the memory levers")
+        eval_launches, eval_wall, eval_peak, _ = phase_training_eval(model_dir)
         log("phase 12: the device prior pipeline")
         kernels["viterbi_dp"], kernels["viterbi_spans_dp"], prior_launches = \
             phase_prior_pipeline()
+        log("phase 13: the trainer's levers through the CLI at gpt2_en's widths")
+        lever_launches = phase_trainer_levers(model_dir)
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -1975,9 +2360,10 @@ def main():
     rows = []
     for name, (source, replaces) in sources.items():
         # launches: the main paths' runs, transfer (phases 4 and 10),
-        # training (phases 7 and 11) and the prior pipeline (phase 12)
+        # training (phases 7, 11 and 13) and the prior pipeline (phase 12)
         n = sum(run.get(name, 0) for run in (transfer_launches, train_launches, pita_launches,
-                                              eval_launches, {"viterbi_spans_dp": prior_launches}))
+                                              eval_launches, lever_launches,
+                                              {"viterbi_spans_dp": prior_launches}))
         if n == 0 and name not in OFF_PATH:
             log(f"{name} never launched on the main paths")
             return 1

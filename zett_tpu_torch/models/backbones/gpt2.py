@@ -11,7 +11,10 @@ flax promotes them. The arithmetic follows the JAX module
 an additive ``finfo(f32).min`` causal/padding bias, an f32 softmax whose
 weights are cast to the compute dtype, flax LayerNorm (f32 statistics),
 tanh-gelu, and logits in the compute dtype. These are library ops (cuBLAS
-on the card), as they are XLA in the JAX package.
+on the card), as they are XLA in the JAX package. With ``remat_blocks``
+(the trainer's ``remat_backbone``, ``gpt2.py:29-32``) each block runs under
+``torch.utils.checkpoint`` when gradients are on: its activations are
+recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.encoder_layer import gelu, layer_norm_flax_exact
 
@@ -36,6 +40,7 @@ class GPT2Config:
     n_inner: Optional[int] = None
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
+    remat_blocks: bool = False
 
     @classmethod
     def from_hf(cls, hf: dict) -> "GPT2Config":
@@ -122,12 +127,19 @@ class GPT2LMHeadModel(nn.Module):
         causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))[None, None]
         mask = causal if attention_mask is None else causal & attention_mask.bool()[:, None, None, :]
         bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
         for i in range(cfg.n_layer):
             p = f"transformer.h.{i}"
-            hidden = hidden + self._attention(self._ln(hidden, p + ".ln_1"), bias, p + ".attn")
-            h = self._dense(self._ln(hidden, p + ".ln_2"), p + ".mlp.c_fc")
-            hidden = hidden + self._dense(gelu(h), p + ".mlp.c_proj")
+            if remat:
+                hidden = checkpoint(self._block, hidden, bias, p, use_reentrant=False)
+            else:
+                hidden = self._block(hidden, bias, p)
         return self._ln(hidden, "transformer.ln_f")
+
+    def _block(self, hidden, bias, p):
+        hidden = hidden + self._attention(self._ln(hidden, p + ".ln_1"), bias, p + ".attn")
+        h = self._dense(self._ln(hidden, p + ".ln_2"), p + ".mlp.c_fc")
+        return hidden + self._dense(gelu(h), p + ".mlp.c_proj")
 
     def forward(self, input_ids, attention_mask, wte):
         """Logits (B, L, V) in the compute dtype: ``hidden @ wte.T``."""

@@ -40,6 +40,15 @@ def resolve_out_path(model_type: str, state_dict: dict):
     return None
 
 
+def headless_model(model_type: str, model):
+    """The callable ``(input_ids, attention_mask, wte) -> final hidden
+    states`` of a backbone without its lm head (``registry.py:120``): the
+    chunked CLM loss computes its logits chunk by chunk from these. For
+    gpt2, the hidden states after ``ln_f``."""
+    check_supported(model_type)
+    return model.hidden_states
+
+
 def check_supported(model_type: str) -> None:
     if model_type not in IN_EMBEDDING_KEYS:
         raise NotImplementedError(f"backbone {model_type!r} is not ported (gpt2 is)")

@@ -17,6 +17,17 @@ or ``valid_texts_by_lang``, eval runs every ``eval_steps`` steps (and at
 step 0 with ``eval_at_step_zero``): each of ``extra_valid_tokenizers`` with
 its embeddings computed once per eval, then sampled tokenizers; the rows
 (``eval_<tokenizer>/...`` and ``eval/...``) go to ``metrics.jsonl``.
+
+Resume and preemption (config keys, as in the JAX CLI):
+``"resume_from_checkpoint": DIR`` restores a checkpoint the trainer wrote
+(``DIR/params.npz``, and with ``DIR/resume/`` the optimizer state, step and
+dropout generator) and replays the data stream up to its step;
+``"resume_reset_steps": true`` restores the parameters only and starts at
+step 0. ``"preempt_signal": "SIGTERM"`` (any signal name) makes that
+signal end the run at the next step boundary with a full-state checkpoint
+in ``<output_dir>/preempt_step_<N>/`` and no ``final/``; resume from it.
+With ``save_state`` (the default) ``final/`` and the periodic
+``step_<N>/`` checkpoints hold the full state too.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import dataclasses
 import itertools
 import json
 import os
+import signal
 import sys
 
 import numpy as np
@@ -150,8 +162,7 @@ def build_eval_fn(config: dict, data_cfg, reference, hn_tokenizer, batch_size: i
 
 def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     """``zett_tpu/training/__main__.py:102`` without distributed init,
-    trackers, cost analysis, resume, profiling and preemption. Returns
-    (trainer, history)."""
+    trackers, cost analysis and profiling. Returns (trainer, history)."""
     from ..data import Collator, TrainDataset
     from ..models.backbones.gpt2 import GPT2Config
     from ..models.backbones.hf_io import load_hf_state_dict
@@ -266,10 +277,28 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
         print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
                                           if isinstance(v, (int, float))), flush=True)
 
+    resume_step = 0
+    resume_path = config.get("resume_from_checkpoint")
+    if resume_path:
+        trainer.restore_checkpoint(resume_path,
+                                   reset_steps=bool(config.get("resume_reset_steps", False)))
+        resume_step = trainer.state.step // max(1, train_cfg.gradient_accumulation_steps)
+        print(f"resumed from {resume_path} at step {resume_step}", flush=True)
+
     if train_cfg.eval_at_step_zero and eval_fn is not None:
         on_log(0, eval_fn(trainer))
-    history = trainer.fit(batch_iter, identity_iter, eval_fn=eval_fn, on_log=on_log)
-    trainer.save_checkpoint(os.path.join(train_cfg.output_dir, "final"), tokenizer=hn_tokenizer)
+    preempt_signal = None
+    if config.get("preempt_signal"):
+        preempt_signal = getattr(signal, config["preempt_signal"])
+    history = trainer.fit(batch_iter, identity_iter, eval_fn=eval_fn, on_log=on_log,
+                          resume_step=resume_step, preempt_signal=preempt_signal)
+    if history and history[-1].get("preempted"):
+        # preempt_step_<N> holds the resumable state; final/ is for
+        # finished runs
+        print("preempted: the state is in the preempt_step checkpoint; no final/", flush=True)
+    else:
+        trainer.save_checkpoint(os.path.join(train_cfg.output_dir, "final"),
+                                tokenizer=hn_tokenizer, full_state=train_cfg.save_state)
     return trainer, history
 
 

@@ -1,7 +1,9 @@
 """Training configuration (counterpart of ``zett_tpu/training/config.py``:
 the same fields and defaults, so the same JSON configs load). The port runs
-``backbone_training="no"``, the AdamW optimizer and the plain (unchunked)
-losses without remat; the Trainer raises for the other settings."""
+``backbone_training="no"`` and the CLM loss; the Trainer raises for the
+other settings. Resume and preemption are keys of the CLI's config
+(``resume_from_checkpoint``, ``resume_reset_steps``, ``preempt_signal``),
+as in the JAX CLI."""
 
 from __future__ import annotations
 
@@ -43,11 +45,12 @@ class TrainingConfig:
     eval_at_step_zero: bool = False
     dtype: str = "float32"
     n_model_parallel: int = 1
-    # not ported (the Trainer raises when they are set): rematerialization
-    # of the hypernet and the backbone blocks, and the chunked CLM loss
+    # memory levers: the hypernet's training forward and each backbone
+    # block under torch.utils.checkpoint, and the CLM loss (train and eval)
+    # computed in chunks of this many positions (0: the whole logits)
     remat_hypernet: bool = False
     loss_chunk_size: int = 0
     remat_backbone: bool = False
-    # background batch prefetch: not ported; the port's loop collates each
-    # batch between steps (the field is accepted and ignored)
+    # batches collated and copied to the device ahead of the step on a
+    # thread (0: each batch is pulled between steps)
     prefetch_batches: int = 2

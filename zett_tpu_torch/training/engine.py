@@ -18,10 +18,17 @@ bits-per-byte term (``eval_step``); a fixed tokenizer's embeddings are
 computed once and reused across batches (``eval_step_cached``,
 ``evaluation/loop.py``).
 
-Not ported: full-state checkpoints and resume, the prefetch thread,
-the preemption hook, remat and chunked losses, MLM, backbones other than
-GPT-2, full backbone fine-tuning, multi-GPU. Saving writes the hypernet's
-parameters in the transfer CLI's checkpoint format (``save_checkpoint``).
+The memory levers (``engine.py:341-346``, ``:397-498``): ``remat_hypernet``
+runs the hypernet's training forward under ``torch.utils.checkpoint``;
+``remat_backbone`` each GPT-2 block; ``loss_chunk_size`` computes the CLM
+loss, in training and in eval, from the backbone's final hidden states
+chunk by chunk (``losses.chunked_clm_loss``/``chunked_clm_eval``), so the
+(B, L, V) logits never exist. The loop (``fit``) prefetches batches on a
+thread (``prefetch.BatchPrefetcher``), writes full-state checkpoints
+(parameters, optimizer state, step, dropout generator) and resumes from
+them by replaying the data stream, and on a preemption signal checkpoints
+and returns. Not ported: MLM, backbones other than GPT-2, full backbone
+fine-tuning, multi-GPU (and with it the multihost preemption agreement).
 """
 
 from __future__ import annotations
@@ -29,20 +36,23 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import NEGATIVE_INF_FILL_VALUE
 from ..models.backbones.gpt2 import GPT2Config, GPT2LMHeadModel
-from ..models.backbones.registry import resolve_out_path
+from ..models.backbones.registry import headless_model, resolve_out_path
 from ..models.convert import flax_paths, flax_to_torch, torch_to_flax
 from ..models.hypernet import Hypernet, HypernetConfig
 from ..models.splice import extract_embeddings
-from .losses import lexical_loss, lm_loss
-from .optimizer import AdamW
+from .losses import chunked_clm_eval, chunked_clm_loss, lexical_loss, lm_loss
+from .optimizer import build_optimizer
+from .prefetch import BatchPrefetcher
 from .schedules import create_learning_rate_fn
 from .state import TrainState
 
@@ -84,10 +94,6 @@ class Trainer:
         unported = {
             "backbone_training != 'no'": cfg.backbone_training != "no",
             "loss=mlm": cfg.loss != "clm",
-            "loss_chunk_size": cfg.loss_chunk_size > 0,
-            "remat_hypernet": cfg.remat_hypernet,
-            "remat_backbone": cfg.remat_backbone,
-            "use_adafactor": cfg.use_adafactor,
         }
         missing = [k for k, on in unported.items() if on]
         if missing:
@@ -107,7 +113,10 @@ class Trainer:
         # the frozen backbone is held in bf16 (engine.py:234-238)
         frozen = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
                   for k, v in backbone_state.items()}
+        # per-block remat (engine.py:178-186)
+        backbone_config = dataclasses.replace(backbone_config, remat_blocks=cfg.remat_backbone)
         self.backbone = GPT2LMHeadModel(backbone_config, frozen, self.dtype).to(self.device)
+        self.headless = headless_model(model_type, self.backbone)
         self.hypernet = Hypernet(hn_config, dtype=self.dtype)
         if hn_params is not None:
             self.hypernet.load_state_dict(flax_to_torch(hn_params), strict=True)
@@ -118,14 +127,18 @@ class Trainer:
         # every parameter under its Flax path, as jax.value_and_grad sees
         # the state's params {"hypernet", "inner"}
         self.params: Dict[tuple, torch.nn.Parameter] = {}
+        transposed = []
         hn_paths = flax_paths(self.hypernet)
         for name, p in self.hypernet.named_parameters():
-            self.params[("hypernet",) + hn_paths[name][0]] = p
+            path, transpose = hn_paths[name]
+            self.params[("hypernet",) + path] = p
+            if transpose:
+                transposed.append(("hypernet",) + path)
         for key, p in self.backbone.named_hf_parameters():
             self.params[("inner",) + gpt2_flax_path(key)] = p
 
         self.random_lr_fn, _ = create_learning_rate_fn(cfg)
-        self.optimizer = AdamW(self.params, cfg, self.random_lr_fn)
+        self.optimizer = build_optimizer(self.params, cfg, self.random_lr_fn, transposed)
         self.state = TrainState(step=0,
                                 dropout_generator=torch.Generator().manual_seed(cfg.seed + 1))
         self.last_grads: Dict[tuple, torch.Tensor] = {}
@@ -133,7 +146,10 @@ class Trainer:
         self.last_train_batch: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------ steps
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _device_batch(self, batch: Dict[str, Any], pin: bool = False) -> Dict[str, torch.Tensor]:
+        """The numeric arrays of a host batch as device tensors; with
+        ``pin``, copied from pinned host memory without blocking (the
+        prefetcher's side stream)."""
         out = {}
         for k, v in batch.items():
             if k == "metrics" or not (hasattr(v, "shape") or isinstance(v, (int, float))):
@@ -143,7 +159,9 @@ class Trainer:
                 continue
             if a.dtype == np.float64:
                 a = a.astype(np.float32)  # as jnp.asarray without x64
-            out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            out[k] = (t.pin_memory().to(self.device, non_blocking=True) if pin
+                      else t.to(self.device))
         return out
 
     def _split_source(self):
@@ -152,20 +170,48 @@ class Trainer:
         src_out = None if self.out_tied else self.source_embeddings[:, n_embd:]
         return src_in, src_out
 
-    def _hypernet(self, b, deterministic: bool, inference: bool = False, generator=None):
+    def _hypernet(self, b, deterministic: bool, inference: bool = False, generator=None,
+                  remat: bool = False):
+        """The hypernet on a device batch. With ``remat`` and gradients on,
+        under ``checkpoint`` (``engine.py:341-346``): the forward keeps only
+        its inputs and the backward runs it again. ``checkpoint`` restores
+        the default generators for that second run but not the explicit
+        dropout generator, so each run draws from its own generator set to
+        the state the first run started from; afterwards the step's
+        generator takes the state the first run ended at, as without remat."""
         if generator is None and not deterministic:
             generator = self.state.dropout_generator
-        return self.hypernet(
-            b["target_surface_forms"], b.get("target_priors"), self.source_embeddings,
-            b.get("lang_index"), deterministic=deterministic, inference=inference,
-            generator=generator,
-        )
+        args = (b["target_surface_forms"], b.get("target_priors"), self.source_embeddings,
+                b.get("lang_index"))
+        if not (remat and torch.is_grad_enabled()):
+            return self.hypernet(*args, deterministic=deterministic, inference=inference,
+                                 generator=generator)
+        start = generator.get_state() if generator is not None else None
+        end = []
+
+        def run(*inputs):
+            g = None
+            if start is not None:
+                g = torch.Generator()
+                g.set_state(start)
+            out = self.hypernet(*inputs, deterministic=deterministic, inference=inference,
+                                generator=g)
+            if g is not None and not end:
+                end.append(g.get_state())
+            return out
+
+        out = checkpoint(run, *args, use_reentrant=False)
+        if generator is not None:
+            generator.set_state(end[0])
+        return out
 
     def _embeddings(self, b, deterministic: bool, inference: bool = False, generator=None):
         """The hypernet's predictions with the source model's special-token
-        rows spliced in (``engine.py:348-368``)."""
+        rows spliced in (``engine.py:348-368``), the hypernet under remat
+        with ``remat_hypernet``."""
         src_in, src_out = self._split_source()
-        emb_in, emb_out, biases = self._hypernet(b, deterministic, inference, generator)
+        emb_in, emb_out, biases = self._hypernet(b, deterministic, inference, generator,
+                                                 remat=self.cfg.remat_hypernet)
         special, special_ref = b["special_indices"].long(), b["special_indices_in_reference"].long()
         emb_in = emb_in.index_put((special,), src_in[special_ref].to(emb_in.dtype))
         if emb_out is not None and src_out is not None:
@@ -185,13 +231,37 @@ class Trainer:
             logits = logits + b["target_priors"][None, None, :]
         return logits
 
+    def _logit_offset(self, b, biases):
+        """The chunked route's additive logit terms in f32, in the order
+        ``engine.py:427-435`` adds them: the vocab mask, the learnable bias,
+        the priors."""
+        cfg = self.cfg
+        offset = torch.where(b["mask"], 0.0, float(NEGATIVE_INF_FILL_VALUE)).float()
+        if cfg.learnable_bias:
+            offset = offset + biases.float()
+        if cfg.add_target_priors_to_bias:
+            offset = offset + b["target_priors"].float()
+        return offset
+
+    def _headless(self, b, emb_in, emb_out):
+        """(final hidden states, head weights) of the spliced backbone
+        (``engine.py:408-425``); gpt2's head is the predicted input table."""
+        hidden = self.headless(b["input_ids"].long(), b["attention_mask"], emb_in)
+        head_w = emb_out if (not self.out_tied and emb_out is not None) else emb_in
+        return hidden, head_w
+
     def _train_loss(self, b):
         cfg = self.cfg
         hn_cfg = self.hn_config
         src_in, src_out = self._split_source()
         emb_in, emb_out, biases = self._embeddings(b, not cfg.run_backbone_in_training_mode)
-        logits = self._logits(b, emb_in, emb_out, biases)
-        loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
+        if self.cfg.loss_chunk_size > 0:
+            hidden, head_w = self._headless(b, emb_in, emb_out)
+            loss = chunked_clm_loss(hidden, head_w, self._logit_offset(b, biases), b["labels"],
+                                    b["attention_mask"], cfg.loss_chunk_size)
+        else:
+            logits = self._logits(b, emb_in, emb_out, biases)
+            loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
         if hn_cfg.embed_using_source_embeddings and cfg.lexical_loss_weight > 0:
             sf = b["target_surface_forms"].long()
             target_in = src_in[sf[:, 0]]
@@ -224,7 +294,12 @@ class Trainer:
         return float(self.random_lr_fn(self.state.step // self.cfg.gradient_accumulation_steps))
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        b = self._device_batch(batch)
+        return self._train_step(self._device_batch(batch))
+
+    def identity_train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        return self._identity_train_step(self._device_batch(batch))
+
+    def _train_step(self, b: Dict[str, torch.Tensor]) -> Dict[str, float]:
         lr = self._lr_metric()
         loss, lex, overlap = self._train_loss(b)
         self._apply_gradients(loss)
@@ -235,8 +310,7 @@ class Trainer:
             "learning_rate": lr,
         }
 
-    def identity_train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        b = self._device_batch(batch)
+    def _identity_train_step(self, b: Dict[str, torch.Tensor]) -> Dict[str, float]:
         lr = self._lr_metric()
         loss = self._identity_loss(b)
         self._apply_gradients(loss)
@@ -265,25 +339,49 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, b) -> Dict[str, torch.Tensor]:
         """Eval metrics of a device batch (``engine.py:575-587``)."""
-        return self.eval_metrics_from_logits(self._logits(b, *self.compute_embeddings(b)), b)
+        return self.eval_step_cached(b, *self.compute_embeddings(b))
 
     @torch.no_grad()
     def eval_step_cached(self, b, emb_in, emb_out, biases) -> Dict[str, torch.Tensor]:
-        """Eval metrics with precomputed embeddings (``engine.py:604-613``)."""
+        """Eval metrics with precomputed embeddings (``engine.py:604-613``);
+        with ``loss_chunk_size``, chunk by chunk from the final hidden states
+        (``chunked_eval_metrics``, ``engine.py:476-493``)."""
+        if self.cfg.loss_chunk_size > 0:
+            hidden, head_w = self._headless(b, emb_in, emb_out)
+            loss, bpb = chunked_clm_eval(hidden, head_w, self._logit_offset(b, biases),
+                                         b["labels"], b["attention_mask"], b["byte_lengths"],
+                                         self.cfg.loss_chunk_size)
+            return {"eval_loss": loss, "eval_bpb": bpb}
         return self.eval_metrics_from_logits(self._logits(b, emb_in, emb_out, biases), b)
 
     # ------------------------------------------------------------------- loop
     def fit(self, batch_iterator: Iterator[Dict[str, Any]],
             identity_iterator: Optional[Iterator[Dict[str, Any]]] = None,
             eval_fn: Optional[Callable[["Trainer"], Dict[str, float]]] = None,
-            on_log: Optional[Callable[[int, Dict[str, float]], None]] = None):
-        """``engine.py:653-804`` without replay resume, prefetch and
-        preemption. Records, per micro step, the host time to collate its
-        batch and the step's time on the device's clock (CUDA events) in
-        ``self.records``. Every ``eval_steps`` steps, ``eval_fn(self)``'s
+            on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
+            resume_step: int = 0, preempt_signal: Optional[int] = None):
+        """``engine.py:653-804`` on one process. Steps before
+        ``resume_step`` pull and drop their batches, so a run restored from
+        a checkpoint of step ``resume_step`` sees the data stream where the
+        checkpoint left it. With ``prefetch_batches``
+        > 0 a thread pulls the next batches and copies them to the device
+        while a step runs. Every ``eval_steps`` steps, ``eval_fn(self)``'s
         metrics join the history and go to ``on_log`` as a row of their
-        own."""
+        own. With ``preempt_signal`` (a signal number) the signal sets a
+        flag; at the next step boundary the loop writes a full-state
+        checkpoint to ``<output_dir>/preempt_step_<N>``, appends
+        ``{"step": N, "preempted": 1.0}`` to the history and returns; the
+        previous handler is restored on the way out.
+
+        Records, per micro step, in ``self.records``: ``collate_ms`` (the
+        host pull of its batch, on the prefetch thread when there is one),
+        ``wait_ms`` (the time the loop waited for the batch: the inline pull
+        and copy, or the block on the prefetch queue), ``host_ms`` (the
+        step's call), ``loop_ms`` (the loop's wall time since the previous
+        step ended: logging, saves and evals included) and, on the card,
+        ``device_ms`` (the step on the device's clock, CUDA events)."""
         cfg = self.cfg
+        k = cfg.gradient_accumulation_steps
         history = []
         running: Dict[str, float] = {}
         counts: Dict[str, int] = {}
@@ -294,68 +392,153 @@ class Trainer:
             running[key] = running.get(key, 0.0) + value
             counts[key] = counts.get(key, 0) + 1
 
-        for micro_step in range(cfg.steps * cfg.gradient_accumulation_steps):
-            step = micro_step // cfg.gradient_accumulation_steps
-            use_identity = step < cfg.identity_steps and identity_iterator is not None
-            t_collate = time.perf_counter()
-            batch = next(identity_iterator if use_identity else batch_iterator)
-            collate_ms = (time.perf_counter() - t_collate) * 1e3
-            if cuda:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-            t_step = time.perf_counter()
-            if use_identity:
-                metrics = self.identity_train_step(batch)
-            else:
-                metrics = self.train_step(batch)
-                self.last_train_batch = batch
-            record = {"kind": "identity" if use_identity else "train",
-                      "collate_ms": collate_ms,
-                      "host_ms": (time.perf_counter() - t_step) * 1e3}
-            if cuda:
-                end.record()
-                end.synchronize()
-                record["device_ms"] = start.elapsed_time(end)
-            self.records.append(record)
-            for k, v in metrics.items():
-                track(k, v)
-            lang = batch.get("lang_code") if isinstance(batch, dict) else None
-            if lang is not None:
-                if "loss" in metrics:
-                    track(f"{lang}_loss", metrics["loss"])
-                if "attention_mask" in batch:
-                    track(f"{lang}_pad_ratio",
-                          float((np.asarray(batch["attention_mask"]) == 0).mean()))
-                for name, value in (batch.get("metrics") or {}).items():
-                    track(f"{lang}_{name}", float(value))
+        def host_stream():
+            for micro_step in range(cfg.steps * k):
+                step = micro_step // k
+                use_identity = step < cfg.identity_steps and identity_iterator is not None
+                source = identity_iterator if use_identity else batch_iterator
+                if step < resume_step:
+                    next(source)
+                    continue
+                t_collate = time.perf_counter()
+                batch = next(source)
+                yield micro_step, use_identity, (time.perf_counter() - t_collate) * 1e3, batch
 
-            is_boundary = (micro_step + 1) % cfg.gradient_accumulation_steps == 0
-            if is_boundary and (step + 1) % cfg.logging_steps == 0:
-                logged = {k: v / counts[k] for k, v in running.items()}
-                logged["time"] = time.time() - t0
-                logged["step"] = step + 1
-                history.append(logged)
-                if on_log is not None:
-                    on_log(step + 1, logged)
-                running, counts = {}, {}
-            if is_boundary and cfg.save_steps and (step + 1) % cfg.save_steps == 0:
-                self.save_checkpoint(os.path.join(cfg.output_dir, f"step_{step + 1}"))
-            if is_boundary and eval_fn is not None and cfg.eval_steps \
-                    and (step + 1) % cfg.eval_steps == 0:
-                evald = {"step": step + 1, **eval_fn(self)}
-                history.append(evald)
-                if on_log is not None:
-                    on_log(step + 1, evald)
+        self._preempted = False
+        prev_handler = None
+        if preempt_signal is not None:
+            def on_preempt(signum, frame):
+                self._preempted = True
+
+            prev_handler = signal.signal(preempt_signal, on_preempt)
+        stream = None
+        try:
+            if cfg.prefetch_batches > 0:
+                stream = BatchPrefetcher(host_stream(), self._device_batch, self.device,
+                                         depth=cfg.prefetch_batches)
+            else:
+                stream = ((*head, batch, self._device_batch(batch))
+                          for *head, batch in host_stream())
+            t_prev = time.perf_counter()
+            while True:
+                t_wait = time.perf_counter()
+                item = next(stream, None)
+                if item is None:
+                    break
+                micro_step, use_identity, collate_ms, batch, b = item
+                wait_ms = (time.perf_counter() - t_wait) * 1e3
+                step = micro_step // k
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                t_step = time.perf_counter()
+                if use_identity:
+                    metrics = self._identity_train_step(b)
+                else:
+                    metrics = self._train_step(b)
+                    self.last_train_batch = batch
+                record = {"kind": "identity" if use_identity else "train",
+                          "collate_ms": collate_ms, "wait_ms": wait_ms,
+                          "host_ms": (time.perf_counter() - t_step) * 1e3}
+                if cuda:
+                    end.record()
+                    end.synchronize()
+                    record["device_ms"] = start.elapsed_time(end)
+                t_now = time.perf_counter()
+                record["loop_ms"] = (t_now - t_prev) * 1e3
+                t_prev = t_now
+                self.records.append(record)
+                for key, v in metrics.items():
+                    track(key, v)
+                lang = batch.get("lang_code") if isinstance(batch, dict) else None
+                if lang is not None:
+                    if "loss" in metrics:
+                        track(f"{lang}_loss", metrics["loss"])
+                    if "attention_mask" in batch:
+                        track(f"{lang}_pad_ratio",
+                              float((np.asarray(batch["attention_mask"]) == 0).mean()))
+                    for name, value in (batch.get("metrics") or {}).items():
+                        track(f"{lang}_{name}", float(value))
+
+                is_boundary = (micro_step + 1) % k == 0
+                if is_boundary and (step + 1) % cfg.logging_steps == 0:
+                    logged = {key: v / counts[key] for key, v in running.items()}
+                    logged["time"] = time.time() - t0
+                    logged["step"] = step + 1
+                    history.append(logged)
+                    if on_log is not None:
+                        on_log(step + 1, logged)
+                    running, counts = {}, {}
+                if is_boundary and cfg.save_steps and (step + 1) % cfg.save_steps == 0:
+                    self.save_checkpoint(os.path.join(cfg.output_dir, f"step_{step + 1}"),
+                                         full_state=cfg.save_state)
+                if is_boundary and eval_fn is not None and cfg.eval_steps \
+                        and (step + 1) % cfg.eval_steps == 0:
+                    evald = {"step": step + 1, **eval_fn(self)}
+                    history.append(evald)
+                    if on_log is not None:
+                        on_log(step + 1, evald)
+                if is_boundary and self._preempted:
+                    # one process: act on the local flag at every boundary
+                    # (engine.py:813-826); the multihost agreement waits for
+                    # multi-GPU
+                    self.save_checkpoint(
+                        os.path.join(cfg.output_dir, f"preempt_step_{step + 1}"),
+                        full_state=True)
+                    history.append({"step": step + 1, "preempted": 1.0})
+                    break
+        finally:
+            if isinstance(stream, BatchPrefetcher):
+                stream.close()
+            if preempt_signal is not None:
+                signal.signal(preempt_signal, prev_handler)
         return history
 
     # ------------------------------------------------------------ checkpoints
-    def save_checkpoint(self, path: str, tokenizer=None) -> None:
+    def save_checkpoint(self, path: str, tokenizer=None, full_state: bool = False) -> None:
         """The hypernet's parameters in the transfer CLI's checkpoint format:
         ``hn_config.json`` (HypernetConfig fields + "dtype"), ``params.npz``
-        (Flax paths joined by "/") and, when given, ``tokenizer.json``."""
+        (Flax paths joined by "/") and, when given, ``tokenizer.json``. With
+        ``full_state`` (``engine.py:842-875``) also ``resume/``:
+        ``state.npz`` (the optimizer state under "<slot>/<Flax path>", and
+        the dropout generator's state under "dropout_generator") and
+        ``state.json`` (the micro step, the optimizer's name and update
+        count); full state is taken at a step boundary."""
+        scalars = {"step": self.state.step, **self.optimizer.scalars()} if full_state else None
         os.makedirs(path, exist_ok=True)
         np.savez(os.path.join(path, "params.npz"), **torch_to_flax(self.hypernet))
         with open(os.path.join(path, "hn_config.json"), "w") as f:
             json.dump({**self.hn_config.to_dict(), "dtype": self.cfg.dtype}, f, indent=2)
         if tokenizer is not None:
             tokenizer.save(os.path.join(path, "tokenizer.json"))
+        if full_state:
+            resume = os.path.join(path, "resume")
+            os.makedirs(resume, exist_ok=True)
+            # bf16 state goes to f32, which holds it exactly
+            arrays = {k: t.detach().float().cpu().numpy()
+                      for k, t in self.optimizer.state_arrays().items()}
+            arrays["dropout_generator"] = self.state.dropout_generator.get_state().numpy()
+            np.savez(os.path.join(resume, "state.npz"), **arrays)
+            with open(os.path.join(resume, "state.json"), "w") as f:
+                json.dump(scalars, f, indent=2)
+
+    def restore_checkpoint(self, path: str, reset_steps: bool = False) -> int:
+        """The hypernet's parameters from ``path`` always; the optimizer
+        state, micro step and dropout generator too where ``path/resume``
+        exists and not ``reset_steps`` (``engine.py:877-923``). Returns the
+        micro step the run goes on from."""
+        with np.load(os.path.join(path, "params.npz")) as z:
+            params = {k: z[k] for k in z.files}
+        self.hypernet.load_state_dict(flax_to_torch(params), strict=True)
+        resume = os.path.join(path, "resume")
+        if os.path.isdir(resume) and not reset_steps:
+            with open(os.path.join(resume, "state.json")) as f:
+                scalars = json.load(f)
+            with np.load(os.path.join(resume, "state.npz")) as z:
+                arrays = {k: z[k] for k in z.files}
+            self.state.dropout_generator.set_state(
+                torch.from_numpy(arrays.pop("dropout_generator")))
+            self.optimizer.load_state(arrays, scalars)
+            self.state.step = int(scalars["step"])
+        return self.state.step

@@ -1,11 +1,14 @@
 """Training losses (counterpart of ``zett_tpu/training/losses.py``): the
-causal LM loss (with the eval's bits-per-byte term) and the lexical loss
-that anchors single-source-token predictions to the source embeddings.
-Chunked losses and the MLM loss are not ported."""
+causal LM loss (with the eval's bits-per-byte term), its chunked form that
+never holds the (B, L, V) logits, and the lexical loss that anchors
+single-source-token predictions to the source embeddings. The MLM losses
+are not ported."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import EPSILON
 
@@ -44,6 +47,65 @@ def lm_loss(logits, labels, attention_mask, loss_mode: str, byte_lengths=None,
     if loss_mode == "mlm":
         raise NotImplementedError("the MLM loss is not ported")
     raise ValueError(f"unknown loss mode {loss_mode}")
+
+
+def _clm_chunks(hidden, labels, attention_mask, chunk_size: int):
+    """The shifted CLM operands padded to whole chunks of positions
+    (``losses.py:25-35``): (h, y, m, [(start, end), ...]). h (B, L-1+pad,
+    H), y (B, L-1+pad) int64 labels clamped at 0, m (B, L-1+pad) f32."""
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size {chunk_size} must be positive")
+    L1 = hidden.shape[1] - 1
+    pad = (-L1) % chunk_size
+    h = F.pad(hidden[:, :-1], (0, 0, 0, pad))
+    y = F.pad(labels[:, 1:].long().clamp(min=0), (0, pad))
+    m = F.pad(attention_mask[:, :-1].float(), (0, pad))
+    bounds = [(s, s + chunk_size) for s in range(0, L1 + pad, chunk_size)]
+    return h, y, m, bounds
+
+
+def _chunk_ce(h_c, y_c, m_c, head_w, logit_offset):
+    """Masked per-position cross entropy of one chunk (B, C): logits in the
+    compute dtype, then f32 with the offset added (``losses.py:37-42``)."""
+    logits = (h_c @ head_w.t()).float() + logit_offset[None, None, :]
+    return _cross_entropy(logits, y_c) * m_c
+
+
+def _chunk_ce_sum(h_c, y_c, m_c, head_w, logit_offset):
+    return _chunk_ce(h_c, y_c, m_c, head_w, logit_offset).sum()
+
+
+def chunked_clm_loss(hidden, head_w, logit_offset, labels, attention_mask, chunk_size: int):
+    """The CLM loss from the final hidden states without the (B, L, V)
+    logits (``losses.py:12``): each chunk of ``chunk_size`` positions
+    computes its logits ``hidden @ head_w.T + logit_offset`` and its masked
+    cross-entropy sum under ``checkpoint``, so autograd keeps the chunk's
+    inputs and not its logits, and the backward recomputes them. Equal to
+    ``lm_loss(logits, ..., "clm")`` on the whole logits up to summation
+    order. hidden (B, L, H); head_w (V, H); logit_offset (V,) f32."""
+    h, y, m, bounds = _clm_chunks(hidden, labels, attention_mask, chunk_size)
+    w = head_w.to(h.dtype)
+    offset = logit_offset.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s, e in bounds:
+        total = total + checkpoint(_chunk_ce_sum, h[:, s:e], y[:, s:e], m[:, s:e], w, offset,
+                                   use_reentrant=False)
+    return total / torch.clamp(m.sum(), min=1.0)
+
+
+@torch.no_grad()
+def chunked_clm_eval(hidden, head_w, logit_offset, labels, attention_mask, byte_lengths,
+                     chunk_size: int):
+    """Forward-only chunked CLM eval (``losses.py:93``): (loss, mean
+    bits-per-byte term), as ``lm_loss(..., with_bpb=True)`` on the whole
+    logits, from per-sequence loss sums accumulated chunk by chunk."""
+    h, y, m, bounds = _clm_chunks(hidden, labels, attention_mask, chunk_size)
+    w = head_w.to(h.dtype)
+    offset = logit_offset.float()
+    per_seq = torch.zeros(hidden.shape[0], dtype=torch.float32, device=hidden.device)
+    for s, e in bounds:
+        per_seq = per_seq + _chunk_ce(h[:, s:e], y[:, s:e], m[:, s:e], w, offset).sum(-1)
+    return per_seq.sum() / m.sum(), _mean_bpb(per_seq, byte_lengths)
 
 
 HUBER_DELTA = 1e-3

@@ -1,7 +1,7 @@
 """The train state's scalar parts (counterpart of
 ``zett_tpu/training/state.py``): the micro-step count and the dropout
 generator. The parameters live in the Trainer's modules and the optimizer
-moments in its ``AdamW``."""
+state in its optimizer (``optimizer.AdamW`` or ``Adafactor``)."""
 
 from __future__ import annotations
 
