@@ -79,7 +79,7 @@ def test_plan_main_shapes():
 
 
 @pytest.mark.parametrize("dtype,L,H,h,I,error,match", [
-    (BF, 7, 770, 12, 1536, ValueError, "head width must be 64"),
+    (BF, 7, 770, 12, 1536, ValueError, "head width 770/12 heads is not one of"),
     (BF, 0, 768, 12, 1536, ValueError, "outside 1..32"),
     (BF, 33, 768, 12, 1536, ValueError, "outside 1..32"),
     (BF, 7, 64 * 17, 17, 1536, ValueError, "at most 16"),

@@ -148,13 +148,17 @@ def _hn_grads(trainer):
 @pytest.mark.parametrize("lever", [dict(remat_hypernet=True), dict(remat_backbone=True),
                                    dict(loss_chunk_size=4),
                                    dict(remat_hypernet=True, remat_backbone=True,
-                                        loss_chunk_size=5)],
-                         ids=["remat_hypernet", "remat_backbone", "chunked", "all"])
+                                        loss_chunk_size=5),
+                                   dict(remat_hypernet_glue=True),
+                                   dict(remat_hypernet=True, remat_hypernet_glue=True)],
+                         ids=["remat_hypernet", "remat_backbone", "chunked", "all", "glue",
+                              "remat_hypernet_glue"])
 def test_levers_match_the_plain_trainer_with_dropout_on(backbone, lever, monkeypatch):
     """Three train steps with hidden and attention dropout at 0.1
-    (run_backbone_in_training_mode): remat alone gives the plain trainer's
-    losses, gradients and parameters bit for bit (the recomputed forward
-    draws the same dropout seeds); with the chunked loss, losses within
+    (run_backbone_in_training_mode): remat alone, and the glue's op-by-op
+    remat with or without it, gives the plain trainer's losses, gradients
+    and parameters bit for bit (the recomputed forward draws the same
+    dropout seeds); with the chunked loss, losses within
     1e-6 relative and gradients within 1e-5 of each leaf's largest (or of
     1% of the model's largest, for leaves whose exact gradient is 0). Under
     remat_hypernet the attention core's forward (kernel 2 on the card) runs

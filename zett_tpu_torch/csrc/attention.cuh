@@ -1,5 +1,6 @@
 // Masked per-head softmax attention over very short rows (the hypernet's
-// surface forms: at most 32 query and 32 key positions, head width 64).
+// surface forms: at most 32 query and 32 key positions, head width D = 64 or
+// 128: every function below is a template on D, one code for both).
 //
 // Shared by encoder_layer.cu (kernel 1, the attention inside a whole encoder
 // layer), attention_core.cu (kernel 2, the tier-4 core), attention_block.cu
@@ -23,7 +24,10 @@
 // (where two fit in shared memory), so the loads never wait on the
 // products. Each warp computes its head's S = Q K^T and
 // O = P V with mma.sync m16n8k16 (bf16 in, f32 accumulate): queries padded
-// to m16 tiles, keys to n8 tiles, the depth of 64 in four k16 steps. The
+// to m16 tiles, keys to n8 tiles, the depth of D in D/16 k16 steps, and PV
+// produces its D output columns 32 at a time (so the accumulators a lane
+// holds do not grow with D: at D = 128 a row's 16 heads stage 86 KB, two
+// buffers 172 KB, one CTA an SM). The
 // rounding, the division by sqrt(d), the key bias, the mask select, the
 // softmax (max and sum over the lane quad that holds a query's keys) and the
 // dropout act on the accumulator fragments in registers, each lane knowing
@@ -67,13 +71,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace zt {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 64;
+constexpr int kHeadDim = 64;  // kernels 4 and 5, and kernel 1's fused route
 constexpr int kAttnWarps = 4;
-constexpr int kRowPad = kHeadDim + 1;  // 65: conflict-free column reads
+// the f32 path's staged rows: D + 1 floats, conflict-free column reads
+__host__ __device__ constexpr int row_pad(int D) { return D + 1; }
 
 template <typename T> struct Num;
 
@@ -94,9 +101,9 @@ template <> struct Num<__nv_bfloat16> {
   static __device__ __forceinline__ float lowest() { return -3.38953139e38f; }
 };
 
-// Strides are in elements of T. A head's 64 values sit at offset head*64 of
-// a position's row, in both layouts this code serves: (B, L, h*64) and the
-// position-major merged (B, L*h, 64).
+// Strides are in elements of T. A head's D values sit at offset head*D of
+// a position's row, in both layouts this code serves: (B, L, h*D) and the
+// position-major merged (B, L*h, D).
 struct AttnArgs {
   const void* q;
   const void* k;
@@ -178,39 +185,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------------------ f32: scalar path
-__host__ __device__ inline int attn_smem_floats_per_warp(int Lq, int Lk) {
-  return (Lq + 2 * Lk) * kRowPad + Lq * (Lk + 1);
+__host__ __device__ inline int attn_smem_floats_per_warp(int Lq, int Lk, int D) {
+  return (Lq + 2 * Lk) * row_pad(D) + Lq * (Lk + 1);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) {
+  constexpr int kRowPad = row_pad(D), kC = D / 32;  // kC: a lane's columns
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long pair = (long long)blockIdx.x * kAttnWarps + warp;
+  const long long pair = (long long)blockIdx.x * (blockDim.x / 32) + warp;
   if (pair >= (long long)a.B * a.h) return;  // whole warp leaves together
   const int b = (int)(pair / a.h);
   const int hd = (int)(pair % a.h);
   const int Lq = a.Lq, Lk = a.Lk;
 
-  float* sq = smem + (size_t)warp * attn_smem_floats_per_warp(Lq, Lk);
+  float* sq = smem + (size_t)warp * attn_smem_floats_per_warp(Lq, Lk, D);
   float* sk = sq + Lq * kRowPad;
   float* sv = sk + Lk * kRowPad;
   float* sp = sv + Lk * kRowPad;  // [Lq][Lk + 1]
 
-  const T* qb = (const T*)a.q + b * a.q_sb + hd * kHeadDim;
-  const T* kb = (const T*)a.k + b * a.k_sb + hd * kHeadDim;
-  const T* vb = (const T*)a.v + b * a.v_sb + hd * kHeadDim;
-  for (int i = 0; i < Lq; ++i) {
-    sq[i * kRowPad + lane] = Num<T>::to_f(qb[i * a.q_sl + lane]);
-    sq[i * kRowPad + lane + 32] = Num<T>::to_f(qb[i * a.q_sl + lane + 32]);
-  }
-  for (int j = 0; j < Lk; ++j) {
-    sk[j * kRowPad + lane] = Num<T>::to_f(kb[j * a.k_sl + lane]);
-    sk[j * kRowPad + lane + 32] = Num<T>::to_f(kb[j * a.k_sl + lane + 32]);
-    sv[j * kRowPad + lane] = Num<T>::to_f(vb[j * a.v_sl + lane]);
-    sv[j * kRowPad + lane + 32] = Num<T>::to_f(vb[j * a.v_sl + lane + 32]);
-  }
+  const T* qb = (const T*)a.q + b * a.q_sb + hd * D;
+  const T* kb = (const T*)a.k + b * a.k_sb + hd * D;
+  const T* vb = (const T*)a.v + b * a.v_sb + hd * D;
+  for (int i = 0; i < Lq; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      sq[i * kRowPad + lane + 32 * c] = Num<T>::to_f(qb[i * a.q_sl + lane + 32 * c]);
+  for (int j = 0; j < Lk; ++j)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      sk[j * kRowPad + lane + 32 * c] = Num<T>::to_f(kb[j * a.k_sl + lane + 32 * c]);
+      sv[j * kRowPad + lane + 32 * c] = Num<T>::to_f(vb[j * a.v_sl + lane + 32 * c]);
+    }
   const bool key_ok =
       lane < Lk && (a.mask == nullptr || a.mask[b * a.m_sb + lane * a.m_sl + hd * a.m_sh] > 0.0f);
   const unsigned valid = __ballot_sync(0xffffffffu, key_ok);
@@ -225,31 +233,33 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
       // each merged weight has its own keep bit, so every query differs
       const float wd = Num<T>::round(w / a.keep_div);
       for (int i = 0; i < Lq; ++i)
-        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
           const int dim = lane + 32 * c;
           float acc = 0.0f;
           for (int j = 0; j < Lk; ++j)
             for (int hh = 0; hh < a.h; ++hh)
               if (dropout_keep(a.seed, a.keep_threshold, b, i * a.h + hd, j * a.h + hh))
-                acc += wd * Num<T>::to_f(vrow[j * a.v_sl + hh * kHeadDim + dim]);
-          ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * kHeadDim + dim] = Num<T>::from_f(acc);
+                acc += wd * Num<T>::to_f(vrow[j * a.v_sl + hh * D + dim]);
+          ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * D + dim] = Num<T>::from_f(acc);
         }
       return;
     }
-    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
       const int dim = lane + 32 * c;
       float acc = 0.0f;
       for (int j = 0; j < Lk; ++j)
         for (int hh = 0; hh < a.h; ++hh)
-          acc += w * Num<T>::to_f(vrow[j * a.v_sl + hh * kHeadDim + dim]);
+          acc += w * Num<T>::to_f(vrow[j * a.v_sl + hh * D + dim]);
       const T o = Num<T>::from_f(acc);
       for (int i = 0; i < Lq; ++i)
-        ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * kHeadDim + dim] = o;
+        ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * D + dim] = o;
     }
     return;
   }
 
-  const float sqrt_d = sqrtf((float)kHeadDim);
+  const float sqrt_d = sqrtf((float)D);
   const float lowest = Num<T>::lowest();
   const T* kbias = a.kbias ? (const T*)a.kbias + b * a.kb_sb + hd * a.kb_sh : nullptr;
   for (int idx = lane; idx < Lq * Lk; idx += 32) {
@@ -257,7 +267,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
     const int j = idx % Lk;
     float acc = 0.0f;
 #pragma unroll 16
-    for (int t = 0; t < kHeadDim; ++t) acc = fmaf(sq[i * kRowPad + t], sk[j * kRowPad + t], acc);
+    for (int t = 0; t < D; ++t) acc = fmaf(sq[i * kRowPad + t], sk[j * kRowPad + t], acc);
     float s = Num<T>::round(Num<T>::round(acc) / sqrt_d);
     if (kbias) s = Num<T>::round(s + Num<T>::to_f(kbias[j * a.kb_sl]));
     sp[i * (Lk + 1) + j] = ((valid >> j) & 1u) ? s : lowest;
@@ -289,45 +299,51 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
   }
   for (int i = 0; i < Lq; ++i) {
     const float* row = sp + i * (Lk + 1);
-    float acc0 = 0.0f, acc1 = 0.0f;
-    for (int j = 0; j < Lk; ++j) {
-      acc0 = fmaf(row[j], sv[j * kRowPad + lane], acc0);
-      acc1 = fmaf(row[j], sv[j * kRowPad + lane + 32], acc1);
-    }
-    T* ob = (T*)a.out + b * a.o_sb + i * a.o_sl + hd * kHeadDim;
-    ob[lane] = Num<T>::from_f(acc0);
-    ob[lane + 32] = Num<T>::from_f(acc1);
+    float acc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
+    for (int j = 0; j < Lk; ++j)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = fmaf(row[j], sv[j * kRowPad + lane + 32 * c], acc[c]);
+    T* ob = (T*)a.out + b * a.o_sb + i * a.o_sl + hd * D;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) ob[lane + 32 * c] = Num<T>::from_f(acc[c]);
   }
 }
 
 // ------------------------------------------------- bf16: tensor-core path
 constexpr int kMaxHeads = 16;     // warps of a CTA, one per head
-constexpr int kZeroBytes = 128;   // the zero row every padded row reads
 constexpr int kAttnSmemMax = 232448;
 
+// the zero row every padded row reads at head width D: ldmatrix reads up
+// to D columns of it
+__host__ __device__ constexpr int zero_bytes(int D) { return 2 * D; }
+
 // Shared memory of a CTA: the zero row, the per-warp partial sums of the
-// all-padding mean (float2 a lane), and nbuf buffers of one staged row: its
-// q, k and v positions, each h*64 + 8 bf16 wide (the 16-byte pad makes
+// all-padding mean (D/64 float2 a lane), and nbuf buffers of one staged row:
+// its q, k and v positions, each h*D + 8 bf16 wide (the 16-byte pad makes
 // ldmatrix conflict-free).
-__host__ __device__ inline int attn_row_stride(int h) { return h * kHeadDim + 8; }
-__host__ __device__ inline int attn_row_elems(int Lq, int Lk, int h) {
-  return (Lq + 2 * Lk) * attn_row_stride(h);
+__host__ __device__ inline int attn_row_stride(int h, int D) { return h * D + 8; }
+__host__ __device__ inline int attn_row_elems(int Lq, int Lk, int h, int D) {
+  return (Lq + 2 * Lk) * attn_row_stride(h, D);
 }
-__host__ __device__ inline int attn_mma_smem(int Lq, int Lk, int h, int nbuf) {
-  return kZeroBytes + h * 32 * 8 + 2 * nbuf * attn_row_elems(Lq, Lk, h);
+__host__ __device__ inline int attn_part_bytes(int h, int D) { return h * 32 * 8 * (D / 64); }
+__host__ __device__ inline int attn_mma_smem(int Lq, int Lk, int h, int nbuf, int D) {
+  return zero_bytes(D) + attn_part_bytes(h, D) + 2 * nbuf * attn_row_elems(Lq, Lk, h, D);
 }
 
 // Start the 16-byte cp.async loads of row b (every position's h heads) into
-// the buffer at sq. A CTA has h*32 threads and a position h*8 chunks, so
-// thread t copies chunk t % (8h) of positions t / (8h), + 4, + 8, ...
+// the buffer at sq. A CTA has h*32 threads and a position h*D/8 chunks, so
+// thread t copies chunk t % (hD/8) of positions t / (hD/8), + 256/D, ...
+template <int D>
 __device__ __forceinline__ void stage_row(const AttnArgs& a, int b, bf16* sq, int RS) {
   const int Lq = a.Lq, Lk = a.Lk;
-  const int cpr = a.h * 8;  // chunks of a position
+  const int cpr = a.h * (D / 8);  // chunks of a position
   const int ch = (threadIdx.x % cpr) * 8;
   const bf16* qb = (const bf16*)a.q + b * a.q_sb + ch;
   const bf16* kb = (const bf16*)a.k + b * a.k_sb + ch;
   const bf16* vb = (const bf16*)a.v + b * a.v_sb + ch;
-  for (int r = threadIdx.x / cpr; r < Lq + 2 * Lk; r += 4) {
+  for (int r = threadIdx.x / cpr; r < Lq + 2 * Lk; r += 256 / D) {
     const bf16* src = r < Lq ? qb + r * a.q_sl
                              : (r < Lq + Lk ? kb + (r - Lq) * a.k_sl : vb + (r - Lq - Lk) * a.v_sl);
     cp_async16(sq + r * RS + ch, src);  // q, k, v positions lie back to back
@@ -337,11 +353,12 @@ __device__ __forceinline__ void stage_row(const AttnArgs& a, int b, bf16* sq, in
 
 // Rows [0, Lq) of this warp's head of the output from its staged slice so
 // (row stride RS), with coalesced 16-byte stores.
+template <int D>
 __device__ __forceinline__ void store_head(const bf16* so, int RS, int Lq, bf16* dst,
                                            long long o_sl, int lane) {
   __syncwarp();
-  for (int c = lane; c < Lq * 8; c += 32) {
-    const int r = c >> 3, ch = (c & 7) * 8;
+  for (int c = lane; c < Lq * (D / 8); c += 32) {
+    const int r = c / (D / 8), ch = (c % (D / 8)) * 8;
     *reinterpret_cast<uint4*>(dst + r * o_sl + ch) =
         *reinterpret_cast<const uint4*>(so + r * RS + ch);
   }
@@ -352,7 +369,7 @@ __device__ __forceinline__ void store_head(const bf16* so, int RS, int Lq, bf16*
 // row stride RS (elements). Its Lq context rows go to dst (row stride
 // o_sl), staged through hq. a supplies the key bias and dropout (kernels 2,
 // 4 and 5) and h; kernel 1's fused [q|k|v] epilogue passes neither.
-template <int MQ, int NK8>
+template <int MQ, int NK8, int D = kHeadDim>
 __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd, int Lq, int Lk,
                                                bf16* hq, const bf16* hk, const bf16* hv, int RS,
                                                const bf16* zero, unsigned valid, bf16* dst,
@@ -360,7 +377,7 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
   constexpr int MK = (NK8 + 1) / 2;  // k16 steps of PV over the keys
   const int h = a.h, lane = threadIdx.x % 32;
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
-  // S = Q K^T over d = 64
+  // S = Q K^T over d = D
   float sacc[MQ][NK8][4];
 #pragma unroll
   for (int mt = 0; mt < MQ; ++mt)
@@ -369,7 +386,7 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[mt][nt][e] = 0.0f;
 #pragma unroll
-  for (int hk2 = 0; hk2 < 2; ++hk2) {  // d in [32 hk2, 32 hk2 + 32): two k16 steps
+  for (int hk2 = 0; hk2 < D / 32; ++hk2) {  // d in [32 hk2, 32 hk2 + 32): two k16 steps
     uint32_t bk[NK8][4];
 #pragma unroll
     for (int nt = 0; nt < NK8; ++nt) {
@@ -402,7 +419,7 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
                                                                 hd * a.kb_sh])
                        : 0.0f;
     }
-  const float sqrt_d = sqrtf((float)kHeadDim);
+  const float sqrt_d = sqrtf((float)D);
   const float lowest = Num<bf16>::lowest();
 #pragma unroll
   for (int mt = 0; mt < MQ; ++mt)
@@ -465,7 +482,7 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
                                              : 0u;
       }
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {  // 32 of the 64 output columns at a time
+  for (int half = 0; half < D / 32; ++half) {  // 32 of the D output columns at a time
     float acc[MQ][4][4];
 #pragma unroll
     for (int mt = 0; mt < MQ; ++mt)
@@ -500,14 +517,14 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
                 pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
       }
   }
-  store_head(hq, RS, Lq, dst, o_sl, lane);
+  store_head<D>(hq, RS, Lq, dst, o_sl, lane);
 }
 
 // One staged row b (buffer sq) through this warp's head hd: valid holds the
 // head's valid keys, any_padding whether some head of the row has none.
 // MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
 // keys (Lk <= 8 * NK8).
-template <int MQ, int NK8>
+template <int MQ, int NK8, int D>
 __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq, int RS,
                                               const bf16* zero, float2* part, unsigned valid,
                                               int any_padding) {
@@ -517,33 +534,41 @@ __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq
   const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
-  bf16* hq = sq + hd * kHeadDim;  // this head's slices; hq stages the output
-  const bf16* hk = sk + hd * kHeadDim;
-  const bf16* hv = sv + hd * kHeadDim;
-  bf16* dst = (bf16*)a.out + b * a.o_sb + hd * kHeadDim;
+  bf16* hq = sq + hd * D;  // this head's slices; hq stages the output
+  const bf16* hk = sk + hd * D;
+  const bf16* hv = sv + hd * D;
+  bf16* dst = (bf16*)a.out + b * a.o_sb + hd * D;
   const float w_uniform = Num<bf16>::round(1.0f / (float)(Lk * h));
 
   if (any_padding && !a.dropout) {
     // uniform weights over all Lk*h merged value rows: the row's sum, once
-    // (warp w sums head w's slice over the positions, lane t dims 2t, 2t+1)
-    float2 acc = make_float2(0.0f, 0.0f);
-    for (int j = 0; j < Lk; ++j) {
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 2 * lane));
-      acc.x += v.x;
-      acc.y += v.y;
+    // (warp w sums head w's slice over the positions, lane t dims 2t + 64c,
+    // 2t + 64c + 1 for c < D/64)
+    constexpr int kP = D / 64;
+#pragma unroll
+    for (int c = 0; c < kP; ++c) {
+      float2 acc = make_float2(0.0f, 0.0f);
+      for (int j = 0; j < Lk; ++j) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 64 * c + 2 * lane));
+        acc.x += v.x;
+        acc.y += v.y;
+      }
+      part[(hd * kP + c) * 32 + lane] = acc;
     }
-    part[hd * 32 + lane] = acc;
     __syncthreads();
     if (valid == 0u) {
-      float2 tot = make_float2(0.0f, 0.0f);
-      for (int w = 0; w < h; ++w) {
-        tot.x += part[w * 32 + lane].x;
-        tot.y += part[w * 32 + lane].y;
+#pragma unroll
+      for (int c = 0; c < kP; ++c) {
+        float2 tot = make_float2(0.0f, 0.0f);
+        for (int w = 0; w < h; ++w) {
+          tot.x += part[(w * kP + c) * 32 + lane].x;
+          tot.y += part[(w * kP + c) * 32 + lane].y;
+        }
+        const uint32_t o = pack_bf16(tot.x * w_uniform, tot.y * w_uniform);
+        for (int i = 0; i < Lq; ++i)
+          *reinterpret_cast<uint32_t*>(dst + i * a.o_sl + 64 * c + 2 * lane) = o;
       }
-      const uint32_t o = pack_bf16(tot.x * w_uniform, tot.y * w_uniform);
-      for (int i = 0; i < Lq; ++i)
-        *reinterpret_cast<uint32_t*>(dst + i * a.o_sl + 2 * lane) = o;
       return;
     }
   }
@@ -551,63 +576,66 @@ __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq
   if (valid == 0u) {
     // dropout on a head with no valid key: its queries' dropped uniform
     // weights over all Lk*h merged keys, built as A fragments in registers
-    // (entry (i, kk) kept by its own Philox word), times the merged V rows
+    // (entry (i, kk) kept by its own Philox word), times the merged V rows;
+    // 64 output columns at a time (at D = 128 the fragments are drawn twice)
     const int Lkh = Lk * h;
     const float wd = Num<bf16>::round(w_uniform / a.keep_div);
-    float acc[MQ][8][4];
-#pragma unroll
-    for (int mt = 0; mt < MQ; ++mt)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
-    for (int ks = 0; ks < (Lkh + 15) / 16; ++ks) {
-      uint32_t af[MQ][4];
+    for (int c64 = 0; c64 < D; c64 += 64) {
+      float acc[MQ][8][4];
 #pragma unroll
       for (int mt = 0; mt < MQ; ++mt)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int kh = 0; kh < 2; ++kh) {
-            const int i = 16 * mt + g + 8 * r, kk = 16 * ks + 8 * kh + 2 * q4;
-            float e[2];
+          for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.0f;
+      for (int ks = 0; ks < (Lkh + 15) / 16; ++ks) {
+        uint32_t af[MQ][4];
 #pragma unroll
-            for (int t = 0; t < 2; ++t)
-              e[t] = (i < Lq && kk + t < Lkh &&
-                      dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
-                         ? wd
-                         : 0.0f;
-            af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);
+        for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int kh = 0; kh < 2; ++kh) {
+              const int i = 16 * mt + g + 8 * r, kk = 16 * ks + 8 * kh + 2 * q4;
+              float e[2];
+#pragma unroll
+              for (int t = 0; t < 2; ++t)
+                e[t] = (i < Lq && kk + t < Lkh &&
+                        dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
+                           ? wd
+                           : 0.0f;
+              af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);
+            }
+        const int kk = 16 * ks + lr + 8 * (mat & 1);
+        const bf16* vrow = kk < Lkh ? sv + (kk / h) * RS + (kk % h) * D + c64 : zero;
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {  // 16 of the 64 output columns at a time
+          uint32_t bf[4];
+          ldsm_x4_t(bf, saddr(vrow + 16 * pp + 8 * (mat >> 1)));
+#pragma unroll
+          for (int mt = 0; mt < MQ; ++mt) {
+            mma16816(acc[mt][2 * pp], af[mt], bf[0], bf[1]);
+            mma16816(acc[mt][2 * pp + 1], af[mt], bf[2], bf[3]);
           }
-      const int kk = 16 * ks + lr + 8 * (mat & 1);
-      const bf16* vrow = kk < Lkh ? sv + (kk / h) * RS + (kk % h) * kHeadDim : zero;
-#pragma unroll
-      for (int pp = 0; pp < 4; ++pp) {  // 16 of the 64 output columns at a time
-        uint32_t bf[4];
-        ldsm_x4_t(bf, saddr(vrow + 16 * pp + 8 * (mat >> 1)));
-#pragma unroll
-        for (int mt = 0; mt < MQ; ++mt) {
-          mma16816(acc[mt][2 * pp], af[mt], bf[0], bf[1]);
-          mma16816(acc[mt][2 * pp + 1], af[mt], bf[2], bf[3]);
         }
       }
+#pragma unroll
+      for (int mt = 0; mt < MQ; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 16 * mt + g + 8 * r;
+          if (i < Lq)
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+              *reinterpret_cast<uint32_t*>(hq + i * RS + c64 + 8 * n + 2 * q4) =
+                  pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
+        }
     }
-#pragma unroll
-    for (int mt = 0; mt < MQ; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = 16 * mt + g + 8 * r;
-        if (i < Lq)
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-            *reinterpret_cast<uint32_t*>(hq + i * RS + 8 * n + 2 * q4) =
-                pack_bf16(acc[mt][n][2 * r], acc[mt][n][2 * r + 1]);
-      }
-    store_head(hq, RS, Lq, dst, a.o_sl, lane);
+    store_head<D>(hq, RS, Lq, dst, a.o_sl, lane);
     return;
   }
 
-  attention_head<MQ, NK8>(a, b, hd, Lq, Lk, hq, hk, hv, RS, zero, valid, dst, a.o_sl);
+  attention_head<MQ, NK8, D>(a, b, hd, Lq, Lk, hq, hk, hv, RS, zero, valid, dst, a.o_sl);
 }
 
 // Whether key `lane` of head hd in row b is valid (lanes past Lk: no).
@@ -620,21 +648,23 @@ __device__ __forceinline__ bool key_valid(const AttnArgs& a, int b, int hd, int 
 // buffers (nbuf == 2) the next row's loads (and its key mask) are in flight
 // while this one is computed, and one barrier a row both publishes the row
 // and frees the other buffer.
-template <int MQ, int NK8>
-__global__ void __launch_bounds__(kMaxHeads * 32, (MQ == 1 && NK8 <= 2) ? 2 : 1)
+// Two CTAs an SM (64 registers a thread) only where two fit: D = 64 and
+// short keys.
+template <int MQ, int NK8, int D>
+__global__ void __launch_bounds__(kMaxHeads * 32, (D == 64 && MQ == 1 && NK8 <= 2) ? 2 : 1)
 attention_mma_kernel(AttnArgs a, int nbuf) {
   extern __shared__ __align__(16) uint8_t attn_smem[];
-  const int RS = attn_row_stride(a.h);
-  const int row_elems = attn_row_elems(a.Lq, a.Lk, a.h);
+  const int RS = attn_row_stride(a.h, D);
+  const int row_elems = attn_row_elems(a.Lq, a.Lk, a.h, D);
   bf16* zero = reinterpret_cast<bf16*>(attn_smem);
-  float2* part = reinterpret_cast<float2*>(attn_smem + kZeroBytes);  // [h][32]
-  bf16* rows = reinterpret_cast<bf16*>(attn_smem + kZeroBytes + a.h * 32 * 8);
+  float2* part = reinterpret_cast<float2*>(attn_smem + zero_bytes(D));  // [h][D/64][32]
+  bf16* rows =
+      reinterpret_cast<bf16*>(attn_smem + zero_bytes(D) + attn_part_bytes(a.h, D));
   const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = threadIdx.x; t < kZeroBytes / 2; t += blockDim.x)
-    zero[t] = __float2bfloat16_rn(0.0f);
+  for (int t = threadIdx.x; t < D; t += blockDim.x) zero[t] = __float2bfloat16_rn(0.0f);
   bool ok_next = false;
   if (blockIdx.x < a.B) {
-    stage_row(a, blockIdx.x, rows, RS);
+    stage_row<D>(a, blockIdx.x, rows, RS);
     ok_next = key_valid(a, blockIdx.x, hd, lane);
   }
   int it = 0;
@@ -646,85 +676,103 @@ attention_mma_kernel(AttnArgs a, int nbuf) {
     const int any_padding = __syncthreads_or(valid == 0u);
     const int nb = b + gridDim.x;
     if (nbuf == 2 && nb < a.B) {
-      stage_row(a, nb, rows + ((it + 1) & 1) * row_elems, RS);
+      stage_row<D>(a, nb, rows + ((it + 1) & 1) * row_elems, RS);
       ok_next = key_valid(a, nb, hd, lane);
     }
-    attention_row<MQ, NK8>(a, b, rows + (nbuf == 2 ? (it & 1) * row_elems : 0), RS, zero, part,
+    attention_row<MQ, NK8, D>(a, b, rows + (nbuf == 2 ? (it & 1) * row_elems : 0), RS, zero, part,
                            valid, any_padding);
     if (nbuf == 1 && nb < a.B) {
       __syncthreads();  // row b's buffer is free
-      stage_row(a, nb, rows, RS);
+      stage_row<D>(a, nb, rows, RS);
       ok_next = key_valid(a, nb, hd, lane);
     }
   }
 }
 
-template <int MQ, int NK8>
+template <int MQ, int NK8, int D>
 cudaError_t launch_attention_mma(const AttnArgs& a, cudaStream_t stream) {
-  const int nbuf = attn_mma_smem(a.Lq, a.Lk, a.h, 2) <= kAttnSmemMax ? 2 : 1;
-  const int smem = attn_mma_smem(a.Lq, a.Lk, a.h, nbuf);
+  const int nbuf = attn_mma_smem(a.Lq, a.Lk, a.h, 2, D) <= kAttnSmemMax ? 2 : 1;
+  const int smem = attn_mma_smem(a.Lq, a.Lk, a.h, nbuf, D);
   const int threads = a.h * 32;
-  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<MQ, NK8>,
+  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<MQ, NK8, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attention_mma_kernel<MQ, NK8>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attention_mma_kernel<MQ, NK8, D>,
                                                         threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;
   const long long grid = (long long)sms * per_sm < a.B ? (long long)sms * per_sm : a.B;
-  attention_mma_kernel<MQ, NK8><<<(unsigned)grid, threads, smem, stream>>>(a, nbuf);
+  attention_mma_kernel<MQ, NK8, D><<<(unsigned)grid, threads, smem, stream>>>(a, nbuf);
   return cudaGetLastError();
 }
 
 // bf16 operands: position rows and the output 16-byte aligned (the wrappers'
 // layouts are); h <= 16 and the staged row within the SM's shared memory.
+template <int D>
 inline cudaError_t launch_attention_bf16(const AttnArgs& a, cudaStream_t s) {
   if (a.B <= 0) return cudaSuccess;
-  if (a.h < 1 || a.h > kMaxHeads || attn_mma_smem(a.Lq, a.Lk, a.h, 1) > kAttnSmemMax)
+  if (a.h < 1 || a.h > kMaxHeads || attn_mma_smem(a.Lq, a.Lk, a.h, 1, D) > kAttnSmemMax)
     return cudaErrorInvalidValue;
   const int mq = (a.Lq + 15) / 16, nk = (a.Lk + 7) / 8;
   if (mq == 1) {
     switch (nk) {
-      case 1: return launch_attention_mma<1, 1>(a, s);
-      case 2: return launch_attention_mma<1, 2>(a, s);
-      case 3: return launch_attention_mma<1, 3>(a, s);
-      case 4: return launch_attention_mma<1, 4>(a, s);
+      case 1: return launch_attention_mma<1, 1, D>(a, s);
+      case 2: return launch_attention_mma<1, 2, D>(a, s);
+      case 3: return launch_attention_mma<1, 3, D>(a, s);
+      case 4: return launch_attention_mma<1, 4, D>(a, s);
     }
   } else if (mq == 2) {
     switch (nk) {
-      case 1: return launch_attention_mma<2, 1>(a, s);
-      case 2: return launch_attention_mma<2, 2>(a, s);
-      case 3: return launch_attention_mma<2, 3>(a, s);
-      case 4: return launch_attention_mma<2, 4>(a, s);
+      case 1: return launch_attention_mma<2, 1, D>(a, s);
+      case 2: return launch_attention_mma<2, 2, D>(a, s);
+      case 3: return launch_attention_mma<2, 3, D>(a, s);
+      case 4: return launch_attention_mma<2, 4, D>(a, s);
     }
   }
   return cudaErrorInvalidValue;  // Lq, Lk outside 1..32
 }
 
+// Warps of an f32 block: kAttnWarps, or as many as the SM's shared memory
+// holds (long rows at D = 128).
+__host__ __device__ inline int f32_warps(size_t bytes_per_warp) {
+  const size_t fit = (size_t)kAttnSmemMax / bytes_per_warp;
+  return fit < (size_t)kAttnWarps ? (int)fit : kAttnWarps;
+}
+
+template <int D>
 inline cudaError_t launch_attention_f32(const AttnArgs& a, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)kAttnWarps * attn_smem_floats_per_warp(a.Lq, a.Lk);
+  const size_t per_warp = sizeof(float) * (size_t)attn_smem_floats_per_warp(a.Lq, a.Lk, D);
+  const int warps = f32_warps(per_warp);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long pairs = (long long)a.B * a.h;
-  const unsigned grid = (unsigned)((pairs + kAttnWarps - 1) / kAttnWarps);
-  attention_kernel<float><<<grid, kAttnWarps * 32, smem, stream>>>(a);
+  const unsigned grid = (unsigned)((pairs + warps - 1) / warps);
+  attention_kernel<float, D><<<grid, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_attention(const AttnArgs& a, cudaStream_t stream);
-template <>
-inline cudaError_t launch_attention<float>(const AttnArgs& a, cudaStream_t stream) {
-  return launch_attention_f32(a, stream);
+// At head width D (kernels 4 and 5 take the default, 64).
+template <typename T, int D = kHeadDim>
+inline cudaError_t launch_attention(const AttnArgs& a, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) return launch_attention_f32<D>(a, stream);
+  else return launch_attention_bf16<D>(a, stream);
 }
-template <>
-inline cudaError_t launch_attention<bf16>(const AttnArgs& a, cudaStream_t stream) {
-  return launch_attention_bf16(a, stream);
+
+// At a head width chosen at run time: 64 or 128 (kernel 2; kernel 1's
+// seven-launch routes).
+template <typename T>
+inline cudaError_t launch_attention_d(const AttnArgs& a, int d, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch_attention<T, 64>(a, stream);
+    case 128: return launch_attention<T, 128>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace zt

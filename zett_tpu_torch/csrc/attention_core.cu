@@ -10,10 +10,10 @@
 // is kernel 3 (attention_core_bwd.cu), which regenerates the same keep mask
 // (attention.cuh's header note).
 //
-// Inputs are position-major merged: qm (B, Lq*h, 64), km/vm (B, Lk*h, 64),
-// index = position*h + head, and kmaskf (B, Lk*h) f32. That memory is the
-// plain (B, L, h*64) layout, so the per-head core of attention.cuh reads it
-// with a head offset and no relayout.
+// Inputs are position-major merged: qm (B, Lq*h, d), km/vm (B, Lk*h, d),
+// index = position*h + head, head width d = 64 or 128, and kmaskf (B, Lk*h)
+// f32. That memory is the plain (B, L, h*d) layout, so the per-head core of
+// attention.cuh reads it with a head offset and no relayout.
 //
 // What bounds it on an H100: at the transfer's shapes (B = 16384, Lq*h =
 // 12, Lk*h = 84, bf16) it does ~2*B*h*Lk*64*2 = 0.35 GFLOP against ~0.40 GB
@@ -24,14 +24,20 @@
 // attention.cuh's tensor-core kernel (one warp a head of a row,
 // mma.sync m16n8k16 for both products, softmax and dropout in registers);
 // f32 its scalar path.
+//
+// At d = 128 (the Llama family's hypernets: TinyLlama's 16 heads of 128)
+// the same code runs with the depth of S in eight k16 steps and PV's 128
+// output columns in four passes of 32, so a lane's accumulators do not
+// grow; the operands move twice the bytes (at B = 32896, L 7, 16 heads:
+// ~3.8 GB, >= 1.13 ms) and a row's staging takes 86 KB, so one CTA an SM.
 #include "attention.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. dropout != 0 drops weights whose Philox
-// bits are >= keep_threshold and divides the others by keep_div (1 - rate
-// in T). Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. dropout != 0
+// drops weights whose Philox bits are >= keep_threshold and divides the
+// others by keep_div (1 - rate in T). Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, const void* vm,
                                  const float* kmaskf, void* out, int B, int Lq, int Lk, int h,
-                                 int dropout, unsigned int seed, unsigned int keep_threshold,
+                                 int d, int dropout, unsigned int seed, unsigned int keep_threshold,
                                  float keep_div, void* stream) {
   zt::AttnArgs a;
   a.q = qm;
@@ -43,9 +49,9 @@ extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, cons
   a.Lq = Lq;
   a.Lk = Lk;
   a.h = h;
-  a.q_sb = a.o_sb = (long long)Lq * h * zt::kHeadDim;
-  a.k_sb = a.v_sb = (long long)Lk * h * zt::kHeadDim;
-  a.q_sl = a.k_sl = a.v_sl = a.o_sl = (long long)h * zt::kHeadDim;
+  a.q_sb = a.o_sb = (long long)Lq * h * d;
+  a.k_sb = a.v_sb = (long long)Lk * h * d;
+  a.q_sl = a.k_sl = a.v_sl = a.o_sl = (long long)h * d;
   a.m_sb = (long long)Lk * h;
   a.m_sl = h;
   a.m_sh = 1;
@@ -54,6 +60,6 @@ extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, cons
   a.keep_threshold = keep_threshold;
   a.keep_div = keep_div;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return (int)zt::launch_attention<__nv_bfloat16>(a, s);
-  return (int)zt::launch_attention<float>(a, s);
+  if (dtype == 1) return (int)zt::launch_attention_d<__nv_bfloat16>(a, d, s);
+  return (int)zt::launch_attention_d<float>(a, d, s);
 }

@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel zett_tpu/ops/pallas_attention.py
 // _core_train_bwd_kernel / _core_train_bwd_pallas (:254, :369), the backward
-// of merged_attention_train. Operands are kernel 2's: qm (B, Lq*h, 64),
-// km/vm (B, Lk*h, 64) position-major merged, kmaskf (B, Lk*h) f32, plus
-// dout (B, Lq*h, 64); it writes dqm, dkm, dvm of the operands' shapes.
+// of merged_attention_train. Operands are kernel 2's: qm (B, Lq*h, d),
+// km/vm (B, Lk*h, d) position-major merged, kmaskf (B, Lk*h) f32, plus
+// dout (B, Lq*h, d); it writes dqm, dkm, dvm of the operands' shapes. The
+// head width d is a template parameter, D = 64 or 128.
 //
 // Per (row, head) pair it recomputes the forward's weights exactly as the
 // forward does (attention.cuh), regenerates the keep mask from the same
@@ -37,9 +38,12 @@
 // rows in shared memory as bf16 with 16-byte cp.async loads, in 144-byte
 // rows (conflict-free ldmatrix); rows past Lq or Lk are never stored: their
 // ldmatrix addresses point at one zero row. S = Q K^T and dP = dO V^T run
-// over d = 64 with Lq padded to 16 and Lk to 8; the softmax, the select to
+// over d = D with Lq padded to 16 and Lk to 8; the softmax, the select to
 // lowest, the Philox mask and the roundings act on the accumulator
-// fragments, each lane knowing its (i, j). ds and wd, rounded to T (so the
+// fragments, each lane knowing its (i, j). (At D = 128 the two depth loops
+// take eight k16 steps and each output product runs four passes of 32
+// columns, so a lane holds no more accumulators than at 64; a warp's
+// staged rows take 272 bytes, so ten warps a block.) ds and wd, rounded to T (so the
 // products see the values the scalar form multiplies), go to a small tile in
 // shared memory, from which ldmatrix (.trans for the transposed operand)
 // feeds dQ = dS K, dK = dS^T Q and dV = Wd^T dO; each output goes through a
@@ -72,18 +76,18 @@ struct AttnBwdArgs {
 // All-padding row (no valid key of head hd in row b): uniform weights over
 // all Lk*h merged entries; the select gives dq = dk = 0, and dv_(j,hd) sums
 // every query head's dout.
-template <typename T>
+template <typename T, int D>
 __device__ void all_padding_bwd(const AttnBwdArgs& a, int b, int hd, int lane) {
   const int Lq = a.Lq, Lk = a.Lk, h = a.h;
-  const long long sl = (long long)h * kHeadDim;
+  const long long sl = (long long)h * D;
   const long long q_sb = Lq * sl, k_sb = Lk * sl;
-  T* dqb = (T*)a.dq + b * q_sb + hd * kHeadDim;
-  T* dkb = (T*)a.dk + b * k_sb + hd * kHeadDim;
-  T* dvb = (T*)a.dv + b * k_sb + hd * kHeadDim;
+  T* dqb = (T*)a.dq + b * q_sb + hd * D;
+  T* dkb = (T*)a.dk + b * k_sb + hd * D;
+  T* dvb = (T*)a.dv + b * k_sb + hd * D;
   const float w = Num<T>::round(1.0f / (float)(Lk * h));
   const float wd = a.dropout ? Num<T>::round(w * a.keep_scale) : w;
   const T* grow = (const T*)a.dout + b * q_sb;
-  for (int c = 0; c < 2; ++c) {
+  for (int c = 0; c < D / 32; ++c) {
     const int dim = lane + 32 * c;
     for (int j = 0; j < Lk; ++j) {
       float acc = 0.0f;
@@ -91,7 +95,7 @@ __device__ void all_padding_bwd(const AttnBwdArgs& a, int b, int hd, int lane) {
         for (int hh = 0; hh < h; ++hh)
           if (!a.dropout ||
               dropout_keep(a.seed, a.keep_threshold, b, i * h + hh, j * h + hd))
-            acc += wd * Num<T>::to_f(grow[i * sl + hh * kHeadDim + dim]);
+            acc += wd * Num<T>::to_f(grow[i * sl + hh * D + dim]);
       dvb[j * sl + dim] = Num<T>::from_f(acc);
       dkb[j * sl + dim] = Num<T>::from_f(0.0f);
     }
@@ -100,24 +104,25 @@ __device__ void all_padding_bwd(const AttnBwdArgs& a, int b, int hd, int lane) {
 }
 
 // ------------------------------------------------------- f32: scalar path
-__host__ __device__ inline int bwd_smem_floats_per_warp(int Lq, int Lk) {
-  return (2 * Lq + 2 * Lk) * kRowPad + 3 * Lq * (Lk + 1);
+__host__ __device__ inline int bwd_smem_floats_per_warp(int Lq, int Lk, int D) {
+  return (2 * Lq + 2 * Lk) * row_pad(D) + 3 * Lq * (Lk + 1);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdArgs a) {
+  constexpr int kRowPad = row_pad(D), kC = D / 32;  // kC: a lane's columns
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long pair = (long long)blockIdx.x * kAttnWarps + warp;
+  const long long pair = (long long)blockIdx.x * (blockDim.x / 32) + warp;
   if (pair >= (long long)a.B * a.h) return;  // whole warp leaves together
   const int b = (int)(pair / a.h);
   const int hd = (int)(pair % a.h);
   const int Lq = a.Lq, Lk = a.Lk, h = a.h;
-  const long long sl = (long long)h * kHeadDim;  // one position's row
+  const long long sl = (long long)h * D;  // one position's row
   const long long q_sb = Lq * sl, k_sb = Lk * sl;
-  const long long off_q = b * q_sb + hd * kHeadDim;
-  const long long off_k = b * k_sb + hd * kHeadDim;
+  const long long off_q = b * q_sb + hd * D;
+  const long long off_k = b * k_sb + hd * D;
 
   const T* qb = (const T*)a.q + off_q;
   const T* kb = (const T*)a.k + off_k;
@@ -131,11 +136,11 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdA
   const unsigned valid = __ballot_sync(0xffffffffu, key_ok);
 
   if (valid == 0u) {
-    all_padding_bwd<T>(a, b, hd, lane);
+    all_padding_bwd<T, D>(a, b, hd, lane);
     return;
   }
 
-  float* sq = smem + (size_t)warp * bwd_smem_floats_per_warp(Lq, Lk);
+  float* sq = smem + (size_t)warp * bwd_smem_floats_per_warp(Lq, Lk, D);
   float* sk = sq + Lq * kRowPad;
   float* sv = sk + Lk * kRowPad;
   float* sg = sv + Lk * kRowPad;
@@ -143,26 +148,28 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdA
   float* swd = sw + Lq * (Lk + 1);  // dropped weights wd
   float* sds = swd + Lq * (Lk + 1);  // dw, then ds
   for (int i = 0; i < Lq; ++i)
-    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
       sq[i * kRowPad + lane + 32 * c] = Num<T>::to_f(qb[i * sl + lane + 32 * c]);
       sg[i * kRowPad + lane + 32 * c] = Num<T>::to_f(gb[i * sl + lane + 32 * c]);
     }
   for (int j = 0; j < Lk; ++j)
-    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
       sk[j * kRowPad + lane + 32 * c] = Num<T>::to_f(kb[j * sl + lane + 32 * c]);
       sv[j * kRowPad + lane + 32 * c] = Num<T>::to_f(vb[j * sl + lane + 32 * c]);
     }
   __syncwarp();
 
   // the forward's weights, recomputed in the same order
-  const float sqrt_d = sqrtf((float)kHeadDim);
+  const float sqrt_d = sqrtf((float)D);
   const float lowest = Num<T>::lowest();
   for (int idx = lane; idx < Lq * Lk; idx += 32) {
     const int i = idx / Lk;
     const int j = idx % Lk;
     float acc = 0.0f;
 #pragma unroll 16
-    for (int t = 0; t < kHeadDim; ++t) acc = fmaf(sq[i * kRowPad + t], sk[j * kRowPad + t], acc);
+    for (int t = 0; t < D; ++t) acc = fmaf(sq[i * kRowPad + t], sk[j * kRowPad + t], acc);
     const float s = Num<T>::round(Num<T>::round(acc) / sqrt_d);
     sw[i * (Lk + 1) + j] = ((valid >> j) & 1u) ? s : lowest;
   }
@@ -186,7 +193,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdA
     const int j = idx % Lk;
     float dwd = 0.0f;
 #pragma unroll 16
-    for (int t = 0; t < kHeadDim; ++t) dwd = fmaf(sg[i * kRowPad + t], sv[j * kRowPad + t], dwd);
+    for (int t = 0; t < D; ++t) dwd = fmaf(sg[i * kRowPad + t], sv[j * kRowPad + t], dwd);
     const float w = sw[i * (Lk + 1) + j];
     float wd = w, dw = dwd;
     if (a.dropout) {
@@ -212,52 +219,60 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdA
 
   for (int i = 0; i < Lq; ++i) {
     const float* drow = sds + i * (Lk + 1);
-    float acc0 = 0.0f, acc1 = 0.0f;
-    for (int j = 0; j < Lk; ++j) {
-      acc0 = fmaf(drow[j], sk[j * kRowPad + lane], acc0);
-      acc1 = fmaf(drow[j], sk[j * kRowPad + lane + 32], acc1);
-    }
-    dqb[i * sl + lane] = Num<T>::from_f(acc0);
-    dqb[i * sl + lane + 32] = Num<T>::from_f(acc1);
+    float acc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
+    for (int j = 0; j < Lk; ++j)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = fmaf(drow[j], sk[j * kRowPad + lane + 32 * c], acc[c]);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dqb[i * sl + lane + 32 * c] = Num<T>::from_f(acc[c]);
   }
   for (int j = 0; j < Lk; ++j) {
-    float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
+    float kacc[kC], vacc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) kacc[c] = vacc[c] = 0.0f;
     for (int i = 0; i < Lq; ++i) {
       const float ds = sds[i * (Lk + 1) + j];
       const float wd = swd[i * (Lk + 1) + j];
-      k0 = fmaf(ds, sq[i * kRowPad + lane], k0);
-      k1 = fmaf(ds, sq[i * kRowPad + lane + 32], k1);
-      v0 = fmaf(wd, sg[i * kRowPad + lane], v0);
-      v1 = fmaf(wd, sg[i * kRowPad + lane + 32], v1);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        kacc[c] = fmaf(ds, sq[i * kRowPad + lane + 32 * c], kacc[c]);
+        vacc[c] = fmaf(wd, sg[i * kRowPad + lane + 32 * c], vacc[c]);
+      }
     }
-    dkb[j * sl + lane] = Num<T>::from_f(k0);
-    dkb[j * sl + lane + 32] = Num<T>::from_f(k1);
-    dvb[j * sl + lane] = Num<T>::from_f(v0);
-    dvb[j * sl + lane + 32] = Num<T>::from_f(v1);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      dkb[j * sl + lane + 32 * c] = Num<T>::from_f(kacc[c]);
+      dvb[j * sl + lane + 32 * c] = Num<T>::from_f(vacc[c]);
+    }
   }
 }
 
 // ------------------------------------------------- bf16: tensor-core path
 constexpr int kBwdWarps = 16;               // warps of a block, at most
-constexpr int kSRow = kHeadDim + 8;         // 72 bf16: 144-byte staged rows
 constexpr int kBwdBlockSmem = 232448 / 2;   // two blocks an SM
-constexpr int kZeroRow = kSRow * 2;         // bytes of the shared zero row
+// staged rows of D + 8 bf16 (144 bytes at D = 64, 272 at 128)
+__host__ __device__ constexpr int srow(int D) { return D + 8; }
+// bytes of the shared zero row
+__host__ __device__ constexpr int zero_row_bytes(int D) { return srow(D) * 2; }
 
 // Bytes of one warp's tiles: q, dout (Lq rows), k, v (Lk rows), the output
 // staging tile, and the ds and wd tiles (16*MQ rows of 16*ceil(NK8/2) + 8).
-__host__ __device__ inline int bwd_mma_bytes_per_warp(int Lq, int Lk, int MQ, int NK8) {
+__host__ __device__ inline int bwd_mma_bytes_per_warp(int Lq, int Lk, int MQ, int NK8, int D) {
   const int ps = 16 * ((NK8 + 1) / 2) + 8;
-  return 2 * ((2 * Lq + 2 * Lk + (Lq > Lk ? Lq : Lk)) * kSRow + 2 * 16 * MQ * ps);
+  return 2 * ((2 * Lq + 2 * Lk + (Lq > Lk ? Lq : Lk)) * srow(D) + 2 * 16 * MQ * ps);
 }
 
 // Rows [0, out_rows) of one head of dst from out = A X over MT m16 tiles and
 // KS k16 steps. A is a weight tile p (row stride ps), read as stored
 // ([m][k]) or, with A_T, transposed (stored [k][m]); X is a staged operand
-// (rows k, 64 wide), rows past x_rows read as zeros. Staged through so.
-template <int MT, int KS, bool A_T>
+// (rows k, D wide), rows past x_rows read as zeros. Staged through so.
+template <int MT, int KS, bool A_T, int D>
 __device__ __forceinline__ void grad_product(const bf16* p, int ps, const bf16* x, int x_rows,
                                              const bf16* zero, bf16* so, int out_rows,
                                              bf16* dst, long long sl, int lane) {
+  constexpr int kSRow = srow(D);
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
   uint32_t af[MT][KS][4];
 #pragma unroll
@@ -272,7 +287,7 @@ __device__ __forceinline__ void grad_product(const bf16* p, int ps, const bf16* 
                 saddr(p + (16 * mt + lr + 8 * (mat & 1)) * ps + 16 * ks + 8 * (mat >> 1)));
     }
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {  // 32 of the 64 output columns at a time
+  for (int half = 0; half < D / 32; ++half) {  // 32 of the D output columns at a time
     float acc[MT][4][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -307,8 +322,8 @@ __device__ __forceinline__ void grad_product(const bf16* p, int ps, const bf16* 
       }
   }
   __syncwarp();
-  for (int c = lane; c < out_rows * 8; c += 32) {
-    const int r = c >> 3, ch = (c & 7) * 8;
+  for (int c = lane; c < out_rows * (D / 8); c += 32) {
+    const int r = c / (D / 8), ch = (c % (D / 8)) * 8;
     *reinterpret_cast<uint4*>(dst + r * sl + ch) =
         *reinterpret_cast<const uint4*>(so + r * kSRow + ch);
   }
@@ -317,11 +332,12 @@ __device__ __forceinline__ void grad_product(const bf16* p, int ps, const bf16* 
 
 // MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
 // keys (Lk <= 8 * NK8).
-template <int MQ, int NK8>
+template <int MQ, int NK8, int D>
 __global__ void __launch_bounds__(kBwdWarps * 32, (MQ == 1 && NK8 <= 2) ? 2 : 1)
 attention_bwd_mma_kernel(AttnBwdArgs a) {
   constexpr int MK = (NK8 + 1) / 2;  // m16 tiles / k16 steps over the keys
   constexpr int PS = 16 * MK + 8;    // row stride of the ds and wd tiles
+  constexpr int kSRow = srow(D), kZeroRow = zero_row_bytes(D);
   extern __shared__ __align__(16) uint8_t bwd_smem[];
   bf16* zero = reinterpret_cast<bf16*>(bwd_smem);  // every padded row reads here
   for (int t = threadIdx.x; t < kSRow; t += blockDim.x) zero[t] = __float2bfloat16_rn(0.0f);
@@ -336,16 +352,16 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
   const bool key_ok = lane < Lk && a.mask[(long long)b * Lk * h + lane * h + hd] > 0.0f;
   const unsigned valid = __ballot_sync(0xffffffffu, key_ok);
   if (valid == 0u) {
-    all_padding_bwd<bf16>(a, b, hd, lane);
+    all_padding_bwd<bf16, D>(a, b, hd, lane);
     return;
   }
 
-  const long long sl = (long long)h * kHeadDim;  // one position's row
-  const long long off_q = (long long)b * Lq * sl + hd * kHeadDim;
-  const long long off_k = (long long)b * Lk * sl + hd * kHeadDim;
+  const long long sl = (long long)h * D;  // one position's row
+  const long long off_q = (long long)b * Lq * sl + hd * D;
+  const long long off_k = (long long)b * Lk * sl + hd * D;
   const int rows_out = Lq > Lk ? Lq : Lk;
   bf16* sq = reinterpret_cast<bf16*>(bwd_smem + kZeroRow +
-                                     (size_t)warp * bwd_mma_bytes_per_warp(Lq, Lk, MQ, NK8));
+                                     (size_t)warp * bwd_mma_bytes_per_warp(Lq, Lk, MQ, NK8, D));
   bf16* sg = sq + Lq * kSRow;
   bf16* sk = sg + Lq * kSRow;
   bf16* sv = sk + Lk * kSRow;
@@ -358,13 +374,14 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
     const bf16* gb = (const bf16*)a.dout + off_q;
     const bf16* kb = (const bf16*)a.k + off_k;
     const bf16* vb = (const bf16*)a.v + off_k;
-    for (int c = lane; c < Lq * 8; c += 32) {
-      const int r = c >> 3, ch = (c & 7) * 8;
+    constexpr int kCh = D / 8;  // 16-byte chunks of a staged row
+    for (int c = lane; c < Lq * kCh; c += 32) {
+      const int r = c / kCh, ch = (c % kCh) * 8;
       cp_async16(sq + r * kSRow + ch, qb + r * sl + ch);
       cp_async16(sg + r * kSRow + ch, gb + r * sl + ch);
     }
-    for (int c = lane; c < Lk * 8; c += 32) {
-      const int r = c >> 3, ch = (c & 7) * 8;
+    for (int c = lane; c < Lk * kCh; c += 32) {
+      const int r = c / kCh, ch = (c % kCh) * 8;
       cp_async16(sk + r * kSRow + ch, kb + r * sl + ch);
       cp_async16(sv + r * kSRow + ch, vb + r * sl + ch);
     }
@@ -373,7 +390,7 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
   }
 
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
-  // S = Q K^T and dP = dO V^T over d = 64
+  // S = Q K^T and dP = dO V^T over d = D
   float sacc[MQ][NK8][4], pacc[MQ][NK8][4];
 #pragma unroll
   for (int mt = 0; mt < MQ; ++mt)
@@ -382,7 +399,7 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[mt][nt][e] = pacc[mt][nt][e] = 0.0f;
 #pragma unroll
-  for (int hk = 0; hk < 2; ++hk) {  // d in [32 hk, 32 hk + 32): two k16 steps
+  for (int hk = 0; hk < D / 32; ++hk) {  // d in [32 hk, 32 hk + 32): two k16 steps
     uint32_t bk[NK8][4], bv[NK8][4];
 #pragma unroll
     for (int nt = 0; nt < NK8; ++nt) {
@@ -409,7 +426,7 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
   // the forward's weights and the gradient of the scores, on the fragments:
   // accumulator e of tile (mt, nt) is query 16 mt + g + 8 (e / 2), key
   // 8 nt + 2 q4 + (e % 2); a query's keys lie in the lane's quad
-  const float sqrt_d = sqrtf((float)kHeadDim);
+  const float sqrt_d = sqrtf((float)D);
   const float inv_sqrt_d = 1.0f / sqrt_d;
   const float lowest = Num<bf16>::lowest();
 #pragma unroll
@@ -483,65 +500,74 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
     }
   __syncwarp();
 
-  grad_product<MQ, MK, false>(sds, PS, sk, Lk, zero, so, Lq, (bf16*)a.dq + off_q, sl, lane);
-  grad_product<MK, MQ, true>(sds, PS, sq, Lq, zero, so, Lk, (bf16*)a.dk + off_k, sl, lane);
-  grad_product<MK, MQ, true>(swd, PS, sg, Lq, zero, so, Lk, (bf16*)a.dv + off_k, sl, lane);
+  grad_product<MQ, MK, false, D>(sds, PS, sk, Lk, zero, so, Lq, (bf16*)a.dq + off_q, sl, lane);
+  grad_product<MK, MQ, true, D>(sds, PS, sq, Lq, zero, so, Lk, (bf16*)a.dk + off_k, sl, lane);
+  grad_product<MK, MQ, true, D>(swd, PS, sg, Lq, zero, so, Lk, (bf16*)a.dv + off_k, sl, lane);
 }
 
-template <int MQ, int NK8>
+template <int MQ, int NK8, int D>
 cudaError_t launch_bwd_mma(const AttnBwdArgs& a, cudaStream_t stream) {
-  const int per_warp = bwd_mma_bytes_per_warp(a.Lq, a.Lk, MQ, NK8);
-  int warps = (kBwdBlockSmem - kZeroRow) / per_warp;
+  const int per_warp = bwd_mma_bytes_per_warp(a.Lq, a.Lk, MQ, NK8, D);
+  int warps = (kBwdBlockSmem - zero_row_bytes(D)) / per_warp;
   warps = warps < 1 ? 1 : (warps > kBwdWarps ? kBwdWarps : warps);
-  const size_t smem = kZeroRow + (size_t)warps * per_warp;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_mma_kernel<MQ, NK8>,
+  const size_t smem = zero_row_bytes(D) + (size_t)warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_mma_kernel<MQ, NK8, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long pairs = (long long)a.B * a.h;
   const unsigned grid = (unsigned)((pairs + warps - 1) / warps);
-  attention_bwd_mma_kernel<MQ, NK8><<<grid, warps * 32, smem, stream>>>(a);
+  attention_bwd_mma_kernel<MQ, NK8, D><<<grid, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int D>
 inline cudaError_t launch_attention_bwd_bf16(const AttnBwdArgs& a, cudaStream_t s) {
   const int mq = (a.Lq + 15) / 16, nk = (a.Lk + 7) / 8;
   if (mq == 1) {
     switch (nk) {
-      case 1: return launch_bwd_mma<1, 1>(a, s);
-      case 2: return launch_bwd_mma<1, 2>(a, s);
-      case 3: return launch_bwd_mma<1, 3>(a, s);
-      case 4: return launch_bwd_mma<1, 4>(a, s);
+      case 1: return launch_bwd_mma<1, 1, D>(a, s);
+      case 2: return launch_bwd_mma<1, 2, D>(a, s);
+      case 3: return launch_bwd_mma<1, 3, D>(a, s);
+      case 4: return launch_bwd_mma<1, 4, D>(a, s);
     }
   } else if (mq == 2) {
     switch (nk) {
-      case 1: return launch_bwd_mma<2, 1>(a, s);
-      case 2: return launch_bwd_mma<2, 2>(a, s);
-      case 3: return launch_bwd_mma<2, 3>(a, s);
-      case 4: return launch_bwd_mma<2, 4>(a, s);
+      case 1: return launch_bwd_mma<2, 1, D>(a, s);
+      case 2: return launch_bwd_mma<2, 2, D>(a, s);
+      case 3: return launch_bwd_mma<2, 3, D>(a, s);
+      case 4: return launch_bwd_mma<2, 4, D>(a, s);
     }
   }
   return cudaErrorInvalidValue;  // Lq, Lk outside 1..32
 }
 
+template <int D>
 inline cudaError_t launch_attention_bwd_f32(const AttnBwdArgs& a, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)kAttnWarps * bwd_smem_floats_per_warp(a.Lq, a.Lk);
+  const size_t per_warp = sizeof(float) * (size_t)bwd_smem_floats_per_warp(a.Lq, a.Lk, D);
+  const int warps = f32_warps(per_warp);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_bwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long pairs = (long long)a.B * a.h;
-  const unsigned grid = (unsigned)((pairs + kAttnWarps - 1) / kAttnWarps);
-  attention_bwd_kernel<float><<<grid, kAttnWarps * 32, smem, stream>>>(a);
+  const unsigned grid = (unsigned)((pairs + warps - 1) / warps);
+  attention_bwd_kernel<float, D><<<grid, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+inline cudaError_t launch_attention_bwd(int dtype, const AttnBwdArgs& a, cudaStream_t s) {
+  return dtype == 1 ? launch_attention_bwd_bf16<D>(a, s) : launch_attention_bwd_f32<D>(a, s);
 }
 
 }  // namespace zt
 
-// dtype: 0 = float32, 1 = bfloat16. bf16 operands 16-byte aligned. Returns a
-// cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. bf16 operands
+// 16-byte aligned. Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_core_bwd(int dtype, const void* qm, const void* km, const void* vm,
                                      const float* kmaskf, const void* dout, void* dqm,
-                                     void* dkm, void* dvm, int B, int Lq, int Lk, int h,
+                                     void* dkm, void* dvm, int B, int Lq, int Lk, int h, int d,
                                      int dropout, unsigned int seed, unsigned int keep_threshold,
                                      float keep_scale, float keep_scale32, void* stream) {
   zt::AttnBwdArgs a;
@@ -563,6 +589,9 @@ extern "C" int zt_attention_core_bwd(int dtype, const void* qm, const void* km, 
   a.keep_scale = keep_scale;
   a.keep_scale32 = keep_scale32;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) return (int)zt::launch_attention_bwd_bf16(a, s);
-  return (int)zt::launch_attention_bwd_f32(a, s);
+  switch (d) {
+    case 64: return (int)zt::launch_attention_bwd<64>(dtype, a, s);
+    case 128: return (int)zt::launch_attention_bwd<128>(dtype, a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

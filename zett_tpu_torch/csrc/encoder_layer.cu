@@ -65,6 +65,24 @@
 // scalar core, one warp a row for each residual LayerNorm), for comparisons
 // at full precision.
 //
+// Head width 128 (the Llama family's hypernets: TinyLlama's H 2048, 16
+// heads of 128, I 4096) takes the same seven-launch sequence in bf16, chosen
+// by shape before any launch (ops/encoder_layer.py layer_plan, route
+// "unfused"): gemm.cuh's bf16 GEMM for [q|k|v] into an (M, 3H) buffer, the
+// tensor-core core of attention.cuh at D = 128 (kernel 2's), the out
+// projection, a residual LayerNorm kernel (one warp a row, the bf16 residual
+// sum rounded as gemm_ln_kernel's epilogue rounds it), the gelu GEMM
+// (gemm_gelu_kernel), the FFN-out GEMM and the second LayerNorm. Why not the
+// four fused launches: (1) one head's [q|k|v] is 384 columns, over wgmma's
+// N of 256; two n192 accumulators a head would need the 128 x 392 tile (100
+// KB) beside the ring in shared memory, which leaves room for two ring
+// stages only; (2) a LayerNorm cluster of ceil(2048 / 192) = 11 CTAs is
+// over the portable size of 8, and the non-portable 16 must fit one GPC, so
+// few such clusters are resident. What it costs at B 16384, L 7: the (M, 3H)
+// q/k/v buffer and the two pre-LN buffers cross device memory (~4.2 GB,
+// ~1.3 ms at 3.35 TB/s) beside the ~7.7 TFLOP of products (>= 7.8 ms at 989
+// TFLOP/s): the route stays compute-bound.
+//
 // Numerics (pallas_attention.py:39-45, 692-703, 741-744): each projection
 // accumulates in f32, is cast to T, and only then adds its bias in T, as
 // flax nn.Dense does; gelu runs in f32 on that T value and is cast once;
@@ -77,19 +95,24 @@
 namespace zt {
 
 // ------------------------------------------------- residual add + LayerNorm
-// f32 path: out = LN(a + b) * scale + bias, one warp per row of H values.
-__global__ void add_layer_norm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+// The seven-launch routes: out = LN(a + b) * scale + bias, one warp per row
+// of H values; the sum a + b rounded to T first (the fused epilogue's
+// round(round(round(acc) + bias) + residual) with a = round(round(acc) +
+// bias) from the GEMM), f32 statistics, one cast.
+template <typename T>
+__global__ void add_layer_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                                       const float* __restrict__ scale,
-                                      const float* __restrict__ shift, float* __restrict__ out,
+                                      const float* __restrict__ shift, T* __restrict__ out,
                                       int M, int H, float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
-  const float* ar = a + (size_t)row * H;
-  const float* br = b + (size_t)row * H;
+  const T* ar = a + (size_t)row * H;
+  const T* br = b + (size_t)row * H;
+  auto x_at = [&](int t) { return Num<T>::round(Num<T>::to_f(ar[t]) + Num<T>::to_f(br[t])); };
   float sum = 0.0f, sumsq = 0.0f;
   for (int t = lane; t < H; t += 32) {
-    const float x = ar[t] + br[t];
+    const float x = x_at(t);
     sum += x;
     sumsq += x * x;
   }
@@ -101,17 +124,18 @@ __global__ void add_layer_norm_kernel(const float* __restrict__ a, const float* 
   const float mean = sum / (float)H;
   const float var = fmaxf(0.0f, sumsq / (float)H - mean * mean);
   const float rstd = 1.0f / sqrtf(var + eps);
-  float* orow = out + (size_t)row * H;
+  T* orow = out + (size_t)row * H;
   for (int t = lane; t < H; t += 32)
-    orow[t] = (ar[t] + br[t] - mean) * (rstd * scale[t]) + shift[t];
+    orow[t] = Num<T>::from_f((x_at(t) - mean) * (rstd * scale[t]) + shift[t]);
 }
 
-static cudaError_t add_layer_norm(const float* a, const float* b, const float* scale,
-                                  const float* shift, float* out, int M, int H, float eps,
-                                  cudaStream_t s) {
+template <typename T>
+static cudaError_t add_layer_norm(const T* a, const T* b, const float* scale, const float* shift,
+                                  T* out, int M, int H, float eps, cudaStream_t s) {
   const int rows_per_block = 8;
   const unsigned grid = (unsigned)((M + rows_per_block - 1) / rows_per_block);
-  add_layer_norm_kernel<<<grid, rows_per_block * 32, 0, s>>>(a, b, scale, shift, out, M, H, eps);
+  add_layer_norm_kernel<T><<<grid, rows_per_block * 32, 0, s>>>(a, b, scale, shift, out, M, H,
+                                                                eps);
   return cudaGetLastError();
 }
 
@@ -208,8 +232,8 @@ struct QkvArgs {
 // Dynamic shared memory at nst ring stages: the ring, the 128 x 192 tile,
 // the zero row, and the all-padding sums (G forms x 64 f32), + alignment.
 __host__ __device__ inline int qkv_smem(int nst, int G) {
-  return nst * (kStageA + Ring<kQkvN>::kStageW) + kQkvTile + kZeroBytes + G * kHeadDim * 4 +
-         1024;
+  return nst * (kStageA + Ring<kQkvN>::kStageW) + kQkvTile + zero_bytes(kHeadDim) +
+         G * kHeadDim * 4 + 1024;
 }
 
 // NK8 = ceil(L / 8) n8 key tiles; Lq = Lk = L, so ceil(L / 16) = ceil(NK8 / 2)
@@ -224,13 +248,13 @@ gemm_qkv_attention_kernel(const __grid_constant__ CUtensorMap map_a,
   Ring<kQkvN> ring(align1024(smem_raw), full, empty, nst);
   bf16* tile = reinterpret_cast<bf16*>(ring.end());  // [128][kTileRS]
   bf16* zero = tile + GM * kTileRS;                  // what padded rows read
-  float2* pad = reinterpret_cast<float2*>(zero + kZeroBytes / 2);  // [G][32]
+  float2* pad = reinterpret_cast<float2*>(zero + zero_bytes(kHeadDim) / 2);  // [G][32]
 
   if (threadIdx.x == 0) {
     tile_handoff_init(&tile_full, &tile_free);
     ring_init(full, empty, nst);
   }
-  for (int t = threadIdx.x; t < kZeroBytes / 2; t += blockDim.x)
+  for (int t = threadIdx.x; t < zero_bytes(kHeadDim) / 2; t += blockDim.x)
     zero[t] = __float2bfloat16_rn(0.0f);
   __syncthreads();
 
@@ -783,20 +807,25 @@ static cudaError_t encoder_layer_bf16(const bf16* x, const uint8_t* mask, int B,
   return cudaSuccess;
 }
 
-static cudaError_t encoder_layer_f32(const float* x, const float* mask, int B, int L, int H,
-                                     int nh, int I, const float* wqkv_t, const float* bqkv,
-                                     const float* wo_t, const float* bo, const float* ln1s,
-                                     const float* ln1b, const float* w1_t, const float* b1,
-                                     const float* w2_t, const float* b2, const float* ln2s,
-                                     const float* ln2b, float eps, int act, float* qkv,
-                                     float* ctx, float* tmp, float* y1, float* mid, float* out,
-                                     cudaStream_t s) {
+// The seven launches (f32 at any supported head width; bf16 at head width
+// 128): mask (B, L) f32, > 0 = valid; qkv (M, 3H), ctx, tmp, y1 (M, H), mid
+// (M, I) scratch. The bf16 gelu GEMM is gemm_gelu_kernel (b1 padded to
+// whole 192-column tiles); f32 runs the plain GEMM's gelu epilogue.
+template <typename T>
+static cudaError_t encoder_layer_unfused(const T* x, const float* mask, int B, int L, int H,
+                                         int nh, int I, const T* wqkv_t, const T* bqkv,
+                                         const T* wo_t, const T* bo, const float* ln1s,
+                                         const float* ln1b, const T* w1_t, const T* b1,
+                                         const T* w2_t, const T* b2, const float* ln2s,
+                                         const float* ln2b, float eps, T* qkv, T* ctx, T* tmp,
+                                         T* y1, T* mid, T* out, cudaStream_t s) {
   const int M = B * L;
+  if (nh < 1 || H % nh) return cudaErrorInvalidValue;
   cudaError_t err;
 #define ZT_TRY(call)          \
   err = (call);               \
   if (err != cudaSuccess) return err;
-  ZT_TRY(gemm<float>(x, wqkv_t, bqkv, qkv, M, 3 * H, H, 0, s));
+  ZT_TRY(gemm<T>(x, wqkv_t, bqkv, qkv, M, 3 * H, H, 0, s));
   AttnArgs a;
   a.q = qkv;
   a.k = qkv + H;
@@ -814,12 +843,16 @@ static cudaError_t encoder_layer_f32(const float* x, const float* mask, int B, i
   a.m_sb = L;
   a.m_sl = 1;
   a.m_sh = 0;
-  ZT_TRY(launch_attention<float>(a, s));
-  ZT_TRY(gemm<float>(ctx, wo_t, bo, tmp, M, H, H, 0, s));
-  ZT_TRY(add_layer_norm(tmp, x, ln1s, ln1b, y1, M, H, eps, s));
-  ZT_TRY(gemm<float>(y1, w1_t, b1, mid, M, I, H, act, s));
-  ZT_TRY(gemm<float>(mid, w2_t, b2, tmp, M, H, I, 0, s));
-  ZT_TRY(add_layer_norm(tmp, y1, ln2s, ln2b, out, M, H, eps, s));
+  ZT_TRY(launch_attention_d<T>(a, H / nh, s));
+  ZT_TRY(gemm<T>(ctx, wo_t, bo, tmp, M, H, H, 0, s));
+  ZT_TRY(add_layer_norm<T>(tmp, x, ln1s, ln1b, y1, M, H, eps, s));
+  if constexpr (std::is_same<T, bf16>::value) {
+    ZT_TRY(gemm_gelu(y1, w1_t, b1, mid, M, I, H, s));
+  } else {
+    ZT_TRY(gemm<T>(y1, w1_t, b1, mid, M, I, H, 1, s));
+  }
+  ZT_TRY(gemm<T>(mid, w2_t, b2, tmp, M, H, I, 0, s));
+  ZT_TRY(add_layer_norm<T>(tmp, y1, ln2s, ln2b, out, M, H, eps, s));
 #undef ZT_TRY
   return cudaSuccess;
 }
@@ -859,17 +892,29 @@ extern "C" int zt_encoder_layer_ln_clusters(int csize) {
   return err == cudaSuccess ? fit : -(int)err;
 }
 
-// f32: seven launches; act: 0 = no activation, 1 = tanh-gelu. Weights
-// transposed, row-major: wqkv_t (3H, H) as [q | k | v], wo_t (H, H), w1_t
-// (I, H), w2_t (H, I); mask (B, L) f32, > 0 = valid.
-extern "C" int zt_encoder_layer_f32(const float* x, const float* mask, int B, int L, int H,
-                                    int nh, int I, const float* wqkv_t, const float* bqkv,
-                                    const float* wo_t, const float* bo, const float* ln1s,
-                                    const float* ln1b, const float* w1_t, const float* b1,
-                                    const float* w2_t, const float* b2, const float* ln2s,
-                                    const float* ln2b, float eps, int act, float* qkv, float* ctx,
-                                    float* tmp, float* y1, float* mid, float* out, void* stream) {
-  return (int)zt::encoder_layer_f32(x, mask, B, L, H, nh, I, wqkv_t, bqkv, wo_t, bo, ln1s, ln1b,
-                                    w1_t, b1, w2_t, b2, ln2s, ln2b, eps, act, qkv, ctx, tmp, y1,
-                                    mid, out, (cudaStream_t)stream);
+// The seven launches; dtype: 0 = float32, 1 = bfloat16 (head width 128).
+// Weights transposed, row-major: wqkv_t (3H, H) as [q | k | v], wo_t (H, H),
+// w1_t (I, H), w2_t (H, I); mask (B, L) f32, > 0 = valid; bf16: b1
+// (ceil(I / 192) * 192) any values past I. tanh-gelu.
+extern "C" int zt_encoder_layer_unfused(int dtype, const void* x, const float* mask, int B, int L,
+                                        int H, int nh, int I, const void* wqkv_t,
+                                        const void* bqkv, const void* wo_t, const void* bo,
+                                        const float* ln1s, const float* ln1b, const void* w1_t,
+                                        const void* b1, const void* w2_t, const void* b2,
+                                        const float* ln2s, const float* ln2b, float eps,
+                                        void* qkv, void* ctx, void* tmp, void* y1, void* mid,
+                                        void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    using T = zt::bf16;
+    return (int)zt::encoder_layer_unfused<T>(
+        (const T*)x, mask, B, L, H, nh, I, (const T*)wqkv_t, (const T*)bqkv, (const T*)wo_t,
+        (const T*)bo, ln1s, ln1b, (const T*)w1_t, (const T*)b1, (const T*)w2_t, (const T*)b2,
+        ln2s, ln2b, eps, (T*)qkv, (T*)ctx, (T*)tmp, (T*)y1, (T*)mid, (T*)out, s);
+  }
+  using F = float;
+  return (int)zt::encoder_layer_unfused<F>(
+      (const F*)x, mask, B, L, H, nh, I, (const F*)wqkv_t, (const F*)bqkv, (const F*)wo_t,
+      (const F*)bo, ln1s, ln1b, (const F*)w1_t, (const F*)b1, (const F*)w2_t, (const F*)b2, ln2s,
+      ln2b, eps, (F*)qkv, (F*)ctx, (F*)tmp, (F*)y1, (F*)mid, (F*)out, s);
 }

@@ -1,20 +1,31 @@
 """Where each supported backbone keeps its vocab-dependent weights in the HF
-state dict (the gpt2 entries of ``zett_tpu/models/backbones/registry.py``).
+state dict, and the family dispatch (counterpart of
+``zett_tpu/models/backbones/registry.py`` for gpt2 and the Llama family).
 
 GPT-2 ties its output embeddings to the input table: logits use
 ``transformer.wte.weight``, and HF writes the same table as
-``lm_head.weight``. It has no lm-head bias.
+``lm_head.weight``. The Llama family (llama, mistral, gemma, qwen2) keeps
+its input table in ``model.embed_tokens.weight`` and, when untied, its
+output table in ``lm_head.weight``; a tied checkpoint carries no
+``lm_head.weight``. None has an lm-head bias.
 """
 
 from __future__ import annotations
 
 import re
 
-IN_EMBEDDING_KEYS = {"gpt2": "transformer.wte.weight"}
+from .llama import FAMILY as LLAMA_FAMILY
 
-# The HF GPT-2 weights the JAX package's gpt2 converter keeps
-# (loader.py convert_gpt2); anything else, such as the attention-mask
-# buffers, is dropped on the way through a transfer.
+IN_EMBEDDING_KEYS = {"gpt2": "transformer.wte.weight",
+                     **{t: "model.embed_tokens.weight" for t in LLAMA_FAMILY}}
+# the untied output table's key (JAX ``OUT_EMBEDDING_PATHS``): gpt2's and
+# gemma's heads are tied
+OUT_EMBEDDING_KEYS = {t: "lm_head.weight" for t in LLAMA_FAMILY if t != "gemma"}
+
+# The HF weights the JAX package's converters keep (loader.py convert_gpt2,
+# convert_llama); anything else, such as GPT-2's attention-mask buffers and
+# llama's rotary inv_freq buffers, is dropped on the way through a transfer
+# (a tied llama's lm_head.weight too: ``splice_embeddings``).
 _GPT2_KEEP = re.compile(
     r"transformer\.(wte|wpe)\.weight"
     r"|transformer\.ln_f\.(weight|bias)"
@@ -22,33 +33,83 @@ _GPT2_KEEP = re.compile(
     r"|transformer\.h\.\d+\.(ln_1|ln_2|attn\.c_attn|attn\.c_proj|mlp\.c_fc|mlp\.c_proj)"
     r"\.(weight|bias)"
 )
+_LLAMA_KEEP = re.compile(
+    r"model\.embed_tokens\.weight"
+    r"|model\.norm\.weight"
+    r"|lm_head\.weight"
+    r"|model\.layers\.\d+\.(input_layernorm|post_attention_layernorm)\.weight"
+    r"|model\.layers\.\d+\.(self_attn|mlp)\.\w+_proj\.(weight|bias)"
+)
 
-KEEP_KEYS = {"gpt2": _GPT2_KEEP}
+KEEP_KEYS = {"gpt2": _GPT2_KEEP, **{t: _LLAMA_KEEP for t in LLAMA_FAMILY}}
 
 
-def is_output_tied(model_type: str, config: dict = None) -> bool:
+def is_output_tied(model_type: str, config=None) -> bool:
     """Whether the logits use the input table (``registry.py:114``): always
-    for gpt2."""
+    for gpt2; the config's ``tie_word_embeddings`` (``config.json``'s dict
+    or a backbone config) for the Llama family."""
     check_supported(model_type)
-    return True
+    if model_type in LLAMA_FAMILY and config is not None:
+        return _tied(config)
+    return model_type not in OUT_EMBEDDING_KEYS
 
 
-def resolve_out_path(model_type: str, state_dict: dict):
-    """The HF key of untied output embeddings present in the state dict,
-    or None when tied (``registry.py:48``); gpt2's head is tied."""
+def _tied(config) -> bool:
+    if config is None:
+        return False
+    if isinstance(config, dict):
+        return bool(config.get("tie_word_embeddings", False))
+    return bool(getattr(config, "tie_word_embeddings", False))
+
+
+def resolve_out_path(model_type: str, state_dict: dict, config=None):
+    """The HF key of untied output embeddings where the checkpoint holds
+    them, else None (``registry.py:48-61``: presence decides). A config
+    (``config.json``'s dict or a backbone config) that ties the embeddings
+    drops the key first, as ``loader.convert_llama`` does: a torch state
+    dict of a tied model lists ``lm_head.weight`` too."""
     check_supported(model_type)
-    return None
+    key = OUT_EMBEDDING_KEYS.get(model_type)
+    if key is None or _tied(config):
+        return None
+    return key if key in state_dict else None
+
+
+def config_from_hf(model_type: str, config_json: dict, remat_blocks: bool = False):
+    """The backbone config of a family from its ``config.json`` dict."""
+    import dataclasses
+
+    check_supported(model_type)
+    if model_type == "gpt2":
+        from .gpt2 import GPT2Config as Config
+    else:
+        from .llama import LlamaConfig as Config
+    return dataclasses.replace(Config.from_hf(config_json), remat_blocks=remat_blocks)
+
+
+def build_model(model_type: str, config, state_dict, dtype):
+    """The backbone module of a family (``registry.py:86``): its config
+    (``config_from_hf``) and HF state dict, weights held as stored and cast
+    to ``dtype`` at use."""
+    check_supported(model_type)
+    if model_type == "gpt2":
+        from .gpt2 import GPT2LMHeadModel as Model
+    else:
+        from .llama import LlamaForCausalLM as Model
+    return Model(config, state_dict, dtype)
 
 
 def headless_model(model_type: str, model):
-    """The callable ``(input_ids, attention_mask, wte) -> final hidden
+    """The callable ``(input_ids, attention_mask, table) -> final hidden
     states`` of a backbone without its lm head (``registry.py:120``): the
     chunked CLM loss computes its logits chunk by chunk from these. For
-    gpt2, the hidden states after ``ln_f``."""
+    gpt2, the hidden states after ``ln_f``; for the Llama family, after the
+    last RMSNorm."""
     check_supported(model_type)
     return model.hidden_states
 
 
 def check_supported(model_type: str) -> None:
     if model_type not in IN_EMBEDDING_KEYS:
-        raise NotImplementedError(f"backbone {model_type!r} is not ported (gpt2 is)")
+        raise NotImplementedError(f"backbone {model_type!r} is not ported (gpt2 and "
+                                  f"{', '.join(LLAMA_FAMILY)} are)")

@@ -1,4 +1,5 @@
-"""Flax parameter tree -> the port's ``Hypernet`` state dict.
+"""Flax parameter tree -> the port's ``Hypernet`` state dict, and the
+backbones' HF key <-> Flax path tables.
 
 Keys are the "/"-joined Flax paths, as ``flax.traverse_util.flatten_dict(
 params, sep="/")`` gives them (the layout of a checkpoint's ``params.npz``).
@@ -92,3 +93,73 @@ def torch_to_flax(model: torch.nn.Module) -> Dict[str, np.ndarray]:
         value = p.detach().float().cpu()
         flat["/".join(path)] = (value.t() if transpose else value).contiguous().numpy()
     return flat
+
+
+# ------------------------------------------------------------- the backbones
+def gpt2_flax_path(key: str) -> tuple:
+    """HF GPT-2 key -> the JAX package's Flax path (``loader.convert_gpt2``)."""
+    parts = key.split(".")
+    leaf = {"weight": "kernel", "bias": "bias"}
+    if parts[1] in ("wte", "wpe"):
+        return ("transformer", parts[1], "embedding")
+    if parts[1] == "ln_f":
+        return ("transformer", "ln_f", "scale" if parts[2] == "weight" else "bias")
+    base = ("transformer", f"h_{parts[2]}")
+    rest = parts[3:]
+    if rest[0] in ("ln_1", "ln_2"):
+        return base + (rest[0], "scale" if rest[1] == "weight" else "bias")
+    if rest[0] == "attn":
+        return base + ("attn", rest[1], leaf[rest[2]])
+    return base + (rest[1], leaf[rest[2]])  # mlp.c_fc / mlp.c_proj
+
+
+def llama_flax_path(key: str) -> tuple:
+    """HF Llama-family key -> the JAX package's Flax path
+    (``loader.convert_llama``, loader.py:125-153)."""
+    if key == "model.embed_tokens.weight":
+        return ("model", "embed_tokens", "embedding")
+    if key == "model.norm.weight":
+        return ("model", "norm", "weight")
+    if key == "lm_head.weight":
+        return ("lm_head", "kernel")
+    parts = key.split(".")
+    base = ("model", f"layers_{parts[2]}")
+    rest = parts[3:]
+    if rest[0].endswith("layernorm"):
+        return base + (rest[0], "weight")
+    # self_attn / mlp projections
+    return base + (rest[0], rest[1], "kernel" if rest[2] == "weight" else "bias")
+
+
+def backbone_flax_path(model_type: str, key: str) -> tuple:
+    """HF key of a backbone -> its Flax path in the JAX package: the
+    optimizer's labels, decay mask and leaf order read these."""
+    return gpt2_flax_path(key) if model_type == "gpt2" else llama_flax_path(key)
+
+
+def invert_llama(flat: Dict[str, np.ndarray], tie_word_embeddings: bool) -> Dict[str, torch.Tensor]:
+    """Flax Llama-family parameters ("/"-joined paths) -> the HF state dict
+    (``loader.invert_llama``, loader.py:291-315): kernels (in, out) become
+    (out, in) weights; a tied model's head is the embedding table."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        v = np.asarray(v)
+        if k == "model/embed_tokens/embedding":
+            sd["model.embed_tokens.weight"] = _to_tensor(v)
+            if tie_word_embeddings:
+                sd["lm_head.weight"] = _to_tensor(v)
+        elif k == "model/norm/weight":
+            sd["model.norm.weight"] = _to_tensor(v)
+        elif k == "lm_head/kernel":
+            sd["lm_head.weight"] = _to_tensor(v.T)
+        elif parts[1].startswith("layers_"):
+            i = parts[1][len("layers_"):]
+            rest = parts[2:]
+            if rest[0].endswith("layernorm"):
+                sd[f"model.layers.{i}.{rest[0]}.weight"] = _to_tensor(v)
+            else:
+                name = "weight" if rest[2] == "kernel" else "bias"
+                sd[f"model.layers.{i}.{rest[0]}.{rest[1]}.{name}"] = _to_tensor(
+                    v.T if rest[2] == "kernel" else v)
+    return sd

@@ -30,9 +30,12 @@ The inter-token exchange (cross-attention between the batch's rows and a
 few learned blocks) takes the JAX module's plain attention (``_attention``)
 on both routes, as the JAX package leaves it to XLA.
 
-Configurations that leave these routes (language ids, adapters, relative
-positions, the t5 encoder, concat pooling, head widths other than 64) raise
-``NotImplementedError``.
+Head widths 64 and 128 run (kernels 1, 2 and 3 are instantiated for both);
+at 128, the layers that would take kernel 4 (inter-token attention,
+erf-gelu) are not ported yet. Configurations that leave these routes
+(language ids, adapters, relative positions, the t5 encoder, concat
+pooling, other head widths) raise ``NotImplementedError``, naming ROADMAP
+A.10 where that item holds them.
 
 Parameters are stored as torch's ``nn.Linear`` layout; ``models.convert``
 maps a Flax parameter tree onto them. Weights are f32 and cast to the
@@ -43,6 +46,8 @@ dtype themselves.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -51,9 +56,11 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_block import attention_block_fused
-from ..ops.attention_core import attention_core, merged_attention_train, softmax_weights
+from ..ops.attention_core import (HEAD_WIDTHS, attention_core, merged_attention_train,
+                                  softmax_weights)
 from ..ops.encoder_layer import encoder_layer, gelu, layer_norm_flax_exact
 
 MERGED_ATTENTION_MAX = 256  # widest merged (L*h) row on the kernel route
@@ -115,18 +122,51 @@ class HypernetConfig:
 
 
 def _check_supported(cfg: HypernetConfig) -> None:
+    h = cfg.num_attention_heads
+    width = cfg.hidden_size // h if cfg.hidden_size % h == 0 else None
     unsupported = {
         "embed_lang_id": cfg.embed_lang_id,
         "language_adapter_bottleneck_dim": cfg.language_adapter_bottleneck_dim > 0,
         "position_embedding_type=relative": cfg.position_embedding_type != "absolute",
         "encoder_type=t5": cfg.encoder_type != "roberta",
         "hidden_act other than gelu_new/gelu": cfg.hidden_act not in ("gelu_new", "gelu"),
-        "head width other than 64": cfg.hidden_size != 64 * cfg.num_attention_heads,
+        f"head width other than {HEAD_WIDTHS} (ROADMAP A.10)": width not in HEAD_WIDTHS,
+        # these layers take kernel 4, which runs head width 64 only
+        "head width 128 with inter-token attention or erf-gelu (kernel 4 at d = 128, "
+        "ROADMAP A.10)": width == 128 and (cfg.add_inter_token_attention
+                                           or cfg.hidden_act == "gelu"),
         "concat_last_hidden_state": cfg.concat_last_hidden_state,
     }
     missing = [name for name, on in unsupported.items() if on]
     if missing:
         raise NotImplementedError(f"hypernet features not ported: {', '.join(missing)}")
+
+
+# Inside ``remat_glue()`` the f32 glue of the training route (each LayerNorm
+# and FFN activation) keeps only its compute-dtype input for the backward
+# and recomputes its f32 intermediates there.
+_REMAT_GLUE = contextvars.ContextVar("remat_glue", default=False)
+
+
+@contextlib.contextmanager
+def remat_glue():
+    """Rematerialize the hypernet's elementwise f32 glue (LayerNorms, gelu)
+    op by op while gradients are on: eager PyTorch keeps every f32
+    intermediate of these ops for the backward (several (rows, L, H) f32
+    tensors a LayerNorm, (rows, L, I) ones a gelu), which XLA fuses away in
+    the reference. Same arithmetic, forward and backward; the trainer's
+    ``remat_hypernet_glue`` runs the hypernet inside it."""
+    token = _REMAT_GLUE.set(True)
+    try:
+        yield
+    finally:
+        _REMAT_GLUE.reset(token)
+
+
+def _glue(fn, *args):
+    if _REMAT_GLUE.get() and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def gelu_exact(x):
@@ -184,7 +224,7 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        return layer_norm_flax_exact(x, self.weight, self.bias, self.eps, self.dtype)
+        return _glue(layer_norm_flax_exact, x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class Rescaler(nn.Module):
@@ -213,8 +253,8 @@ class ProjectorBlock(nn.Module):
 
     def forward(self, x):
         h = self.dense1(x)
-        h = self.dense2(gelu(h))
-        return self.ln(gelu(h) + x)
+        h = self.dense2(_glue(gelu, h))
+        return self.ln(_glue(gelu, h) + x)
 
 
 def _attention(q, k, v, key_bias, key_mask, num_heads: int, rate: float = 0.0,
@@ -381,7 +421,7 @@ class EncoderLayer(nn.Module):
         if cfg.add_inter_token_attention:
             attn = self._inter_token(attn, target_priors, inter_token_blocks, deterministic,
                                      generator)
-        h = self.output(self.act(self.intermediate(attn)))
+        h = self.output(_glue(self.act, self.intermediate(attn)))
         if hidden_drop:
             h = dropout(h, cfg.hidden_dropout_prob, generator)
         return self.output_ln(h + attn)

@@ -1,36 +1,41 @@
 """Splice hypernet-predicted embeddings into a frozen backbone's HF state
 dict (counterpart of ``zett_tpu/models/splice.py`` and of the save path's
-``invert_gpt2``).
+``invert_gpt2``/``invert_llama``).
 
 The port works on the HF state dict directly: the predicted input table
-replaces the embedding weight, a tied lm head gets the same table, and the
-keys the JAX package's converter drops are dropped, so the output holds
+replaces the embedding weight; a tied head gets the same table; an untied
+Llama-family head (``lm_head.weight``) gets the predicted output table. The
+keys the JAX package's converters drop are dropped, so the output holds
 exactly the keys the JAX transfer writes.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from .backbones.registry import IN_EMBEDDING_KEYS, KEEP_KEYS, check_supported
+from .backbones.registry import IN_EMBEDDING_KEYS, KEEP_KEYS, check_supported, resolve_out_path
 
 
 def splice_embeddings(
     state_dict: Dict[str, torch.Tensor],
     model_type: str,
     embeddings_in: torch.Tensor,
+    embeddings_out: Optional[torch.Tensor] = None,
     tie_word_embeddings: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """A new state dict with the vocab-dependent weights replaced.
+    """A new state dict with the vocab-dependent weights replaced
+    (``splice.py:35-75``).
 
-    embeddings_in: (V, E). With tied embeddings the lm head is the same
-    table; an untied GPT-2 head is not vocab-spliced and keeps its weight,
-    as in the JAX package."""
+    embeddings_in, embeddings_out: (V, E). With tied embeddings the lm head
+    is the input table; an untied Llama-family head becomes
+    ``embeddings_out`` (required then); an untied GPT-2 head is not
+    vocab-spliced and keeps its weight, as in the JAX package."""
     check_supported(model_type)
     keep = KEEP_KEYS[model_type]
-    in_key = IN_EMBEDDING_KEYS[model_type]
+    out_key = resolve_out_path(model_type, state_dict, {"tie_word_embeddings":
+                                                        tie_word_embeddings})
     new = {}
     for k, v in state_dict.items():
         if not keep.fullmatch(k):
@@ -38,20 +43,29 @@ def splice_embeddings(
         if k == "lm_head.weight" and tie_word_embeddings:
             continue
         new[k] = v
-    new[in_key] = embeddings_in
+    new[IN_EMBEDDING_KEYS[model_type]] = embeddings_in
+    if out_key is not None:
+        if embeddings_out is None:
+            raise ValueError(f"{model_type} has untied output embeddings: pass embeddings_out")
+        new[out_key] = embeddings_out
     if tie_word_embeddings:
         new["lm_head.weight"] = embeddings_in
     return new
 
 
 def extract_embeddings(state_dict: Dict[str, torch.Tensor], model_type: str,
-                       pad_to_multiple_of: int = 128):
-    """(source_embeddings, original_vocab_size): the input table (tied
-    gpt2: no output table to append) padded with zero rows to a multiple of
-    ``pad_to_multiple_of`` (``zett_tpu/models/splice.py:78``)."""
+                       pad_to_multiple_of: int = 128, config=None):
+    """(source_embeddings, original_vocab_size): [input table | output
+    table] for an untied head (the input table alone when tied), padded with
+    zero rows to a multiple of ``pad_to_multiple_of``
+    (``zett_tpu/models/splice.py:78-106``). ``config`` (``config.json``'s
+    dict or a backbone config) says whether the head is tied."""
     check_supported(model_type)
     emb_in = state_dict[IN_EMBEDDING_KEYS[model_type]]
-    n = emb_in.shape[0]
+    out_key = resolve_out_path(model_type, state_dict, config)
+    source = emb_in if out_key is None else torch.cat([emb_in, state_dict[out_key]], dim=1)
+    n = source.shape[0]
     pad = (-n) % pad_to_multiple_of
-    source = torch.cat([emb_in, emb_in.new_zeros(pad, emb_in.shape[1])]) if pad else emb_in
-    return source, n
+    if pad:
+        source = torch.cat([source, source.new_zeros(pad, source.shape[1])])
+    return source, emb_in.shape[0]

@@ -50,6 +50,9 @@ _MASK_ROWS = 4096  # rows of the plain keep mask computed at a time
 # heads of a row in the bf16 forward (csrc/attention.cuh: one warp a head,
 # the row's heads in one CTA)
 MAX_HEADS_BF16 = 16
+# the head widths the kernels are instantiated for (csrc/attention.cuh,
+# attention_core_bwd.cu: a template parameter); kernels 4 and 5 take 64 only
+HEAD_WIDTHS = (64, 128)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -261,22 +264,47 @@ def merged_attention_train(qm, km, vm, kmaskf, seed: int, num_heads: int, rate: 
 
 
 # ------------------------------------------------------------------ launches
-def _check(qm, km, vm, num_heads, what):
+def check_head_width(what: str, H: int, num_heads: int, widths=HEAD_WIDTHS) -> int:
+    """The head width H / num_heads, or ValueError where no kernel is
+    instantiated for it (other widths: ROADMAP A.10)."""
+    if num_heads < 1 or H % num_heads or H // num_heads not in widths:
+        raise ValueError(f"{what}: head width {H}/{num_heads} heads is not one of "
+                         f"{widths} (other widths: ROADMAP A.10)")
+    return H // num_heads
+
+
+def _check(qm, km, vm, num_heads, what, widths=HEAD_WIDTHS):
     dtype = qm.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {dtype}")
     B, Lqh, d = qm.shape
     Lkh = km.shape[1]
     h = num_heads
-    if d != 64 or Lqh % h or Lkh % h:
+    if d not in widths or Lqh % h or Lkh % h:
         raise ValueError(f"{what}: shapes {tuple(qm.shape)}/{tuple(km.shape)} "
-                         f"need d = 64 and a whole number of positions per head")
+                         f"need d in {widths} and a whole number of positions per head")
     Lq, Lk = Lqh // h, Lkh // h
     if not (1 <= Lq <= 32 and 1 <= Lk <= 32):
         raise ValueError(f"{what}: lengths Lq={Lq}, Lk={Lk} outside 1..32")
     if km.dtype != dtype or vm.dtype != dtype or vm.shape != km.shape:
         raise TypeError(f"{what}: km/vm must match qm's dtype and km's shape")
     return B, Lq, Lk
+
+
+SMEM_BYTES = 232448  # an H100 block's shared memory
+
+
+def check_row_fits(what: str, dtype, Lq: int, Lk: int, num_heads: int, d: int) -> None:
+    """The bf16 forward stages a row's q, k and v positions (every head) in
+    shared memory (``attention.cuh`` ``attn_mma_smem``): at 16 heads of 128,
+    up to 18 positions."""
+    if dtype != torch.bfloat16:
+        return
+    h = num_heads
+    need = 2 * d + h * 32 * 8 * (d // 64) + 2 * (Lq + 2 * Lk) * (h * d + 8)
+    if need > SMEM_BYTES:
+        raise ValueError(f"{what}: a row of Lq={Lq}, Lk={Lk} positions of {h} heads of {d} "
+                         f"needs {need} bytes of shared memory, over {SMEM_BYTES}")
 
 
 def check_heads(what: str, dtype, num_heads: int) -> None:
@@ -304,6 +332,7 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
         raise ValueError(f"attention_core: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core")
     check_heads("attention_core", qm.dtype, num_heads)
+    check_row_fits("attention_core", qm.dtype, Lq, Lk, num_heads, qm.shape[-1])
     qm, km, vm = (_build.aligned16(t) for t in (qm, km, vm))
     maskf = kmaskf.float().contiguous()
     out = torch.empty_like(qm)
@@ -311,10 +340,10 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = lib.zt_attention_core
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, u, u, ctypes.c_float, p]
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, u, u, ctypes.c_float, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
     err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
-             maskf.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads,
+             maskf.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads, qm.shape[-1],
              drop, seed32, thr, div, stream)
     _build.check(err, "attention_core kernel launch")
     _build.count_launch(_FWD)
@@ -338,12 +367,12 @@ def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.zt_attention_core_bwd
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, f, f, p]
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, u, f, f, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
     err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
              maskf.data_ptr(), dout.data_ptr(), dqm.data_ptr(), dkm.data_ptr(),
-             dvm.data_ptr(), B, Lq, Lk, num_heads, drop, seed32, thr, scale, scale32,
-             stream)
+             dvm.data_ptr(), B, Lq, Lk, num_heads, qm.shape[-1], drop, seed32, thr, scale,
+             scale32, stream)
     _build.check(err, "attention_core_bwd kernel launch")
     _build.count_launch(_BWD)
     return dqm, dkm, dvm
@@ -353,7 +382,7 @@ def _launch_merged(qm, km, vm, kmask, kbias, num_heads):
     lib = _build.load(_MERGED)
     if not qm.is_cuda:
         raise ValueError(f"merged_attention: no kernel for device {qm.device}")
-    B, Lq, Lk = _check(qm, km, vm, num_heads, "merged_attention")
+    B, Lq, Lk = _check(qm, km, vm, num_heads, "merged_attention", widths=(64,))
     check_heads("merged_attention", qm.dtype, num_heads)
     Lkh = Lk * num_heads
     for name, t in (("kmask", kmask), ("kbias", kbias)):

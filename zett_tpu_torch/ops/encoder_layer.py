@@ -5,11 +5,13 @@ Replaces ``zett_tpu/ops/pallas_attention.py`` ``_layer_kernel`` /
 ``encoder_layer_pallas`` (:727, :825), the tier-3 TPU kernel. The CUDA
 source is ``zett_tpu_torch/csrc/encoder_layer.cu``; its header note gives
 the bound (tensor-core operations at the transfer's shapes) and the design.
-``layer_plan`` says how a shape runs: in bf16 four device kernels a layer
-(the [q|k|v] GEMM with the attention core in its epilogue, the output
-projection and the FFN-out each with the residual LayerNorm in theirs, on
-thread-block clusters of ``cluster`` CTAs, and the gelu FFN-in GEMM); in f32
-the seven launches of the unfused sequence.
+``layer_plan`` says how a shape runs: in bf16 at head width 64, four device
+kernels a layer (the [q|k|v] GEMM with the attention core in its epilogue,
+the output projection and the FFN-out each with the residual LayerNorm in
+theirs, on thread-block clusters of ``cluster`` CTAs, and the gelu FFN-in
+GEMM); in bf16 at head width 128, and in f32, the seven launches of the
+unfused sequence (the header note of ``encoder_layer.cu`` says why 128 does
+not fuse).
 
 ``encoder_layer`` keeps the JAX function's signature. On CPU tensors it runs
 ``encoder_layer_reference``; on any other device it launches the kernel or
@@ -29,7 +31,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_core import check_heads, merged_attention_reference
+from .attention_core import (check_head_width, check_heads, check_row_fits,
+                             merged_attention_reference)
 
 _NAME = "encoder_layer"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,13 +150,13 @@ def layer_plan(dtype, L: int, H: int, num_heads: int, I: int) -> LayerPlan:
     function of the shape: nothing is built or launched."""
     if dtype not in _DTYPES:
         raise TypeError(f"encoder_layer: unsupported dtype {dtype}")
-    if H != num_heads * 64:
-        raise ValueError(f"encoder_layer: head width must be 64 (H={H}, h={num_heads})")
+    check_head_width("encoder_layer", H, num_heads)
     if not 1 <= L <= 32:
         raise ValueError(f"encoder_layer: sequence length {L} outside 1..32")
     check_heads("encoder_layer", dtype, num_heads)
     check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
-    if dtype == torch.float32:
+    if dtype == torch.float32 or H // num_heads == 128:
+        check_row_fits("encoder_layer", dtype, L, L, num_heads, H // num_heads)
         return LayerPlan("unfused", 7, 0, 0, 0)
     forms = TILE_ROWS // L
     return LayerPlan("fused", 4, -(-H // CLUSTER_SLICE), forms, forms * L)
@@ -258,8 +261,11 @@ def _launch_unfused(lib, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2
     maskf = (torch.ones(B, L, device=dev) if mask is None else mask.float()).contiguous()
     wqkv_t = pack_weights(wq, wk, wv)
     wo_t, w1_t, w2_t = (pack_weights(w) for w in (wo, w1, w2))
-    bqkv = torch.cat([bq, bk, bv]).contiguous()
-    bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
+    if dtype == torch.bfloat16:  # the gelu GEMM reads whole tiles of b1
+        bqkv, bo, b2, b1 = pack_biases(bq, bk, bv, bo, b2, b1)
+    else:
+        bqkv = torch.cat([bq, bk, bv]).contiguous()
+        bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
     ctx = torch.empty(M, H, dtype=dtype, device=dev)
@@ -268,15 +274,15 @@ def _launch_unfused(lib, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2
     mid = torch.empty(M, I, dtype=dtype, device=dev)
     out = torch.empty(B, L, H, dtype=dtype, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.zt_encoder_layer_f32
+    fn = lib.zt_encoder_layer_unfused
     fn.restype = i
-    fn.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p,
-                   ctypes.c_float, i, p, p, p, p, p, p, p]
-    err = fn(x.data_ptr(), maskf.data_ptr(), B, L, H, num_heads, I,
+    fn.argtypes = [i, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p,
+                   ctypes.c_float, p, p, p, p, p, p, p]
+    err = fn(_DTYPES[dtype], x.data_ptr(), maskf.data_ptr(), B, L, H, num_heads, I,
              wqkv_t.data_ptr(), bqkv.data_ptr(), wo_t.data_ptr(), bo.data_ptr(),
              ln[0].data_ptr(), ln[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
              w2_t.data_ptr(), b2.data_ptr(), ln[2].data_ptr(), ln[3].data_ptr(),
-             float(eps), 1,
+             float(eps),
              qkv.data_ptr(), ctx.data_ptr(), tmp.data_ptr(), y1.data_ptr(),
              mid.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "encoder_layer kernel launch")

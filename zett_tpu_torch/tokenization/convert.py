@@ -1,11 +1,15 @@
-"""Byte-level tokenizer conversion for tokenizers that already are byte-level.
+"""Byte-level tokenizer conversion.
 
-Counterpart of ``zett_tpu/tokenization/convert.py``: the identity branch of
-its ``_get_byte_fn``, whitespace canonicalization, special-token alignment to
-a reference tokenizer with post-processor id fixup, the Unigram score
-transplant and BPE merge re-derivation. Metaspace / WordPiece-prefix input
-(the branch that probes the normalizer and pre-tokenizer) raises
-``NotImplementedError``.
+Counterpart of ``zett_tpu/tokenization/convert.py``: rewrites a BPE,
+Unigram or WordPiece tokenizer (byte-level, metaspace or byte-fallback, with
+or without a continuing-subword prefix) into the canonical byte-level
+tokenizer over the GPT-2 byte alphabet: the surface-form rewrite (the
+metaspace character found by running " test" through the tokenizer's own
+normalizer and pre-tokenizer, ``normalizers.py``/``pretokenizers.py``), the
+byte-fallback collapse, whitespace canonicalization, special-token alignment
+to a reference tokenizer with post-processor id fixup, the Unigram score
+transplant and BPE merge re-derivation. A normalizer or pre-tokenizer with
+a ``Regex`` pattern in the probe's way raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Dict, List, Optional, Set, Tuple
 from ..constants import EXTRA_WHITESPACE_CHARS, NEGATIVE_INF_FILL_VALUE, SPLIT_REGEX
 from .bytemaps import BYTES_TO_CHARS, CHARS_TO_BYTES
 from .core import AddedToken, Tokenizer
+from .normalizers import normalize_str
+from .pretokenizers import pre_tokenize_str
 
 # The canonical byte-level normalizer/pre-tokenizer installed on converted
 # tokenizers.
@@ -48,6 +54,38 @@ def is_byte_level(tokenizer_data: dict) -> bool:
     )
 
 
+def _get_byte_fn(tok: Tokenizer, tokenizer_data: dict):
+    """(token -> byte-char surface form, continuing_subword_prefix)
+    (``convert.py:55-80``): the identity for byte-level tokenizers; else the
+    metaspace character (found by normalizing and pre-tokenizing " test")
+    becomes a space, a continuing-subword prefix is stripped (a token without
+    it starts a word: a space is prepended), and the UTF-8 bytes map to the
+    byte alphabet."""
+    if is_byte_level(tokenizer_data):
+        assert not (tokenizer_data["model"].get("continuing_subword_prefix") or "")
+        return (lambda x: x), None
+
+    probe = normalize_str(tok.normalizer, " test")
+    if tok.pre_tokenizer is not None:
+        pieces = pre_tokenize_str(tok.pre_tokenizer, probe)
+        probe = pieces[0][0] if pieces else probe
+    meta_char = probe[0] if probe and probe[0] != " " and probe != "test" else None
+
+    continuing_subword_prefix = tokenizer_data["model"].get("continuing_subword_prefix")
+
+    def to_byte_fn(token: str) -> str:
+        if meta_char is not None:
+            token = token.replace(meta_char, " ")
+        if continuing_subword_prefix is not None:
+            if token.startswith(continuing_subword_prefix):
+                token = token[len(continuing_subword_prefix):]
+            else:
+                token = " " + token
+        return "".join(BYTES_TO_CHARS[b] for b in token.encode("utf-8"))
+
+    return to_byte_fn, continuing_subword_prefix
+
+
 def _fix_postprocessor_data(data: dict, surface_forms: List[str]):
     """Remap special-token ids inside a post-processor to the new vocab."""
     if data["type"] == "TemplateProcessing":
@@ -66,19 +104,24 @@ def _fix_postprocessor_data(data: dict, surface_forms: List[str]):
 def _rederive_bpe_merges(
     surface_forms: List[str],
     raw_merges: List,
+    to_byte_fn,
     special_tokens: Set[str],
     byte_fallback_tokens: Set[str],
+    already_byte_level: bool,
     original_length: int,
     make_whitespace_consistent: bool,
 ) -> Tuple[List[str], List[Tuple[str, str]]]:
-    """Keep the merges, then derive merges for the tokens appended by the
-    conversion whose BPE derivation chain does not exist."""
+    """Remap the merges through ``to_byte_fn``, then derive merges for the
+    tokens whose BPE derivation chain the rewrite broke (every token of a
+    rewritten tokenizer is checked; of a byte-level one, those the
+    conversion appended)."""
     extra_ws = EXTRA_WHITESPACE_CHARS
 
     inv_merges: Dict[str, List[Tuple[str, str]]] = {}
     merges: List[Tuple[str, str]] = []
     for merge in raw_merges:
         x, y = merge.split(" ") if isinstance(merge, str) else (merge[0], merge[1])
+        x, y = to_byte_fn(x), to_byte_fn(y)
         z = x + y
         if make_whitespace_consistent and sum(c in extra_ws for c in z) > 1:
             continue
@@ -128,8 +171,9 @@ def _rederive_bpe_merges(
                         new_vocab.add(c1 + c2)
         return new_merges, new_vocab
 
+    to_check = surface_forms[original_length:] if already_byte_level else surface_forms
     problematic: Set[str] = set()
-    for token in surface_forms[original_length:]:
+    for token in to_check:
         if (
             token in special_tokens
             or token in byte_fallback_tokens
@@ -164,7 +208,7 @@ def convert_to_byte_level(
     make_whitespace_consistent: bool = False,
     match_special_tokens_to: Optional[Tokenizer] = None,
 ) -> Tuple[Tokenizer, Optional[int]]:
-    """Convert a byte-level `tok` to the canonical byte-level tokenizer.
+    """Convert `tok` to the canonical byte-level tokenizer.
 
     Returns (converted_tokenizer, n_added_tokens) where n_added_tokens is the
     number of appended fill tokens, or None when original token indices were
@@ -172,18 +216,20 @@ def convert_to_byte_level(
     """
     tokenizer_data = tok.to_json()
     tokenizer_data.pop("added_tokens", None)
-    if not is_byte_level(tokenizer_data):
-        raise NotImplementedError(
-            "only byte-level tokenizers convert; the metaspace / "
-            "continuing-subword-prefix rewrite is not ported"
-        )
-    assert not (tokenizer_data["model"].get("continuing_subword_prefix") or "")
     original_data = copy.deepcopy(tokenizer_data)
     preserved_indices = True
     original_length = len(tok)
 
+    to_byte_fn, continuing_subword_prefix = _get_byte_fn(tok, tokenizer_data)
+    already_byte_level = is_byte_level(tokenizer_data)
+    if continuing_subword_prefix is not None:
+        tokenizer_data["model"]["continuing_subword_prefix"] = ""
+
     all_specials = set(tok.all_special_tokens)
-    surface_forms = [tok.id_to_token(i) for i in range(original_length)]
+    raw_tokens = [tok.id_to_token(i) for i in range(original_length)]
+    surface_forms = [
+        t if (t is None or t in all_specials) else to_byte_fn(t) for t in raw_tokens
+    ]
     # holes in the id space (can happen with sparse added ids) become unused markers
     surface_forms = [
         s if s is not None else f"<unused_hole__{i}>" for i, s in enumerate(surface_forms)
@@ -240,7 +286,7 @@ def convert_to_byte_level(
 
     model_type = tokenizer_data["model"]["type"]
     if model_type == "Unigram":
-        score_dict = {p: s for p, s in original_data["model"]["vocab"]}
+        score_dict = {to_byte_fn(p): s for p, s in original_data["model"]["vocab"]}
         for char in CHARS_TO_BYTES.keys():
             if char not in score_dict:
                 score_dict[char] = NEGATIVE_INF_FILL_VALUE
@@ -255,8 +301,10 @@ def convert_to_byte_level(
         surface_forms, merges = _rederive_bpe_merges(
             surface_forms,
             original_data["model"]["merges"],
+            to_byte_fn,
             set(special_tokens) | all_specials,
             byte_fallback_tokens,
+            already_byte_level,
             original_length,
             make_whitespace_consistent,
         )

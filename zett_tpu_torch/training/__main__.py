@@ -6,8 +6,12 @@ Usage:
 
 The same JSON configs as ``python -m zett_tpu.training`` (``_base``
 inheritance included) map onto ``TrainingConfig``, ``DataConfig`` and
-``HypernetConfig``. Runs on the card unless ``--device cpu`` is given, and
-raises when there is none. Metrics stream to ``<output_dir>/metrics.jsonl``;
+``HypernetConfig``; the backbone is GPT-2 or a Llama-family model (its
+``config.json``'s ``model_type``), and a source tokenizer that is not
+byte-level is converted first. Runs on the card unless ``--device cpu`` is
+given, and raises when there is none. One process on one device: a
+config's ``n_model_parallel`` runs without a mesh, as the JAX CLI does on
+one device. Metrics stream to ``<output_dir>/metrics.jsonl``;
 the trained hypernet is written to ``<output_dir>/final/`` in the transfer
 CLI's checkpoint format (``hn_config.json``, ``params.npz``,
 ``tokenizer.json``), so ``python -m zett_tpu_torch.transfer --checkpoint
@@ -164,9 +168,9 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     """``zett_tpu/training/__main__.py:102`` without distributed init,
     trackers, cost analysis and profiling. Returns (trainer, history)."""
     from ..data import Collator, TrainDataset
-    from ..models.backbones.gpt2 import GPT2Config
     from ..models.backbones.hf_io import load_hf_state_dict
-    from ..models.backbones.registry import IN_EMBEDDING_KEYS, check_supported, is_output_tied
+    from ..models.backbones.registry import (IN_EMBEDDING_KEYS, check_supported,
+                                             config_from_hf, is_output_tied)
     from ..tokenization.convert import convert_to_byte_level, is_byte_level
     from ..tokenization.core import Tokenizer
     from ..transfer.__main__ import resolve_device
@@ -183,7 +187,7 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
         bb_config_json = json.load(f)
     model_type = bb_config_json["model_type"]
     check_supported(model_type)
-    bb_config = GPT2Config.from_hf(bb_config_json)
+    bb_config = config_from_hf(model_type, bb_config_json)
     bb_state = load_hf_state_dict(model_dir)
 
     reference = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
@@ -250,6 +254,10 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
                                      fixed_tokenizer=reference.copy(),
                                      lang_code=data_cfg.langs[0], seed=train_cfg.seed)
 
+    # one device: n_model_parallel shards nothing (zett_tpu/training/__main__.py:
+    # 274-278 builds a mesh only across devices)
+    print(f"{model_type} backbone on one device ({dev}); n_model_parallel "
+          f"{train_cfg.n_model_parallel} runs without a mesh", flush=True)
     trainer = Trainer(hn_config=hn_cfg, backbone_config=bb_config, backbone_state=bb_state,
                       model_type=model_type, train_config=train_cfg, device=dev,
                       hn_pad_token_id=hn_cfg.pad_token_id)

@@ -1,5 +1,6 @@
 """Training configuration (counterpart of ``zett_tpu/training/config.py``:
-the same fields and defaults, so the same JSON configs load). The port runs
+the same fields and defaults, so the same JSON configs load, and one field
+of the port's own, ``remat_hypernet_glue``). The port runs
 ``backbone_training="no"`` and the CLM loss; the Trainer raises for the
 other settings. Resume and preemption are keys of the CLI's config
 (``resume_from_checkpoint``, ``resume_reset_steps``, ``preempt_signal``),
@@ -51,6 +52,12 @@ class TrainingConfig:
     remat_hypernet: bool = False
     loss_chunk_size: int = 0
     remat_backbone: bool = False
+    # the port's own lever (no JAX key: XLA's fusion keeps these tensors
+    # out of memory there): the hypernet's f32 LayerNorm and gelu glue on
+    # the training route keep only their inputs for the backward and
+    # recompute the rest (models.hypernet.remat_glue), inside the
+    # remat_hypernet recompute too
+    remat_hypernet_glue: bool = False
     # batches collated and copied to the device ahead of the step on a
     # thread (0: each batch is pulled between steps)
     prefetch_batches: int = 2

@@ -5,8 +5,9 @@ and in-training eval.
 One train step (``engine.py:500-543``): the hypernet predicts the
 embeddings of the batch's vocab rows on its training route (kernels 2 and
 3 for every attention core); the source model's special-token rows are
-spliced in; the frozen GPT-2 runs with the predicted table as its tied
-embeddings; the loss is the CLM loss plus the weighted lexical loss; the
+spliced in; the frozen backbone (GPT-2 or the Llama family) runs with the
+predicted input table, and with the predicted output table as its head
+when the head is untied; the loss is the CLM loss plus the weighted lexical loss; the
 gradients of every parameter, the frozen backbone's included, go through
 the optimizer (``optimizer.py``), which updates the hypernet only. The
 identity step (``engine.py:545-573``) regresses the predicted embeddings of
@@ -20,19 +21,24 @@ computed once and reused across batches (``eval_step_cached``,
 
 The memory levers (``engine.py:341-346``, ``:397-498``): ``remat_hypernet``
 runs the hypernet's training forward under ``torch.utils.checkpoint``;
-``remat_backbone`` each GPT-2 block; ``loss_chunk_size`` computes the CLM
+``remat_hypernet_glue`` (the port's own) rematerializes its f32 LayerNorm
+and gelu glue op by op (``models.hypernet.remat_glue``: what XLA's fusion
+keeps out of memory);
+``remat_backbone`` each backbone block; ``loss_chunk_size`` computes the CLM
 loss, in training and in eval, from the backbone's final hidden states
 chunk by chunk (``losses.chunked_clm_loss``/``chunked_clm_eval``), so the
 (B, L, V) logits never exist. The loop (``fit``) prefetches batches on a
 thread (``prefetch.BatchPrefetcher``), writes full-state checkpoints
 (parameters, optimizer state, step, dropout generator) and resumes from
 them by replaying the data stream, and on a preemption signal checkpoints
-and returns. Not ported: MLM, backbones other than GPT-2, full backbone
-fine-tuning, multi-GPU (and with it the multihost preemption agreement).
+and returns. Not ported: MLM, backbones other than GPT-2 and the Llama
+family, full backbone fine-tuning, multi-GPU (and with it the multihost
+preemption agreement).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -45,10 +51,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..constants import NEGATIVE_INF_FILL_VALUE
-from ..models.backbones.gpt2 import GPT2Config, GPT2LMHeadModel
-from ..models.backbones.registry import headless_model, resolve_out_path
-from ..models.convert import flax_paths, flax_to_torch, torch_to_flax
-from ..models.hypernet import Hypernet, HypernetConfig
+from ..models.backbones.registry import build_model, headless_model, resolve_out_path
+from ..models.convert import backbone_flax_path, flax_paths, flax_to_torch, torch_to_flax
+from ..models.hypernet import Hypernet, HypernetConfig, remat_glue
 from ..models.splice import extract_embeddings
 from .losses import chunked_clm_eval, chunked_clm_loss, lexical_loss, lm_loss
 from .optimizer import build_optimizer
@@ -59,30 +64,12 @@ from .state import TrainState
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def gpt2_flax_path(key: str) -> tuple:
-    """HF GPT-2 key -> the JAX package's Flax path (``loader.convert_gpt2``):
-    the optimizer's labels, decay mask and leaf order read these."""
-    parts = key.split(".")
-    leaf = {"weight": "kernel", "bias": "bias"}
-    if parts[1] in ("wte", "wpe"):
-        return ("transformer", parts[1], "embedding")
-    if parts[1] == "ln_f":
-        return ("transformer", "ln_f", "scale" if parts[2] == "weight" else "bias")
-    base = ("transformer", f"h_{parts[2]}")
-    rest = parts[3:]
-    if rest[0] in ("ln_1", "ln_2"):
-        return base + (rest[0], "scale" if rest[1] == "weight" else "bias")
-    if rest[0] == "attn":
-        return base + ("attn", rest[1], leaf[rest[2]])
-    return base + (rest[1], leaf[rest[2]])  # mlp.c_fc / mlp.c_proj
-
-
 class Trainer:
     def __init__(
         self,
         *,
         hn_config: HypernetConfig,
-        backbone_config: GPT2Config,
+        backbone_config,
         backbone_state: Dict[str, torch.Tensor],
         model_type: str,
         train_config,
@@ -103,9 +90,10 @@ class Trainer:
         self.dtype = DTYPES[cfg.dtype]
         self.hn_pad_token_id = hn_pad_token_id
 
-        source, original_vocab = extract_embeddings(backbone_state, model_type)
+        source, original_vocab = extract_embeddings(backbone_state, model_type,
+                                                    config=backbone_config)
         self.source_embeddings = source.to(self.dtype).to(self.device)
-        self.out_tied = resolve_out_path(model_type, backbone_state) is None
+        self.out_tied = resolve_out_path(model_type, backbone_state, backbone_config) is None
         if hn_config.embed_using_source_embeddings and hn_config.original_vocab_size == 0:
             hn_config = dataclasses.replace(hn_config, original_vocab_size=original_vocab)
         self.hn_config = hn_config
@@ -115,7 +103,8 @@ class Trainer:
                   for k, v in backbone_state.items()}
         # per-block remat (engine.py:178-186)
         backbone_config = dataclasses.replace(backbone_config, remat_blocks=cfg.remat_backbone)
-        self.backbone = GPT2LMHeadModel(backbone_config, frozen, self.dtype).to(self.device)
+        self.backbone = build_model(model_type, backbone_config, frozen,
+                                    self.dtype).to(self.device)
         self.headless = headless_model(model_type, self.backbone)
         self.hypernet = Hypernet(hn_config, dtype=self.dtype)
         if hn_params is not None:
@@ -135,7 +124,7 @@ class Trainer:
             if transpose:
                 transposed.append(("hypernet",) + path)
         for key, p in self.backbone.named_hf_parameters():
-            self.params[("inner",) + gpt2_flax_path(key)] = p
+            self.params[("inner",) + backbone_flax_path(model_type, key)] = p
 
         self.random_lr_fn, _ = create_learning_rate_fn(cfg)
         self.optimizer = build_optimizer(self.params, cfg, self.random_lr_fn, transposed)
@@ -164,6 +153,15 @@ class Trainer:
                       else t.to(self.device))
         return out
 
+    @staticmethod
+    def _source_rows(table, ids):
+        """Rows ``ids`` of a source table, ids past its end clamped to its
+        last row, as a JAX gather ``table[ids]`` clamps them
+        (``engine.py:520``). A converted source tokenizer can hold more
+        tokens than the source model has rows (TinyLlama's 32000-row table
+        has no padding rows to spare; ROADMAP C.7)."""
+        return table[ids.clamp(max=table.shape[0] - 1)]
+
     def _split_source(self):
         n_embd = self.hn_config.n_embd
         src_in = self.source_embeddings[:, :n_embd]
@@ -183,9 +181,14 @@ class Trainer:
             generator = self.state.dropout_generator
         args = (b["target_surface_forms"], b.get("target_priors"), self.source_embeddings,
                 b.get("lang_index"))
+
+        def glue():
+            return remat_glue() if self.cfg.remat_hypernet_glue else contextlib.nullcontext()
+
         if not (remat and torch.is_grad_enabled()):
-            return self.hypernet(*args, deterministic=deterministic, inference=inference,
-                                 generator=generator)
+            with glue():
+                return self.hypernet(*args, deterministic=deterministic, inference=inference,
+                                     generator=generator)
         start = generator.get_state() if generator is not None else None
         end = []
 
@@ -194,8 +197,10 @@ class Trainer:
             if start is not None:
                 g = torch.Generator()
                 g.set_state(start)
-            out = self.hypernet(*inputs, deterministic=deterministic, inference=inference,
-                                generator=g)
+            # the backward's recompute runs here too
+            with glue():
+                out = self.hypernet(*inputs, deterministic=deterministic, inference=inference,
+                                    generator=g)
             if g is not None and not end:
                 end.append(g.get_state())
             return out
@@ -219,10 +224,12 @@ class Trainer:
         return emb_in, emb_out, biases
 
     def _logits(self, b, emb_in, emb_out, biases):
-        """The frozen backbone with the predicted table, plus the vocab mask
-        and the configured bias terms (``engine.py:370-385``)."""
+        """The frozen backbone with the predicted tables (the output table as
+        the head when it is untied), plus the vocab mask and the configured
+        bias terms (``engine.py:370-385``)."""
         cfg = self.cfg
-        logits = self.backbone(b["input_ids"].long(), b["attention_mask"], emb_in)
+        head = () if self.out_tied else (emb_out,)
+        logits = self.backbone(b["input_ids"].long(), b["attention_mask"], emb_in, *head)
         vocab_mask = torch.where(b["mask"], 0.0, float(NEGATIVE_INF_FILL_VALUE))
         logits = logits + vocab_mask.to(logits.dtype)[None, None, :]
         if cfg.learnable_bias:
@@ -245,7 +252,8 @@ class Trainer:
 
     def _headless(self, b, emb_in, emb_out):
         """(final hidden states, head weights) of the spliced backbone
-        (``engine.py:408-425``); gpt2's head is the predicted input table."""
+        (``engine.py:408-425``): the predicted output table when the head is
+        untied, else the input table."""
         hidden = self.headless(b["input_ids"].long(), b["attention_mask"], emb_in)
         head_w = emb_out if (not self.out_tied and emb_out is not None) else emb_in
         return hidden, head_w
@@ -264,8 +272,8 @@ class Trainer:
             loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
         if hn_cfg.embed_using_source_embeddings and cfg.lexical_loss_weight > 0:
             sf = b["target_surface_forms"].long()
-            target_in = src_in[sf[:, 0]]
-            target_out = src_out[sf[:, 0]] if src_out is not None else None
+            target_in = self._source_rows(src_in, sf[:, 0])
+            target_out = self._source_rows(src_out, sf[:, 0]) if src_out is not None else None
             overlap = (sf[:, 1:] == self.hn_pad_token_id).all(dim=1)
             lex = lexical_loss(emb_in, emb_out, target_in, target_out, overlap,
                                cfg.lexical_loss_kind)
@@ -275,10 +283,13 @@ class Trainer:
     def _identity_loss(self, b):
         src_in, src_out = self._split_source()
         emb_in, emb_out, _ = self._hypernet(b, deterministic=True)
+        # JAX takes the rows with jnp.take, which fills ids past the table
+        # with NaN (ROADMAP C.7): the port clamps them as the lexical
+        # loss's gather does
         ids = b["ids_to_embed"].long()
-        in_loss = torch.square(emb_in - src_in[ids]).sum(-1).mean()
+        in_loss = torch.square(emb_in - self._source_rows(src_in, ids)).sum(-1).mean()
         if src_out is not None and emb_out is not None:
-            out_loss = torch.square(emb_out - src_out[ids]).sum(-1).mean()
+            out_loss = torch.square(emb_out - self._source_rows(src_out, ids)).sum(-1).mean()
             return (in_loss + out_loss) / 2.0
         return in_loss
 

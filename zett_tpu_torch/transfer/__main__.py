@@ -3,7 +3,8 @@
 Usage:
   python -m zett_tpu_torch.transfer \\
       --checkpoint CKPT_DIR         # hn_config.json + params.npz + tokenizer.json
-      --model MODEL_DIR             # HF gpt2 dir (config.json + weights + tokenizer.json)
+      --model MODEL_DIR             # HF gpt2 or Llama-family dir (config.json + weights
+                                    # + tokenizer.json)
       --target-tokenizer TOK        # tokenizer.json (or dir containing it)
       --output OUT_DIR
       [--hn-tokenizer TOK] [--batch-size N] [--do-batch-sampling] [--min-k K]
@@ -12,9 +13,12 @@ Usage:
 The checkpoint directory holds ``hn_config.json`` (the HypernetConfig fields,
 plus an optional ``"dtype"``: ``"float32"`` (default) or ``"bfloat16"``, the
 hypernet's compute dtype), ``params.npz`` (the Flax parameter tree, one array
-per "/"-joined path) and the hn tokenizer's ``tokenizer.json``. Writes
-``model.safetensors``, ``config.json``, ``tokenizer.json`` and ``bias.npy``.
-Runs on the card unless ``--device cpu`` is given.
+per "/"-joined path) and the hn tokenizer's ``tokenizer.json``. A source
+tokenizer that is not byte-level (a Llama-family sentencepiece/metaspace
+one) is converted to byte level first. Writes ``model.safetensors`` (an
+untied head gets the predicted output table), ``config.json`` (with the new
+``vocab_size``), ``tokenizer.json`` and ``bias.npy``. Runs on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     from ..models.backbones.hf_io import load_hf_state_dict, save_hf_model
-    from ..models.backbones.registry import IN_EMBEDDING_KEYS, check_supported
+    from ..models.backbones.registry import IN_EMBEDDING_KEYS, check_supported, resolve_out_path
     from ..models.splice import splice_embeddings
     from ..tokenization.convert import convert_to_byte_level, is_byte_level
     from ..tokenization.core import Tokenizer
@@ -101,13 +105,16 @@ def main(argv=None):
         source_tokenizer, _ = convert_to_byte_level(source_tokenizer)
 
     emb_in = state_dict[IN_EMBEDDING_KEYS[model_type]].float().numpy()
+    out_key = resolve_out_path(model_type, state_dict, bb_config_json)
+    emb_out = state_dict[out_key].float().numpy() if out_key is not None else None
     target_tokenizer = Tokenizer.from_file(_tokenizer_path(args.target_tokenizer))
 
-    new_in, _, bias, converted_target = transfer(
+    new_in, new_out, bias, converted_target = transfer(
         hypernet=hypernet,
         hn_tokenizer=hn_tokenizer,
         source_tokenizer=source_tokenizer,
         source_embeddings_in=emb_in,
+        source_embeddings_out=emb_out,
         target_tokenizer=target_tokenizer,
         lang_index=args.lang_index,
         batch_size=args.batch_size,
@@ -118,12 +125,14 @@ def main(argv=None):
 
     spliced = splice_embeddings(
         state_dict, model_type, torch.from_numpy(new_in),
-        tie_word_embeddings=bb_config_json.get("tie_word_embeddings", True),
+        torch.from_numpy(new_out) if (new_out is not None and out_key is not None) else None,
+        tie_word_embeddings=bb_config_json.get("tie_word_embeddings", model_type == "gpt2"),
     )
     bb_config_json["vocab_size"] = int(new_in.shape[0])
     save_hf_model(args.output, spliced, bb_config_json)
     converted_target.save(os.path.join(args.output, "tokenizer.json"))
-    # GPT-2 has no lm-head bias: the predicted bias is a side artifact
+    # no supported family has an lm-head bias: the predicted bias is a side
+    # artifact
     np.save(os.path.join(args.output, "bias.npy"), bias)
     print(f"transferred {model_type} -> {len(converted_target)} tokens at {args.output}")
 
