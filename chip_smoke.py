@@ -121,7 +121,28 @@ Phases (any failure exits non-zero and prints no result):
      share, peak memory; (e) the transfer CLI to llama0001 from the
      trained final/: both tables at 32771 rows and different, config.json's
      vocab_size, the written model's logits through the port's Llama, the
-     hypernet per 32k vocab, idle share and kernel launches.
+     hypernet per 32k vocab, idle share and kernel launches;
+ 15. Mistral-7B (mistralai/Mistral-7B-v0.1's published config.json, every
+     width kept, cut to MISTRAL_LAYERS layers, random bf16 weights from a
+     seed, a 32000-piece metaspace tokenizer): (a) the model directory; (b)
+     kernels 1 to 5 at 32 heads against their plain versions (kernel 1 at
+     B 16384, H 4096, 32 heads of 128, I 8192 at L 7 and 8; kernel 2 at the
+     transfer's CLS shape, Lk 7 and 8; kernels 2 and 3 at B 32896, L 7 with
+     a train batch's all-padding share, rates 0 and 0.1; kernel 1 at 32
+     heads of 64 on its seven-launch route, kernels 4 and 5 at 32 heads of
+     64), bf16 timed beside the bound, the plain version and the library
+     call, f32 at a smaller batch; (c) the hypernet of both Mistral configs
+     on 256 surface forms, card vs CPU, f32, with and without the language
+     id; (d) the transfer CLI on its default device from a seeded
+     checkpoint at mistral7b_en_code_lw0.5_long and (at --lang-index 0 and
+     5, whose tables must differ) mistral7b_multilingual_lw0.5_long to
+     llama0001: exact launches, both tables, wall and peak memory, the
+     hypernet per 32k vocab, its idle share, its device time by kernel and
+     its matrix products by input shapes; (e) the training CLI at
+     tinyllama_multilingual_lw0.5_long (26 languages, batch 128, vocab
+     sample 32768, the four levers) on phase 14's TinyLlama, 1 identity and
+     2 train steps: finite losses, exact launches, lang_embedding's
+     gradient nonzero.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -170,6 +191,19 @@ OFF_PATH = ("merged_attention", "viterbi_dp")
 
 def log(*args):
     print(*args, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase(title):
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{title} [{time.perf_counter() - T_START:.1f} s into the run]")
+
+
+def step(title):
+    """A sub-phase's heading, indented, with the seconds since the start."""
+    phase(f"  {title}")
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -289,19 +323,25 @@ def check_build():
 
 
 # --------------------------------------------------------------------- phase 2
-def layer_inputs(B, L, dtype, gen, H=768, I=1536):
+def layer_inputs(B, L, dtype, gen, H=768, I=1536, fan_in=False):
+    """An encoder layer's operands: weights of std 0.03 (about 1/sqrt(768),
+    gpt2_en's fan-in), or with ``fan_in`` of std 1/sqrt(fan_in), the scale
+    the hypernet's lecun-normal init gives at any width."""
     def mk(shape, s):
-        return (torch.randn(shape, generator=gen) * s).to(dtype).cuda()
+        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(dtype).cuda()
+
+    def std(k):
+        return k ** -0.5 if fan_in else 0.03
 
     x = mk((B, L, H), 1.0)
-    mask = torch.rand(B, L, generator=gen) > 0.3
+    mask = torch.rand(B, L, generator=gen, device=gen.device) > 0.3
     mask[:, 0] = True
     mask[1::97] = False  # all-padding surface forms
-    ws = [mk((H, H), 0.03) for _ in range(4)]
+    ws = [mk((H, H), std(H)) for _ in range(4)]
     bs = [mk((H,), 0.01) for _ in range(4)]
-    w1, b1, w2, b2 = mk((H, I), 0.03), mk((I,), 0.01), mk((I, H), 0.03), mk((H,), 0.01)
-    lns = (1 + 0.1 * torch.randn(H, generator=gen)).cuda()
-    lnb = (0.1 * torch.randn(H, generator=gen)).cuda()
+    w1, b1, w2, b2 = mk((H, I), std(H)), mk((I,), 0.01), mk((I, H), std(I)), mk((H,), 0.01)
+    lns = (1 + 0.1 * torch.randn(H, generator=gen, device=gen.device)).cuda()
+    lnb = (0.1 * torch.randn(H, generator=gen, device=gen.device)).cuda()
     return (x, mask.cuda(), ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],
             lns, lnb, w1, b1, w2, b2, lns, lnb)
 
@@ -346,19 +386,22 @@ def port_kernels_per_call(run, reps=3):
     return len(ours) / reps, sorted({n.split("(")[0] for n in ours})
 
 
-def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
+def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536, fan_in=False,
+                  plain_reps=5):
     """Kernel 1 against its plain version, and (bf16) its plan and the
     device kernels a call launches (at most four); with ``timed``, its
     median single-call time, its back-to-back time and its wrapper's host
     ms beside the plain version's, nn.TransformerEncoderLayer's and the
     bound; with ``split``, its device time by kernel and each GEMM against
-    cuBLAS."""
+    cuBLAS; ``fan_in``: weights at the init's 1/sqrt(fan_in) (layer_inputs),
+    and in bf16 both the kernel and the plain version beside the same layer
+    evaluated in f32 on the same bf16 operands."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.encoder_layer import (encoder_layer, encoder_layer_reference,
                                                    layer_plan)
 
     eps = 1e-5
-    args = layer_inputs(B, L, dtype, gen, H, I)
+    args = layer_inputs(B, L, dtype, gen, H, I, fan_in=fan_in)
     before = _build.launch_counts["encoder_layer"]
     got = encoder_layer(*args, num_heads=h, eps=eps)
     torch.cuda.synchronize()
@@ -367,6 +410,20 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
     with torch.no_grad():
         ref = encoder_layer_reference(*args, h, eps)
     tag = f"kernel 1 B={B} L={L} {str(dtype)[6:]}" + ("" if H == 768 else f" H={H} h={h} I={I}")
+    if fan_in and dtype == torch.bfloat16:
+        with torch.no_grad():
+            exact = encoder_layer_reference(
+                *[a.float() if torch.is_tensor(a) and a.dtype == dtype else a for a in args],
+                h, eps)
+
+        def off(t):
+            e = (t.float() - exact).abs().flatten()
+            p999 = torch.topk(e, max(1, e.numel() // 1000)).values[-1]
+            return f"mean {float(e.mean()):.4g}, p99.9 {float(p999):.4g}, max {float(e.max()):.4g}"
+
+        log(f"  {tag}: against the layer in f32 on the same bf16 operands: kernel {off(got)}; "
+            f"plain version {off(ref)}")
+        del exact
     err = compare(got, ref, dtype, tag)
     del got, ref
 
@@ -398,7 +455,8 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
     host_ms = (time.perf_counter() - t0) / 20 * 1e3  # enqueue: the repack, allocations, launch
     torch.cuda.synchronize()
     with torch.no_grad():
-        plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=5)
+        plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=plain_reps,
+                             warmup=min(3, plain_reps))
         lib = library_encoder_layer(args, h)
         library_ms = median_ms(lib, reps=10)
     size = torch.finfo(dtype).bits // 8
@@ -421,15 +479,17 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def check_kernel2(B, Lk, dtype, gen, timed):
+def check_kernel2(B, Lk, dtype, gen, timed, h=12, d=64):
+    """Kernel 2 at the transfer's CLS-only layer (one query position over
+    Lk keys, h heads of d) against its plain version; with ``timed``, times
+    beside the plain version, SDPA and the bound."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.attention_core import attention_core, attention_core_reference
 
-    h, d = 12, 64
-    qm = (torch.randn(B, h, d, generator=gen)).to(dtype).cuda()
-    km = (torch.randn(B, Lk * h, d, generator=gen)).to(dtype).cuda()
-    vm = (torch.randn(B, Lk * h, d, generator=gen)).to(dtype).cuda()
-    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    qm = (torch.randn(B, h, d, generator=gen, device=gen.device)).to(dtype).cuda()
+    km = (torch.randn(B, Lk * h, d, generator=gen, device=gen.device)).to(dtype).cuda()
+    vm = (torch.randn(B, Lk * h, d, generator=gen, device=gen.device)).to(dtype).cuda()
+    mask = torch.rand(B, Lk, generator=gen, device=gen.device) > 0.3
     mask[:, 0] = True
     mask[1::97] = False
     kmaskf = mask.repeat_interleave(h, dim=-1).float().cuda()
@@ -439,7 +499,8 @@ def check_kernel2(B, Lk, dtype, gen, timed):
     if _build.launch_counts["attention_core"] != before + 1:
         raise AssertionError("attention_core did not count its launch")
     ref = attention_core_reference(qm, km, vm, kmaskf, h)
-    err = compare(got, ref, dtype, f"kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}")
+    tag = f"kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}" + ("" if h == 12 else f" h={h} d={d}")
+    err = compare(got, ref, dtype, tag)
     if not timed:
         return None
     ms = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h))
@@ -455,7 +516,7 @@ def check_kernel2(B, Lk, dtype, gen, timed):
     flops = 2 * 2 * B * h * Lk * d
     nbytes = (2 * B * h * d + 2 * B * Lk * h * d) * size + B * Lk * h * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    log(f"  kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}: {ms:.4f} ms (back to back "
+    log(f"  {tag}: {ms:.4f} ms (back to back "
         f"{b2b:.4f} ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -463,7 +524,7 @@ def check_kernel2(B, Lk, dtype, gen, timed):
 
 
 def phase_kernels():
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         for L in (7, 4):
@@ -493,14 +554,14 @@ def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64, padding_rows=0):
     key mask with all-padding rows (every 97th, or ``padding_rows`` rows
     drawn at random)."""
     def mk(L):
-        return torch.randn(B, L * h, d, generator=gen).to(dtype).cuda()
+        return torch.randn(B, L * h, d, generator=gen, device=gen.device).to(dtype).cuda()
 
     qm, km, vm, dout = mk(Lq), mk(Lk), mk(Lk), mk(Lq)
-    mask = torch.rand(B, Lk, generator=gen) > 0.3
+    mask = torch.rand(B, Lk, generator=gen, device=gen.device) > 0.3
     mask[:, 0] = True
     mask[1::97] = False  # all-padding surface forms
     if padding_rows:
-        mask[torch.randperm(B, generator=gen)[:padding_rows]] = False
+        mask[torch.randperm(B, generator=gen, device=gen.device)[:padding_rows]] = False
     return qm, km, vm, dout, mask.repeat_interleave(h, dim=-1).float().cuda(), mask.cuda()
 
 
@@ -526,11 +587,11 @@ def sdpa_layout(qm, km, vm, mask, Lq, Lk, h=12, d=64):
 
 
 def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows=0, h=12,
-                     d=64):
+                     d=64, plain_reps=5, reps=20):
     """Kernels 2 and 3 against their plain versions at one training shape,
     dtype, head count and width and dropout rate; with ``timed``, their
-    median times beside the plain versions', SDPA's (forward; backward) and
-    the bounds."""
+    median times beside the plain versions' (median of ``plain_reps``),
+    SDPA's (forward; backward) and the bounds."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.attention_core import (
         attention_core, attention_core_bwd, attention_core_bwd_reference,
@@ -539,7 +600,7 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     qm, km, vm, dout, kmaskf, mask = core_inputs(B, Lq, Lk, dtype, gen, h=h, d=d,
                                                  padding_rows=padding_rows)
     tag = f"B={B} Lq*h={Lq * h} Lk*h={Lk * h} {str(dtype)[6:]} rate {rate}"
-    if d != 64:
+    if (h, d) != (12, 64):
         tag += f" h={h} d={d}"
     if padding_rows:
         tag += f" ({int((~mask).all(1).sum())} all-padding rows)"
@@ -558,15 +619,16 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     del out, grads, refs
     if not timed:
         return None
-    ms_f = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed))
-    b2b = burst_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed))
-    ms_b = median_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed))
-    b2b_b = burst_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed))
+    ms_f = median_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed), reps=reps)
+    b2b = burst_ms(lambda: attention_core(qm, km, vm, kmaskf, h, rate, seed), n=reps)
+    ms_b = median_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed),
+                     reps=reps)
+    b2b_b = burst_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed), n=reps)
     plain_f = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h, rate, seed),
-                        reps=5, warmup=1)
+                        reps=plain_reps, warmup=1)
     plain_b = median_ms(
         lambda: attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed),
-        reps=5, warmup=1)
+        reps=plain_reps, warmup=1)
     q4, k4, v4, amask = sdpa_layout(qm, km, vm, mask, Lq, Lk, h, d)
     q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -594,8 +656,8 @@ def observed_keep(B, Lq, Lk, rate, seed, gen, h=12):
     (0 where dropped). Returns bool (B, h, Lq, Lk)."""
     from zett_tpu_torch.ops.attention_core import attention_core
 
-    qm = torch.randn(B, Lq * h, 64, generator=gen).cuda()
-    km = torch.randn(B, Lk * h, 64, generator=gen).cuda()
+    qm = torch.randn(B, Lq * h, 64, generator=gen, device=gen.device).cuda()
+    km = torch.randn(B, Lk * h, 64, generator=gen, device=gen.device).cuda()
     vm = torch.zeros(B, Lk, h, 64)
     for j in range(Lk):
         vm[:, j, :, j] = 1.0
@@ -631,7 +693,7 @@ def check_dropout(gen, rate=0.1):
 
 
 def phase_train_kernels():
-    gen = torch.Generator().manual_seed(SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         for rate in (0.0, 0.1):
@@ -1034,9 +1096,9 @@ def write_checkpoint(path, vocab, rng, config=GPT2_EN):
     return cfg
 
 
-def hypernet_batches(ckpt, model_dir, target_path, batch_size):
+def hypernet_batches(ckpt, model_dir, target_path, batch_size, lang_index=0):
     """The hypernet and its inputs for the target's whole vocab, batched and
-    length-bucketed as the transfer runs it."""
+    length-bucketed as the transfer runs it (at ``lang_index``)."""
     from zett_tpu_torch.constants import NEGATIVE_INF_FILL_VALUE
     from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
     from zett_tpu_torch.models.splice import extract_embeddings
@@ -1079,10 +1141,10 @@ def hypernet_batches(ckpt, model_dir, target_path, batch_size):
     def run():
         with torch.inference_mode():
             for b, p in batches:
-                hypernet(b, p, src)
+                hypernet(b, p, src, lang_index)
 
     with torch.inference_mode():
-        hypernet(*batches[0], src)  # warm-up
+        hypernet(*batches[0], src, lang_index)  # warm-up
     return run, len(target), [tuple(b.shape) for b, _ in batches]
 
 
@@ -1269,7 +1331,7 @@ def phase_transfer(config=GPT2_EN, tag="ckpt"):
 def block_bias(B, L, dtype, gen):
     """Prior-like key bias (B, L): Unigram log-probs, the padding fill on
     the last key of every 13th row."""
-    kb = torch.randn(B, L, generator=gen) * 2.0 - 9.0
+    kb = torch.randn(B, L, generator=gen, device=gen.device) * 2.0 - 9.0
     kb[::13, -1] = -100000.0
     return kb.to(dtype).cuda()
 
@@ -1348,8 +1410,9 @@ def check_kernel5(B, L, dtype, with_bias, gen, timed, h=12):
     from zett_tpu_torch.ops.attention_core import merged_attention, merged_attention_reference
 
     d = 64
-    qm, km, vm = (torch.randn(B, L * h, d, generator=gen).to(dtype).cuda() for _ in range(3))
-    mask = torch.rand(B, L, generator=gen) > 0.3
+    qm, km, vm = (torch.randn(B, L * h, d, generator=gen, device=gen.device).to(dtype).cuda()
+                  for _ in range(3))
+    mask = torch.rand(B, L, generator=gen, device=gen.device) > 0.3
     mask[:, 0] = True
     mask[1::97] = False  # all-padding surface forms
     mask = mask.cuda()
@@ -1396,7 +1459,7 @@ def check_block_backward(gen, B=2048, L=8, h=12):
 
     args = layer_inputs(B, L, torch.float32, gen)
     x, mask, w = args[0], args[1], args[2:10]
-    cot = torch.randn(B, L, x.shape[-1], generator=gen)
+    cot = torch.randn(B, L, x.shape[-1], generator=gen, device=gen.device)
     grads = {}
     for dev in ("cuda", "cpu"):
         leaves = [t.detach().to(dev).clone().requires_grad_() for t in (x, *w)]
@@ -1417,7 +1480,7 @@ def phase_block_kernels():
     """Kernels 4 and 5 at the transfer's B = 16384 (L = 8, and L = 5, the
     bucketed width below it) and the eval's fixed vocab (gpt_neox0001's
     32769 tokens padded to 32896 rows, L = 8), plus a ragged batch."""
-    gen = torch.Generator().manual_seed(SEED + 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         for B, L in ((16384, 8), (16384, 5), (32896, 8)):
@@ -2402,19 +2465,24 @@ def metaspace_tokenizer_json(n_vocab=32000):
 
 
 def write_tinyllama(path):
-    """The TinyLlama directory: the published config.json, seeded random
-    bf16 weights drawn on the card (projections and tables N(0, 0.02), the
-    RMSNorm weights 1) written as model.safetensors, and the metaspace
-    tokenizer.json. Returns the config."""
+    """The TinyLlama directory (``write_llama`` at TINYLLAMA)."""
+    return write_llama(path, TINYLLAMA, SEED + 14)
+
+
+def write_llama(path, hf_config, seed):
+    """A Llama-family directory: ``hf_config`` as config.json, seeded
+    random bf16 weights drawn on the card (projections and tables N(0,
+    0.02), the RMSNorm weights 1) written as model.safetensors, and the
+    metaspace tokenizer.json. Returns (the config, the state dict)."""
     from zett_tpu_torch.models.backbones.hf_io import save_safetensors
     from zett_tpu_torch.models.backbones.llama import LlamaConfig, weight_keys
 
-    cfg = LlamaConfig.from_hf(TINYLLAMA)
+    cfg = LlamaConfig.from_hf(hf_config)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kv = cfg.kv_heads * cfg.dims_per_head
     shapes = {"q_proj": (H, H), "k_proj": (kv, H), "v_proj": (kv, H), "o_proj": (H, H),
               "gate_proj": (I, H), "up_proj": (I, H), "down_proj": (H, I)}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     sd = {}
     for key in weight_keys(cfg):
         if key.endswith("norm.weight"):
@@ -2427,7 +2495,7 @@ def write_tinyllama(path):
     os.makedirs(path, exist_ok=True)
     save_safetensors(sd, os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(TINYLLAMA, f, indent=2)
+        json.dump(hf_config, f, indent=2)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(metaspace_tokenizer_json(V), f, ensure_ascii=False)
     return cfg, sd
@@ -2461,7 +2529,7 @@ def phase_head128_kernels():
     4096), kernels 2 and 3 at a train batch (B 32896, L 7 and CLS-only, 16
     heads), rates 0 and 0.1, and at a train batch's share of all-padding
     rows; bf16 timed, f32 at a smaller batch."""
-    gen = torch.Generator().manual_seed(SEED + 15)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     results = {}
     H, h, I = 2048, 16, 4096
     for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 2048)):
@@ -2509,8 +2577,9 @@ def phase_tinyllama():
     if len(source) != cfg.vocab_size or n_added is None or n_added < 0:
         raise AssertionError(f"tokenizer: {len(source)} pieces, n_added {n_added}")
 
-    log("  (b) kernels 1, 2 and 3 at head width 128")
+    step("(b) kernels 1, 2 and 3 at head width 128")
     kernels = phase_head128_kernels()
+    step("(c) the backbone card vs CPU")
 
     # (c) the backbone on the card against the CPU, f32, all 22 layers
     rng = np.random.default_rng(SEED + 16)
@@ -2533,7 +2602,9 @@ def phase_tinyllama():
     if not bool(torch.isfinite(got).all()) or err > 1e-4 * scale:
         raise AssertionError(f"the Llama backbone differs on the card: {err}")
 
+    step("(d) the training CLI")
     train = phase_tinyllama_training(model_dir)
+    step("(e) the transfer CLI")
     transfer = phase_tinyllama_transfer(model_dir, train["final"])
     log(f"  phase 14: {time.perf_counter() - t_phase:.3f} s wall")
     return kernels, train, transfer
@@ -2745,6 +2816,394 @@ def phase_tinyllama_transfer(model_dir, checkpoint):
                 idle=None if busy is None else 1 - busy / pass_wall)
 
 
+# -------------------------------------------------------------------- phase 15
+# mistralai/Mistral-7B-v0.1's published config.json (HF hub; named here, not
+# fetched): the weights are random, from a seed. The sliding window is
+# ignored, as the JAX module ignores it (blocks of at most 512 positions).
+MISTRAL = dict(
+    model_type="mistral", architectures=["MistralForCausalLM"], hidden_act="silu",
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, vocab_size=32000, max_position_embeddings=32768,
+    rope_theta=10000.0, rms_norm_eps=1e-5, sliding_window=4096, tie_word_embeddings=False,
+    bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16",
+)
+# the depth written (the cut: every width kept; the transfer reads the
+# whole model and writes it again, 14.5 GB at 32 layers, three times)
+MISTRAL_LAYERS = 2
+MISTRAL_RUNS = {name: os.path.join(REPO, "configs", "zeroshot", f"mistral7b_{name}_lw0.5_long.json")
+                for name in ("en_code", "multilingual")}
+TINYLLAMA_ML_RUN = os.path.join(REPO, "configs", "zeroshot",
+                                "tinyllama_multilingual_lw0.5_long.json")
+PADDING_ROWS = 18991  # a train batch's all-padding surface forms of 32896 (phase 7)
+
+
+def mistral_hypernet_config(name):
+    """The hypernet of configs/zeroshot/mistral7b_<name>_lw0.5_long.json as
+    the training CLI builds it over Mistral-7B: n_embd 4096, an untied head
+    (dual heads), the 32000-row source table, one language id a language."""
+    from zett_tpu_torch.training.__main__ import load_config_file, load_configs
+
+    config = load_config_file(MISTRAL_RUNS[name])
+    _, _, hn = load_configs(config)
+    langs = config["langs"]
+    return dataclasses.replace(
+        hn, n_embd=MISTRAL["hidden_size"], separate_out_embeddings=True,
+        original_vocab_size=MISTRAL["vocab_size"],
+        n_langs=len(langs) if isinstance(langs, list) else 1)
+
+
+def phase_heads32_kernels():
+    """Kernels 1 to 5 at 32 heads against their plain versions: kernel 1 at
+    Mistral-7B's hypernet (B 16384, H 4096, 32 heads of 128, I 8192) at L 7
+    and 8, kernel 2 at the transfer's CLS shape (B 16384, Lk 7 and 8),
+    kernels 2 and 3 at a train batch (B 32896, L 7) with its all-padding
+    share at rates 0 and 0.1, kernel 1 past the fused route's 16 heads of 64
+    and kernels 4 and 5 at 32 heads of 64; bf16 timed, f32 at a smaller
+    batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    results = {}
+    H, h, I = 4096, 32, 8192
+    for L in (7, 8):
+        for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 1024)):
+            # weights at the init's 1/sqrt(fan_in): at std 0.03 the
+            # activations grow with H, and at H 4096 the kernel and the plain
+            # version, equally close to the f32 layer, round 0.12% of outputs
+            # more than 2 ulps apart (NVIDIA H100 80GB HBM3, 700 W)
+            r = check_kernel1(B, L, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=I,
+                              fan_in=True, plain_reps=2)
+            if r is not None and L == 8:
+                results["encoder_layer_h32"] = r
+            gc_free()
+        for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 2048)):
+            r = check_kernel2(B, L, dtype, gen, timed=dtype == torch.bfloat16, h=h, d=128)
+            if r is not None and L == 8:
+                results["attention_core_h32"] = r
+        gc_free()
+    for rate in (0.0, 0.1):
+        # the plain versions take 2.6 s a call at rate 0.1 and kernel 3 0.4 s
+        # (NVIDIA H100 80GB HBM3, 700 W): fewer timed calls than the earlier phases' 20
+        _, bwd = check_train_core(32896, 7, 7, torch.bfloat16, rate, gen, timed=True, h=h,
+                                  d=128, padding_rows=PADDING_ROWS, plain_reps=1, reps=5)
+        if rate == 0.0:
+            results["attention_core_bwd_h32"] = bwd
+        gc_free()
+        check_train_core(2048, 7, 7, torch.float32, rate, gen, timed=False, h=h, d=128,
+                         padding_rows=1000)
+        gc_free()
+    # 32 heads of 64: kernel 1 past the fused route (the seven launches),
+    # kernels 4 and 5 at the transfer's L 8
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        check_kernel1(4096, 8, dtype, gen, timed=False, H=2048, h=h, I=4096, fan_in=True)
+        check_kernel4(16384 if timed else 2048, 8, dtype, False, gen, timed, H=2048, h=h)
+        check_kernel5(16384 if timed else 2048, 8, dtype, True, gen, timed, h=h)
+        gc_free()
+    return results
+
+
+def op_shapes(run, top=8):
+    """The matrix products of one run by input shapes (torch.profiler with
+    ``record_shapes``): each aten op's device time, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ("aten::mm", "aten::addmm", "aten::bmm")]
+
+    def device_ms(e):
+        return (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) / 1e3
+
+    for e in sorted(rows, key=device_ms, reverse=True)[:top]:
+        log(f"    {device_ms(e):9.3f} ms x{e.count:<4d} {e.key} {e.input_shapes}")
+
+
+def phase_mistral_hypernet(n=256):
+    """(c) The Mistral hypernet (both configs' widths), card against CPU,
+    f32, on ``n`` surface forms: the multilingual one at a language id (L 8:
+    kernel 1 on the two full layers, kernel 2 on the CLS one), then the same
+    weights without the language-id table at en_code's config (L 7)."""
+    from zett_tpu_torch.models import Hypernet
+    from zett_tpu_torch.models.convert import flax_to_torch
+    from zett_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(SEED + 21)
+    configs = {name: mistral_hypernet_config(name) for name in MISTRAL_RUNS}
+    vocab = MISTRAL["vocab_size"]
+    src = torch.from_numpy(0.02 * rng.standard_normal((vocab, 2 * MISTRAL["hidden_size"]),
+                                                      dtype=np.float32))
+    state = flax_to_torch(flax_layout(meta_hypernet(configs["multilingual"]), rng))
+    for name, lang in (("multilingual", 7), ("en_code", None)):
+        cfg = configs[name]
+        cpu_model = meta_hypernet(cfg)
+        cpu_model.load_state_dict({k: state[k] for k in cpu_model.state_dict()}, assign=True)
+        sf = torch.from_numpy(hypernet_inputs(rng, n, vocab, cfg.hn_surface_maxlen,
+                                              cfg.n_extra_tokens))
+        gpu_model = meta_hypernet(cfg)
+        gpu_model.load_state_dict({k: v.cuda() for k, v in cpu_model.state_dict().items()},
+                                  assign=True)
+        gpu_model.eval()
+        n_layers = cfg.num_hidden_layers
+        launched = {"encoder_layer": n_layers - 1, "attention_core": 1, "attention_block": 0}
+        before = dict(_build.launch_counts)
+        with torch.inference_mode():
+            got = gpu_model(sf.cuda(), None, src.cuda(), lang)
+            torch.cuda.synchronize()
+            counts = {k: _build.launch_counts[k] - before[k] for k in launched}
+            t0 = time.perf_counter()
+            ref = cpu_model(sf, None, src, lang)
+            cpu_s = time.perf_counter() - t0
+        L = cfg.hn_surface_maxlen + int(cfg.embed_lang_id)
+        log(f"  (c) {name} (L {L}, language id {lang}): launches {counts} (expected "
+            f"{launched}); the CPU forward {cpu_s:.3f} s")
+        if counts != launched:
+            raise AssertionError(f"the Mistral hypernet launched {counts}, expected {launched}")
+        for what, g, r in zip(("emb_in", "emb_out", "bias"), got, ref):
+            g, r = g.float().cpu().numpy(), r.float().numpy()
+            err = np.abs(g - r).max()
+            scale = np.abs(r).max()
+            # the tolerance of phase 3: f32 sums in another order
+            log(f"  (c) {name} {what}: max abs {err:.3g} at output scale {scale:.3g} "
+                f"(tol 1e-5 x scale)")
+            if not np.isfinite(g).all() or err > 1e-5 * max(scale, 1.0):
+                raise AssertionError(f"the Mistral hypernet's {what} differs: {err}")
+        del cpu_model, gpu_model, got, ref
+        gc_free()
+
+
+def meta_hypernet(cfg, dtype=torch.float32):
+    """A port Hypernet on the meta device: its parameters' shapes and
+    dtypes without the default init of ~0.7 G parameters (load a state with
+    ``assign=True``)."""
+    from zett_tpu_torch.models import Hypernet
+
+    with torch.device("meta"):
+        return Hypernet(cfg, dtype=dtype)
+
+
+def write_mistral_checkpoint(path, name, flat, hn_tokenizer):
+    """A hypernet checkpoint at mistral7b_<name>'s config (bf16 compute)
+    holding ``flat`` (f32, Flax paths) and the byte-level hn tokenizer, as
+    the training CLI's final/ holds them."""
+    cfg = mistral_hypernet_config(name)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "hn_config.json"), "w") as f:
+        json.dump({**cfg.to_dict(), "dtype": "bfloat16"}, f)
+    np.savez(os.path.join(path, "params.npz"), **flat)
+    hn_tokenizer.save(os.path.join(path, "tokenizer.json"))
+    return cfg
+
+
+def phase_mistral_transfer(model_dir):
+    """(d) python -m zett_tpu_torch.transfer on its default device from a
+    seeded hypernet checkpoint at each Mistral config to llama0001: exact
+    launches, both tables at 32771 rows; the multilingual config at two
+    language ids, whose tables differ; the hypernet per 32k vocab, its idle
+    share and device time by kernel and by matrix-product shape; wall and
+    peak memory."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    target_path = os.path.join(REPO, "artifacts", "tokenizers", "llama0001", "tokenizer.json")
+    rng = np.random.default_rng(SEED + 22)
+    batch, n_target = 16384, 32771
+    hn_tokenizer, _ = convert_to_byte_level(
+        Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json")))
+    # the multilingual checkpoint: en_code's parameters and a language table
+    flat = flax_layout(meta_hypernet(mistral_hypernet_config("en_code")), rng)
+    launches, rows, tables = {}, {}, {}
+    for name, indices in (("en_code", (0,)), ("multilingual", (0, 5))):
+        ckpt = os.path.join(WORK, f"mistral_{name}_ckpt")
+        t0 = time.perf_counter()
+        if name == "multilingual":
+            ml = mistral_hypernet_config(name)
+            flat["encoder/lang_embedding/embedding"] = 0.02 * rng.standard_normal(
+                (ml.n_langs, ml.hidden_size), dtype=np.float32)
+        cfg = write_mistral_checkpoint(ckpt, name, flat, hn_tokenizer)
+        log(f"  (d) wrote a seeded {name} checkpoint (params.npz "
+            f"{os.path.getsize(os.path.join(ckpt, 'params.npz')) / 2**30:.3f} GiB, f32) in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for index in indices:
+            out = os.path.join(WORK, f"mistral_{name}_{index}")
+            _build.reset_launch_counts()
+            gc_free()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            transfer_main(["--checkpoint", ckpt, "--model", model_dir,
+                           "--target-tokenizer", target_path, "--output", out,
+                           "--batch-size", str(batch), "--seed", str(SEED),
+                           "--lang-index", str(index)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = dict(_build.launch_counts)
+            n_batches = -(-n_target // batch)
+            expected = dict.fromkeys(_build.launch_counts, 0)
+            expected["encoder_layer"] = n_batches * (cfg.num_hidden_layers - 1)
+            expected["attention_core"] = n_batches
+            sd = load_hf_state_dict(out)
+            emb, head = sd["model.embed_tokens.weight"], sd["lm_head.weight"]
+            log(f"  (d) {name} --lang-index {index}: {wall:.3f} s wall, peak memory {peak:.2f} "
+                f"GiB; embed_tokens {tuple(emb.shape)}, lm_head {tuple(head.shape)}; launches "
+                f"{got} (expected {expected})")
+            if got != expected:
+                raise AssertionError(f"kernel launches {got}, expected {expected}")
+            width = MISTRAL["hidden_size"]
+            if emb.shape != (n_target, width) or head.shape != (n_target, width) \
+                    or torch.equal(emb, head) or not bool(torch.isfinite(emb).all()) \
+                    or not bool(torch.isfinite(head).all()):
+                raise AssertionError("the transferred Mistral does not hold two finite tables")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            tables[(name, index)] = emb
+            rows[(name, index)] = dict(wall=wall, peak=peak)
+            del sd, head
+            shutil.rmtree(out, ignore_errors=True)
+        run, n_vocab, shapes = hypernet_batches(ckpt, model_dir, target_path, batch,
+                                                lang_index=indices[-1])
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times))
+        log(f"  (d) {name} on {CARD}: hypernet median of 3 passes {ms:.3f} ms (min "
+            f"{min(times):.3f}, max {max(times):.3f}) for the {n_vocab}-token vocab in batches "
+            f"{shapes} ({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
+        busy, pass_wall, _ = device_breakdown(run)
+        log(f"  (d) {name}: the pass's matrix products by input shapes")
+        op_shapes(run)
+        rows[name] = dict(ms_per_32k=ms * 32768 / n_vocab,
+                          idle=None if busy is None else 1 - busy / pass_wall)
+        del run
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc_free()
+    diff = float((tables[("multilingual", 0)].float()
+                  - tables[("multilingual", 5)].float()).abs().max())
+    log(f"  (d) multilingual tables at --lang-index 0 and 5: max difference {diff:.4g}")
+    if diff == 0:
+        raise AssertionError("the language id does not change the transferred table")
+    return launches, rows
+
+
+def allocator_settings(setting):
+    """Set the CUDA caching allocator's ``setting`` at run time (what
+    PYTORCH_CUDA_ALLOC_CONF sets at start-up), through torch's private
+    setter: the accelerator one where this torch has it."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(setting)
+
+
+def phase_multilingual_training(model_dir):
+    """(e) python -m zett_tpu_torch.training at
+    configs/zeroshot/tinyllama_multilingual_lw0.5_long.json through its
+    ``main`` on phase 14's TinyLlama: 26 <lang>.txt files of the repo's
+    Markdown, batch 128, vocab sample 32768 and every width kept, the four
+    levers; 1 identity step and 2 train steps. Finite losses, exact
+    launches, a nonzero gradient of lang_embedding."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.training.__main__ import load_config_file
+    from zett_tpu_torch.training.__main__ import main as train_main
+
+    config = load_config_file(TINYLLAMA_ML_RUN)
+    langs = config["langs"]
+    train_dir = os.path.join(WORK, "ml_train")
+    n_par, _ = write_training_text(train_dir)
+    for lang in langs:
+        if lang != "en":
+            shutil.copy(os.path.join(train_dir, "en.txt"), os.path.join(train_dir, f"{lang}.txt"))
+    if config["batch_size"] != LLAMA_BATCH or config["tokenizer_sample_max"] != LLAMA_VOCAB_SAMPLE \
+            or not config["embed_lang_id"]:
+        raise AssertionError("the multilingual TinyLlama config changed")
+    out = os.path.join(WORK, "ml_out")
+    steps, n_ident = 3, 1
+    config.update(model_dir=model_dir, train_directory=train_dir, valid_directory=None,
+                  output_dir=out, steps=steps,
+                  identity_steps=n_ident, warmup_steps=[1, 2], random_warmup_steps=0,
+                  logging_steps=1, save_steps=0, save_state=False, num_workers=0,
+                  prefetch_batches=0, eval_steps=0, eval_at_step_zero=False,
+                  extra_valid_tokenizers=[], **LLAMA_LEVERS)
+    path = os.path.join(WORK, "tinyllama_multilingual.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    log(f"  (e) {len(langs)} languages {langs}, each {n_par} paragraphs of the repo's "
+        f"Markdown; batch {config['batch_size']}, vocab sample "
+        f"{config['tokenizer_sample_max']}, levers {LLAMA_LEVERS}")
+    gc_free()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    # without expandable segments the first train step ran out of memory
+    # with 59.81 GiB allocated and 15.06 GiB reserved but unallocated
+    # (NVIDIA H100 80GB HBM3, 700 W): the allocator's fragmentation, not the step's need
+    allocator_settings("expandable_segments:True")
+    t0 = time.perf_counter()
+    try:
+        trainer, history = train_main([path])
+        torch.cuda.synchronize()
+    finally:
+        allocator_settings("expandable_segments:False")
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r.get("loss", r.get("identity_loss")) for r in history]
+    n_layers = trainer.hn_config.num_hidden_layers
+    expected = dict.fromkeys(_build.launch_counts, 0)
+    expected["attention_core"] = (n_ident + 2 * (steps - n_ident)) * n_layers
+    expected["attention_core_bwd"] = steps * n_layers
+    grad = trainer.last_grads[("hypernet", "encoder", "lang_embedding", "embedding")]
+    rows = sorted(int(i) for i in torch.nonzero(grad.abs().sum(-1)).flatten())
+    log(f"  (e) {steps} steps ({n_ident} identity) in {wall:.3f} s wall; losses "
+        f"{['%.4f' % x for x in losses]}; peak memory {peak:.2f} GiB; launches {launches} "
+        f"(expected {expected}); lang_embedding {tuple(grad.shape)}, nonzero gradient on "
+        f"rows {rows}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad losses {losses}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    if tuple(grad.shape) != (len(langs), TINYLLAMA["hidden_size"]) or not rows:
+        raise AssertionError("lang_embedding has no gradient")
+    del trainer
+    gc_free()
+    return launches
+
+
+def phase_mistral(tinyllama_dir):
+    """Mistral-7B's hypernets (en+code and multilingual) through transfer,
+    and language ids through training: (a) the model directory; (b) kernels
+    1 to 5 at 32 heads; (c) the hypernet card vs CPU; (d) the transfer CLI
+    at both configs; (e) the multilingual TinyLlama config through the
+    training CLI."""
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(WORK, "mistral")
+    hf = dict(MISTRAL, num_hidden_layers=MISTRAL_LAYERS)
+    t0 = time.perf_counter()
+    _, sd = write_llama(model_dir, hf, SEED + 23)
+    n_params = sum(t.numel() for t in sd.values())
+    del sd
+    log(f"  (a) wrote Mistral-7B's published config cut to {MISTRAL_LAYERS} of "
+        f"{MISTRAL['num_hidden_layers']} layers, every width kept ({n_params} parameters, bf16, "
+        f"{os.path.getsize(os.path.join(model_dir, 'model.safetensors')) / 2**30:.3f} GiB) and "
+        f"a 32000-piece metaspace tokenizer in {time.perf_counter() - t0:.3f} s")
+    step("(b) kernels 1 to 5 at 32 heads")
+    kernels = phase_heads32_kernels()
+    step("(c) the Mistral hypernets card vs CPU")
+    phase_mistral_hypernet()
+    step("(d) the transfer CLI at both Mistral configs")
+    transfer_launches, transfer = phase_mistral_transfer(model_dir)
+    step("(e) language ids through the training CLI")
+    train_launches = phase_multilingual_training(tinyllama_dir)
+    log(f"  phase 15: {time.perf_counter() - t_phase:.3f} s wall")
+    return kernels, transfer_launches, train_launches, transfer
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -2770,27 +3229,27 @@ def main():
 
         from zett_tpu_torch.csrc import host_lib
 
-        log(f"phase 1: built {list(_build.SOURCES)} in {_build.build(verbose=True):.2f} s")
+        phase(f"phase 1: built {list(_build.SOURCES)} in {_build.build(verbose=True):.2f} s")
         check_build()
         t0 = time.perf_counter()
         host_lib.build()
         log(f"  built the native host library (g++) in {time.perf_counter() - t0:.2f} s")
-        log("phase 2: kernels against their plain versions")
+        phase("phase 2: kernels against their plain versions")
         kernels = phase_kernels()
-        log("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
+        phase("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet()
-        log("phase 4: transfer through the CLI on its default device")
+        phase("phase 4: transfer through the CLI on its default device")
         transfer_launches, wall, hn_ms, _ = phase_transfer()
-        log("phase 5: kernels 2 and 3 against their plain versions at the training shapes")
+        phase("phase 5: kernels 2 and 3 against their plain versions at the training shapes")
         kernels.update(phase_train_kernels())
-        log("phase 6: the hypernet's training route at gpt2_en widths, card vs CPU (f32)")
+        phase("phase 6: the hypernet's training route at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet_train()
-        log("phase 7: training through the CLI on its default device")
+        phase("phase 7: training through the CLI on its default device")
         model_dir = os.path.join(WORK, "gpt2")
         train_launches, step_ms, train_wall = phase_training(model_dir)
-        log("phase 8: kernels 4 and 5 against their plain versions")
+        phase("phase 8: kernels 4 and 5 against their plain versions")
         kernels.update(phase_block_kernels())
-        log("phase 9: hypernet at the prior + inter-token-attention config and at erf-gelu, "
+        phase("phase 9: hypernet at the prior + inter-token-attention config and at erf-gelu, "
             "card vs CPU (f32)")
         n_layers = GPT2_EN["num_hidden_layers"]
         phase_hypernet(PITA, launched={"attention_block": n_layers, "encoder_layer": 0,
@@ -2799,21 +3258,27 @@ def main():
         phase_hypernet(GPT2_EN_GELU, launched={"attention_block": n_layers - 1,
                                                "encoder_layer": 0, "attention_core": 1})
         phase_hypernet_train(GPT2_EN_GELU)
-        log("phase 10: transfer through the CLI at the prior + inter-token-attention config")
+        phase("phase 10: transfer through the CLI at the prior + inter-token-attention config")
         pita_launches, pita_wall, pita_ms, pita_vocab = phase_transfer(PITA, tag="pita_ckpt")
-        log("phase 11: training with eval through the CLI at the prior + "
+        phase("phase 11: training with eval through the CLI at the prior + "
             "inter-token-attention config, batch 128, with the memory levers")
         eval_launches, eval_wall, eval_peak, _ = phase_training_eval(model_dir)
-        log("phase 12: the device prior pipeline")
+        phase("phase 12: the device prior pipeline")
         kernels["viterbi_dp"], kernels["viterbi_spans_dp"], prior_launches = \
             phase_prior_pipeline()
-        log("phase 13: the trainer's levers through the CLI at gpt2_en's widths")
+        phase("phase 13: the trainer's levers through the CLI at gpt2_en's widths")
         lever_launches = phase_trainer_levers(model_dir)
         gc_free()
-        log("phase 14: TinyLlama (random weights at its published config) through "
+        phase("phase 14: TinyLlama (random weights at its published config) through "
             "training and transfer, kernels 1, 2 and 3 at head width 128")
         kernels128, llama_train, llama_transfer = phase_tinyllama()
         kernels.update(kernels128)
+        phase("phase 15: Mistral-7B (random weights at its published config, cut in depth) "
+            "through transfer at both hypernet configs, kernels 1 to 5 at 32 heads, language "
+            "ids through training")
+        kernels32, mistral_launches, ml_launches, mistral = phase_mistral(
+            os.path.join(WORK, "tinyllama"))
+        kernels.update(kernels32)
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -2835,10 +3300,15 @@ def main():
         "viterbi_spans_dp": ("zett_tpu_torch/csrc/viterbi_dp.cu",
                              "zett_tpu/ops/pallas_viterbi.py:25"),
     }
-    # the head-width-128 instantiations of kernels 1, 2 and 3 (phase 14)
+    # the head-width-128 instantiations of kernels 1, 2 and 3 (phase 14; the
+    # multilingual TinyLlama's training in phase 15(e)) and their 32-head
+    # ones (phase 15; kernel 3 at 32 heads is off the main paths: Mistral
+    # training waits for more than one card)
     for name in ("encoder_layer", "attention_core", "attention_core_bwd"):
         sources[f"{name}_d128"] = sources[name]
-    llama_runs = (llama_train["launches"], llama_transfer["launches"])
+        sources[f"{name}_h32"] = sources[name]
+    llama_runs = (llama_train["launches"], llama_transfer["launches"], ml_launches)
+    off_path = OFF_PATH + ("attention_core_bwd_h32",)
     rows = []
     for name, (source, replaces) in sources.items():
         # launches: the main paths' runs, transfer (phases 4 and 10),
@@ -2847,11 +3317,13 @@ def main():
         # 128
         if name.endswith("_d128"):
             n = sum(run.get(name[:-len("_d128")], 0) for run in llama_runs)
+        elif name.endswith("_h32"):
+            n = mistral_launches.get(name[:-len("_h32")], 0)
         else:
             n = sum(run.get(name, 0) for run in (transfer_launches, train_launches,
                                                   pita_launches, eval_launches, lever_launches,
                                                   {"viterbi_spans_dp": prior_launches}))
-        if n == 0 and name not in OFF_PATH:
+        if n == 0 and name not in off_path:
             log(f"{name} never launched on the main paths")
             return 1
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2863,7 +3335,11 @@ def main():
         f"pita_train_eval_peak_gib {eval_peak:.2f} "
         f"tinyllama_train_step_ms {llama_train['step_ms']:.3f} tinyllama_train_peak_gib "
         f"{llama_train['peak_gb']:.2f} tinyllama_transfer_wall_s {llama_transfer['wall']:.3f} "
-        f"tinyllama_hypernet_ms_per_32k {llama_transfer['ms_per_32k']:.3f}")
+        f"tinyllama_hypernet_ms_per_32k {llama_transfer['ms_per_32k']:.3f} "
+        f"mistral_en_code_hypernet_ms_per_32k {mistral['en_code']['ms_per_32k']:.3f} "
+        f"mistral_multilingual_hypernet_ms_per_32k "
+        f"{mistral['multilingual']['ms_per_32k']:.3f} "
+        f"mistral_en_code_transfer_wall_s {mistral[('en_code', 0)]['wall']:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -156,7 +156,7 @@ def test_layer_plan_at_tinyllama_widths():
     """TinyLlama's hypernet (H 2048, 16 heads of 128, I 4096) runs kernel 1
     as the seven-launch sequence in bf16 and in f32 (encoder_layer.cu's
     header note says why head width 128 does not take the four fused
-    launches); head width 64 keeps the fused route, 16 heads stay the bf16
+    launches); head width 64 keeps the fused route, 32 heads are the bf16
     limit at 128 as at 64, and a bf16 row must fit the core's shared
     memory."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -164,8 +164,8 @@ def test_layer_plan_at_tinyllama_widths():
         assert layer_plan(dtype, 7, 2048, 16, 4096) == type(layer_plan(bf, 7, 768, 12, 1536))(
             "unfused", 7, 0, 0, 0)
     assert layer_plan(bf, 7, 1024, 16, 4096).route == "fused"
-    with pytest.raises(ValueError, match="at most 16"):
-        layer_plan(bf, 7, 128 * 32, 32, 4096)
+    with pytest.raises(ValueError, match="at most 32"):
+        layer_plan(bf, 7, 128 * 33, 33, 4096)
     with pytest.raises(ValueError, match="head width 96/1 heads"):
         layer_plan(bf, 7, 96, 1, 256)
     # a row of 16 heads of 128 fits shared memory up to 18 positions

@@ -116,7 +116,7 @@ def test_flax_to_torch_covers_every_parameter():
 
 
 @pytest.mark.parametrize("override", [
-    {"embed_lang_id": True},
+    {"concat_last_hidden_state": True},
     {"language_adapter_bottleneck_dim": 8},
     {"encoder_type": "t5"},
     {"position_embedding_type": "relative"},

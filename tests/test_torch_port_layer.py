@@ -82,7 +82,7 @@ def test_plan_main_shapes():
     (BF, 7, 770, 12, 1536, ValueError, "head width 770/12 heads is not one of"),
     (BF, 0, 768, 12, 1536, ValueError, "outside 1..32"),
     (BF, 33, 768, 12, 1536, ValueError, "outside 1..32"),
-    (BF, 7, 64 * 17, 17, 1536, ValueError, "at most 16"),
+    (BF, 7, 64 * 33, 33, 1536, ValueError, "at most 32"),
     (BF, 7, 768, 12, 1004, ValueError, "16 bytes"),
     (F32, 7, 768, 12, 1002, ValueError, "16 bytes"),
     (torch.float16, 7, 768, 12, 1536, TypeError, "unsupported dtype"),

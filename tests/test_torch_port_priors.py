@@ -1,14 +1,15 @@
 """The prior pipeline of the PyTorch port (zett_tpu_torch/tokenization/
 priors.py, compute_prior.py, evaluation/perplexity.py chunked_tokenize) held
 against the JAX package on the CPU: pretoken counts, the substring prior,
-both token-prior modes, chunked tokenization and the CLI with and without
---device, on the repo's byte-level Unigram tokenizers and a BPE one. All
-comparisons are exact."""
+both token-prior modes, chunked tokenization and the CLI on the device path
+(``--device cpu``) and the host path (``--host-encode``), on the repo's
+byte-level Unigram tokenizers and a BPE one. All comparisons are exact."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from zett_tpu.evaluation.perplexity import chunked_tokenize as jax_chunked_tokenize
 from zett_tpu.tokenization import Tokenizer as JaxTokenizer
@@ -79,14 +80,14 @@ def _priors(path):
 @pytest.mark.parametrize("device", [False, True], ids=["host", "device"])
 @pytest.mark.parametrize("name", ["en_raw", "gpt_neox0001"])
 def test_cli_matches_jax(name, device, texts, tmp_path):
-    """The port's CLI (with --device cpu, or without --device) writes the
+    """The port's CLI (with --device cpu, or with --host-encode) writes the
     same priors.npy as the JAX CLI (with --device, or without it)."""
     data = tmp_path / "text.txt"
     data.write_text("\n".join(texts + ["", "   "]) + "\n")
     base = ["--tokenizer", os.path.dirname(TOK.format(name)), "--data", str(data)]
     jax_cli.main(base + ["--output", str(tmp_path / "jax.npy")] + (["--device"] if device else []))
     out = cli.main(base + ["--output", str(tmp_path / "port.npy")]
-                   + (["--device", "cpu"] if device else []))
+                   + (["--device", "cpu"] if device else ["--host-encode"]))
     got, want = _priors(out), _priors(tmp_path / "jax.npy")
     assert set(got) == set(want) == {"substring", "token"}
     for key in ("substring", "token"):
@@ -106,9 +107,41 @@ def test_cli_use_tokenizer_and_max_texts_match_jax(texts, tmp_path):
 
 
 def test_bare_device_flag_means_the_card():
-    assert cli.parse_args(["--tokenizer", "t", "--data", "d", "--device"]).device == "cuda"
-    assert cli.parse_args(["--tokenizer", "t", "--data", "d", "--device", "cpu"]).device == "cpu"
-    assert cli.parse_args(["--tokenizer", "t", "--data", "d"]).device is None
+    """The card by default and for a bare --device; the host path only
+    with its own flag, never beside --device."""
+    base = ["--tokenizer", "t", "--data", "d"]
+    assert cli.parse_args(base + ["--device"]).device == "cuda"
+    assert cli.parse_args(base + ["--device", "cpu"]).device == "cpu"
+    args = cli.parse_args(base)
+    assert (args.device, args.host_encode) == ("cuda", False)
+    assert cli.parse_args(base + ["--host-encode"]).host_encode
+    with pytest.raises(SystemExit):
+        cli.parse_args(base + ["--host-encode", "--device", "cpu"])
+
+
+def test_default_takes_the_card_and_raises_without_one(tmp_path):
+    """With no device flag the CLI counts on the card: here, where there
+    is none, it raises before reading or writing anything, and names the
+    CPU and host flags."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    out = tmp_path / "priors.npy"
+    with pytest.raises(RuntimeError, match="--device cpu.*--host-encode"):
+        cli.main(["--tokenizer", str(tmp_path / "missing"), "--data",
+                  str(tmp_path / "missing.txt"), "--output", str(out)])
+    assert not out.exists()
+
+
+def test_device_path_refuses_bpe_by_naming_the_host_flag(texts, tmp_path):
+    """A BPE tokenizer has no Viterbi to count with: the device path
+    raises and names --host-encode, and never switches paths itself."""
+    data = tmp_path / "text.txt"
+    data.write_text("\n".join(texts[:20]) + "\n")
+    out = tmp_path / "priors.npy"
+    with pytest.raises(SystemExit, match="Unigram tokenizers only.*--host-encode"):
+        cli.main(["--tokenizer", TOK.format("gpt2_raw"), "--data", str(data),
+                  "--output", str(out), "--device", "cpu"])
+    assert not out.exists()
 
 
 def test_non_canonical_tokenizer_raises(texts):

@@ -17,7 +17,10 @@
 // (>= 0.43 ms at 3.35 TB/s), against 0.3 GFLOP of products.
 //
 // bf16 design (attention_mma_kernel): a CTA works on one surface-form row
-// at a time, one warp per head. It stages the row's q, k and v positions
+// at a time, one warp per head. Past 16 heads (up to kMaxHeads = 32, one
+// m16 query tile) attention_mma2_kernel runs the same code with 16 warps,
+// warp w taking heads w and w + 16, so the 512-thread launch bound, and
+// with it the 128 registers a thread, holds. It stages the row's q, k and v positions
 // (all heads) in shared memory with 16-byte cp.async loads, one padded row
 // per position (conflict-free ldmatrix); CTAs are persistent, and while one
 // row is computed the next one's loads are in flight in a second buffer
@@ -27,7 +30,8 @@
 // to m16 tiles, keys to n8 tiles, the depth of D in D/16 k16 steps, and PV
 // produces its D output columns 32 at a time (so the accumulators a lane
 // holds do not grow with D: at D = 128 a row's 16 heads stage 86 KB, two
-// buffers 172 KB, one CTA an SM). The
+// buffers 172 KB, one CTA an SM; 32 heads of 128 stage up to 197 KB at L 8,
+// so one buffer, and the next row's loads wait for this row). The
 // rounding, the division by sqrt(d), the key bias, the mask select, the
 // softmax (max and sum over the lane quad that holds a query's keys) and the
 // dropout act on the accumulator fragments in registers, each lane knowing
@@ -312,7 +316,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
 }
 
 // ------------------------------------------------- bf16: tensor-core path
-constexpr int kMaxHeads = 16;     // warps of a CTA, one per head
+constexpr int kAttnCtaWarps = 16;  // warps of a CTA at most
+constexpr int kMaxHeads = 32;      // heads of a row: two a warp past 16
 constexpr int kAttnSmemMax = 232448;
 
 // the zero row every padded row reads at head width D: ldmatrix reads up
@@ -347,6 +352,23 @@ __device__ __forceinline__ void stage_row(const AttnArgs& a, int b, bf16* sq, in
     const bf16* src = r < Lq ? qb + r * a.q_sl
                              : (r < Lq + Lk ? kb + (r - Lq) * a.k_sl : vb + (r - Lq - Lk) * a.v_sl);
     cp_async16(sq + r * RS + ch, src);  // q, k, v positions lie back to back
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// stage_row for a CTA of any thread count (two heads a warp): thread t
+// copies chunks t, t + blockDim.x, ... of the row's positions.
+template <int D>
+__device__ __forceinline__ void stage_row_strided(const AttnArgs& a, int b, bf16* sq, int RS) {
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int cpr = a.h * (D / 8);  // chunks of a position
+  for (int c = threadIdx.x; c < (Lq + 2 * Lk) * cpr; c += blockDim.x) {
+    const int r = c / cpr, ch = (c % cpr) * 8;
+    const bf16* src =
+        r < Lq ? (const bf16*)a.q + b * a.q_sb + r * a.q_sl
+               : (r < Lq + Lk ? (const bf16*)a.k + b * a.k_sb + (r - Lq) * a.k_sl
+                              : (const bf16*)a.v + b * a.v_sb + (r - Lq - Lk) * a.v_sl);
+    cp_async16(sq + r * RS + ch, src + ch);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -520,18 +542,39 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
   store_head<D>(hq, RS, Lq, dst, o_sl, lane);
 }
 
-// One staged row b (buffer sq) through this warp's head hd: valid holds the
-// head's valid keys, any_padding whether some head of the row has none.
-// MQ: m16 tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the
-// keys (Lk <= 8 * NK8).
-template <int MQ, int NK8, int D>
-__device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq, int RS,
+// Head hd's value slice hv summed over the Lk positions into its D/64
+// float2 partial sums (lane t: dims 2t + 64c, 2t + 64c + 1), the all-padding
+// mean's share of the head.
+template <int D>
+__device__ __forceinline__ void value_sums(const bf16* hv, int RS, int Lk, float2* part,
+                                           int lane) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int j = 0; j < Lk; ++j) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 64 * c + 2 * lane));
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    part[c * 32 + lane] = acc;
+  }
+}
+
+// One staged row b (buffer sq) through head hd: valid holds the head's
+// valid keys, any_padding whether some head of the row has none. MQ: m16
+// tiles over the queries (Lq <= 16 * MQ); NK8: n8 tiles over the keys (Lk
+// <= 8 * NK8). kRowSums: the warp sums head hd's values into part for the
+// all-padding mean and waits for the CTA here; without it the caller has
+// summed every head's (two heads a warp).
+template <int MQ, int NK8, int D, bool kRowSums = true>
+__device__ __forceinline__ void attention_row(const AttnArgs& a, int b, int hd, bf16* sq, int RS,
                                               const bf16* zero, float2* part, unsigned valid,
                                               int any_padding) {
   const int h = a.h, Lq = a.Lq, Lk = a.Lk;
   const bf16* sk = sq + Lq * RS;
   const bf16* sv = sk + Lk * RS;
-  const int hd = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lane = threadIdx.x % 32;
 
   const int lr = lane & 7, mat = lane >> 3, g = lane >> 2, q4 = lane & 3;
   bf16* hq = sq + hd * D;  // this head's slices; hq stages the output
@@ -545,18 +588,10 @@ __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, bf16* sq
     // (warp w sums head w's slice over the positions, lane t dims 2t + 64c,
     // 2t + 64c + 1 for c < D/64)
     constexpr int kP = D / 64;
-#pragma unroll
-    for (int c = 0; c < kP; ++c) {
-      float2 acc = make_float2(0.0f, 0.0f);
-      for (int j = 0; j < Lk; ++j) {
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(hv + j * RS + 64 * c + 2 * lane));
-        acc.x += v.x;
-        acc.y += v.y;
-      }
-      part[(hd * kP + c) * 32 + lane] = acc;
+    if constexpr (kRowSums) {
+      value_sums<D>(hv, RS, Lk, part + hd * kP * 32, lane);
+      __syncthreads();
     }
-    __syncthreads();
     if (valid == 0u) {
 #pragma unroll
       for (int c = 0; c < kP; ++c) {
@@ -651,7 +686,7 @@ __device__ __forceinline__ bool key_valid(const AttnArgs& a, int b, int hd, int 
 // Two CTAs an SM (64 registers a thread) only where two fit: D = 64 and
 // short keys.
 template <int MQ, int NK8, int D>
-__global__ void __launch_bounds__(kMaxHeads * 32, (D == 64 && MQ == 1 && NK8 <= 2) ? 2 : 1)
+__global__ void __launch_bounds__(kAttnCtaWarps * 32, (D == 64 && MQ == 1 && NK8 <= 2) ? 2 : 1)
 attention_mma_kernel(AttnArgs a, int nbuf) {
   extern __shared__ __align__(16) uint8_t attn_smem[];
   const int RS = attn_row_stride(a.h, D);
@@ -679,8 +714,8 @@ attention_mma_kernel(AttnArgs a, int nbuf) {
       stage_row<D>(a, nb, rows + ((it + 1) & 1) * row_elems, RS);
       ok_next = key_valid(a, nb, hd, lane);
     }
-    attention_row<MQ, NK8, D>(a, b, rows + (nbuf == 2 ? (it & 1) * row_elems : 0), RS, zero, part,
-                           valid, any_padding);
+    attention_row<MQ, NK8, D>(a, b, hd, rows + (nbuf == 2 ? (it & 1) * row_elems : 0), RS, zero,
+                              part, valid, any_padding);
     if (nbuf == 1 && nb < a.B) {
       __syncthreads();  // row b's buffer is free
       stage_row<D>(a, nb, rows, RS);
@@ -689,28 +724,99 @@ attention_mma_kernel(AttnArgs a, int nbuf) {
   }
 }
 
-template <int MQ, int NK8, int D>
-cudaError_t launch_attention_mma(const AttnArgs& a, cudaStream_t stream) {
+// Past 16 heads, one m16 query tile: 16 warps, warp w runs heads w and w +
+// 16 of each row (attention_mma_kernel's loop otherwise). Where some head of
+// the row has no valid key at rate 0, each warp sums both its heads' values
+// before the CTA's one barrier, so the all-padding mean still covers every
+// head.
+template <int NK8, int D>
+__global__ void __launch_bounds__(kAttnCtaWarps * 32, 1)
+attention_mma2_kernel(AttnArgs a, int nbuf) {
+  extern __shared__ __align__(16) uint8_t attn_smem[];
+  constexpr int kP = D / 64;
+  const int RS = attn_row_stride(a.h, D);
+  const int row_elems = attn_row_elems(a.Lq, a.Lk, a.h, D);
+  bf16* zero = reinterpret_cast<bf16*>(attn_smem);
+  float2* part = reinterpret_cast<float2*>(attn_smem + zero_bytes(D));  // [h][D/64][32]
+  bf16* rows =
+      reinterpret_cast<bf16*>(attn_smem + zero_bytes(D) + attn_part_bytes(a.h, D));
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h2 = w + kAttnCtaWarps;  // the warp's second head
+  const bool two = h2 < a.h;
+  for (int t = threadIdx.x; t < D; t += blockDim.x) zero[t] = __float2bfloat16_rn(0.0f);
+  bool ok0 = false, ok1 = false;
+  if (blockIdx.x < a.B) {
+    stage_row_strided<D>(a, blockIdx.x, rows, RS);
+    ok0 = key_valid(a, blockIdx.x, w, lane);
+    ok1 = two && key_valid(a, blockIdx.x, h2, lane);
+  }
+  int it = 0;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x, ++it) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // row b's loads
+    const unsigned v0 = __ballot_sync(0xffffffffu, ok0);
+    const unsigned v1 = __ballot_sync(0xffffffffu, ok1);
+    const int any_padding = __syncthreads_or(v0 == 0u || (two && v1 == 0u));
+    const int nb = b + gridDim.x;
+    if (nbuf == 2 && nb < a.B) {
+      stage_row_strided<D>(a, nb, rows + ((it + 1) & 1) * row_elems, RS);
+      ok0 = key_valid(a, nb, w, lane);
+      ok1 = two && key_valid(a, nb, h2, lane);
+    }
+    bf16* sq = rows + (nbuf == 2 ? (it & 1) * row_elems : 0);
+    if (any_padding && !a.dropout) {
+      const bf16* sv = sq + (a.Lq + a.Lk) * RS;
+      value_sums<D>(sv + w * D, RS, a.Lk, part + w * kP * 32, lane);
+      if (two) value_sums<D>(sv + h2 * D, RS, a.Lk, part + h2 * kP * 32, lane);
+      __syncthreads();  // every head's sums
+    }
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s) {
+      if (s == 1 && !two) break;
+      attention_row<1, NK8, D, false>(a, b, s ? h2 : w, sq, RS, zero, part, s ? v1 : v0,
+                                      any_padding);
+    }
+    if (nbuf == 1 && nb < a.B) {
+      __syncthreads();  // row b's buffer is free
+      stage_row_strided<D>(a, nb, rows, RS);
+      ok0 = key_valid(a, nb, w, lane);
+      ok1 = two && key_valid(a, nb, h2, lane);
+    }
+  }
+}
+
+// Persistent CTAs of `threads` threads over the rows, as many as fit an SM
+// (at most one a row), with two row buffers where they fit.
+template <int D>
+cudaError_t launch_rows(void (*kernel)(AttnArgs, int), const AttnArgs& a, int threads,
+                        cudaStream_t stream) {
   const int nbuf = attn_mma_smem(a.Lq, a.Lk, a.h, 2, D) <= kAttnSmemMax ? 2 : 1;
   const int smem = attn_mma_smem(a.Lq, a.Lk, a.h, nbuf, D);
-  const int threads = a.h * 32;
-  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<MQ, NK8, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attention_mma_kernel<MQ, NK8, D>,
-                                                        threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;
   const long long grid = (long long)sms * per_sm < a.B ? (long long)sms * per_sm : a.B;
-  attention_mma_kernel<MQ, NK8, D><<<(unsigned)grid, threads, smem, stream>>>(a, nbuf);
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(a, nbuf);
   return cudaGetLastError();
 }
 
+template <int MQ, int NK8, int D>
+cudaError_t launch_attention_mma(const AttnArgs& a, cudaStream_t stream) {
+  if (a.h <= kAttnCtaWarps)
+    return launch_rows<D>(attention_mma_kernel<MQ, NK8, D>, a, a.h * 32, stream);
+  if constexpr (MQ == 1)
+    return launch_rows<D>(attention_mma2_kernel<NK8, D>, a, kAttnCtaWarps * 32, stream);
+  return cudaErrorInvalidValue;  // past 16 heads at most 16 queries
+}
+
 // bf16 operands: position rows and the output 16-byte aligned (the wrappers'
-// layouts are); h <= 16 and the staged row within the SM's shared memory.
+// layouts are); h <= kMaxHeads (32), Lq <= 16 past 16 heads, and the staged
+// row within the SM's shared memory.
 template <int D>
 inline cudaError_t launch_attention_bf16(const AttnArgs& a, cudaStream_t s) {
   if (a.B <= 0) return cudaSuccess;

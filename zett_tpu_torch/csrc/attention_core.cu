@@ -30,6 +30,9 @@
 // output columns in four passes of 32, so a lane's accumulators do not
 // grow; the operands move twice the bytes (at B = 32896, L 7, 16 heads:
 // ~3.8 GB, >= 1.13 ms) and a row's staging takes 86 KB, so one CTA an SM.
+// Past 16 heads (Mistral-7B's hypernets: 32 heads of 128) a warp runs two
+// heads of the row; the row's staging (197 KB at L 8) leaves room for one
+// buffer only, so the next row's loads wait for this row's products.
 #include "attention.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. dropout != 0

@@ -39,8 +39,8 @@
 //   2. gemm_ln_kernel (ctx @ Wo + bo + x, LN1 -> y1) and
 //   4. gemm_ln_kernel (mid @ W2 + b2 + y1, LN2 -> out): the residual
 //      LayerNorm needs whole rows of H, so a thread-block cluster of
-//      ceil(H / 192) CTAs (4 at H 768; 6 at most, since the bf16 core takes
-//      at most 16 heads of 64) runs the mainloop on its 192-column slice of
+//      ceil(H / 192) CTAs (4 at H 768; 6 at most, since this route takes
+//      at most kFusedMaxHeads = 16 heads of 64) runs the mainloop on its 192-column slice of
 //      the same 128 rows. The tile buffer takes the residual by TMA, the
 //      consumers add it in place and reduce each row's f32 sum and sum of
 //      squares over their columns (columns past H left out); the epilogue
@@ -387,12 +387,17 @@ static cudaError_t launch_qkv_attention(const CUtensorMap& map_a, const CUtensor
   return cudaGetLastError();
 }
 
+// The fused route's heads: past 16 heads of 64 a LayerNorm cluster would
+// be ceil(H / 192) = 11 CTAs or more, over the portable 8
+// (ops/encoder_layer.py layer_plan refuses such layers by name).
+constexpr int kFusedMaxHeads = 16;
+
 // x (M, H), w_qkv (3H, H) head by head: rows [192 hd, 192 hd + 192) are
 // head hd's q, k and v output columns, transposed.
 static cudaError_t qkv_attention(const bf16* x, const bf16* w_qkv, const QkvArgs& p,
                                  cudaStream_t s) {
   const int H = p.h * kHeadDim;
-  if (p.L < 1 || p.L > 32 || p.h < 1 || p.h > kMaxHeads || p.G != GM / p.L || p.K != H)
+  if (p.L < 1 || p.L > 32 || p.h < 1 || p.h > kFusedMaxHeads || p.G != GM / p.L || p.K != H)
     return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = gemm_setup(&sms);

@@ -6,10 +6,11 @@ position and projects to the frozen LM's embeddings (+ an lm-head bias).
 
 Kept features: source-embedding input with the fallback table (or the hn
 vocab's own embedding table), absolute positions, the target-prior token,
-inter-token attention (with the prior bias and the residual LayerNorms),
-tanh- and erf-gelu, affine rescalers, single/dual heads, the bias head and
-CLS pooling. Two routes, chosen as the JAX module chooses them
-(``inference``, defaulting to ``deterministic``):
+the language-id token (``embed_lang_id``), inter-token attention (with the
+prior bias and the residual LayerNorms), tanh- and erf-gelu, affine
+rescalers, single/dual heads, the bias head and CLS pooling. Two routes,
+chosen as the JAX module chooses them (``inference``, defaulting to
+``deterministic``):
 
 - inference: a layer runs kernel 1 (``ops.encoder_layer``, the tier-3
   layer) where the JAX module would fuse the whole layer (no inter-token
@@ -33,9 +34,9 @@ on both routes, as the JAX package leaves it to XLA.
 Head widths 64 and 128 run (kernels 1, 2 and 3 are instantiated for both);
 at 128, the layers that would take kernel 4 (inter-token attention,
 erf-gelu) are not ported yet. Configurations that leave these routes
-(language ids, adapters, relative positions, the t5 encoder, concat
-pooling, other head widths) raise ``NotImplementedError``, naming ROADMAP
-A.10 where that item holds them.
+(language adapters, relative positions, the t5 encoder, concat pooling,
+other head widths) raise ``NotImplementedError``, naming ROADMAP A.10 where
+that item holds them.
 
 Parameters are stored as torch's ``nn.Linear`` layout; ``models.convert``
 maps a Flax parameter tree onto them. Weights are f32 and cast to the
@@ -125,7 +126,6 @@ def _check_supported(cfg: HypernetConfig) -> None:
     h = cfg.num_attention_heads
     width = cfg.hidden_size // h if cfg.hidden_size % h == 0 else None
     unsupported = {
-        "embed_lang_id": cfg.embed_lang_id,
         "language_adapter_bottleneck_dim": cfg.language_adapter_bottleneck_dim > 0,
         "position_embedding_type=relative": cfg.position_embedding_type != "absolute",
         "encoder_type=t5": cfg.encoder_type != "roberta",
@@ -398,24 +398,31 @@ class EncoderLayer(nn.Module):
         exactly where the JAX module fuses the whole layer (``fused_layer``,
         :480-492); else its self-attention takes kernel 4 where the JAX
         module fuses the block (``fused_ok``, :394-405), kernel 2 when
-        CLS-only, and the plain route otherwise."""
+        CLS-only, and the plain route otherwise. Rows whose merged width
+        L*h is over ``MERGED_ATTENTION_MAX`` take the plain per-head route
+        on every path, as ``_attention`` does in the JAX module (there an
+        all-padding row averages its own head's values, not every head's)."""
         cfg = self.cfg
         wide = hidden.shape[1] * cfg.num_attention_heads > MERGED_ATTENTION_MAX
         if inference and not cls_only and not wide and not cfg.add_inter_token_attention \
                 and cfg.hidden_act != "gelu":
             return self._fused_layer(hidden, mask)
         hidden_drop = not deterministic and cfg.hidden_dropout_prob > 0.0
-        if not inference:
+        if wide:
+            # the attention module's own route, queries at position 0 only
+            # when CLS-only; hidden dropout inside it
+            attn = self.attention(hidden[:, :1] if cls_only else hidden, mask,
+                                  key_value_states=hidden, deterministic=deterministic,
+                                  generator=generator)
+        elif not inference:
             rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
             attn = self.attention.forward_train(hidden, mask, cls_only, rate, generator)
             if hidden_drop:
                 attn = dropout(attn, cfg.hidden_dropout_prob, generator)
         elif cls_only:
             attn = self.attention.forward_cls(hidden, mask)
-        elif not wide:
-            attn = self.attention.forward_block(hidden, mask)
         else:
-            attn = self.attention(hidden, mask)
+            attn = self.attention.forward_block(hidden, mask)
         residual = hidden[:, :1] if cls_only else hidden
         attn = self.attention_ln(attn + residual)
         if cfg.add_inter_token_attention:
@@ -478,6 +485,8 @@ class HypernetEncoder(nn.Module):
         )
         if cfg.embed_target_priors:
             self.prior_projection = Dense(1, H, dtype)
+        if cfg.embed_lang_id:
+            self.lang_embedding = nn.Embedding(cfg.n_langs, H)
         self.embeddings_ln = LayerNorm(H, cfg.layer_norm_eps, dtype)
         if cfg.add_inter_token_attention:
             self.inter_token_blocks = nn.Parameter(
@@ -487,8 +496,26 @@ class HypernetEncoder(nn.Module):
             EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)
         )
 
+    def lang_token(self, lang_index):
+        """The language id's row of ``lang_embedding`` in the compute
+        dtype, squeezed as ``jnp.squeeze`` does (hypernet.py:678-684). As
+        flax ``nn.Embed`` takes it: a one-row table is broadcast to the
+        index's shape plus H (any index, but not a scalar one: as in JAX,
+        (1, H) does not broadcast to (H,)); otherwise ``jnp.take``'s rules,
+        negative indices counted from the end and an index past either end
+        a row of NaN."""
+        table = self.lang_embedding.weight.to(self.dtype)
+        n = table.shape[0]
+        idx = torch.as_tensor(lang_index, device=table.device).long()
+        if n == 1:
+            return table.expand(*idx.shape, table.shape[1]).squeeze()
+        inside = (idx >= -n) & (idx < n)
+        rows = table[torch.where(inside, idx % n, 0)]
+        return torch.where(inside[..., None], rows, float("nan")).squeeze()
+
     def forward(self, input_ids, attention_mask, inputs_embeds=None, target_priors=None,
-                inference: bool = True, deterministic: bool = True, generator=None):
+                lang_index=None, inference: bool = True, deterministic: bool = True,
+                generator=None):
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = F.embedding(input_ids, self.word_embeddings.weight.to(self.dtype))
@@ -498,6 +525,14 @@ class HypernetEncoder(nn.Module):
             # one more position, always attended (hypernet.py:669-677)
             prior_tok = self.prior_projection(target_priors[..., None])
             hidden = torch.cat([hidden, prior_tok[:, None, :].to(hidden.dtype)], dim=1)
+            attention_mask = torch.cat(
+                [attention_mask, attention_mask.new_ones(hidden.shape[0], 1)], dim=1)
+        if cfg.embed_lang_id:
+            # one more position, after the prior token, always attended
+            # (hypernet.py:678-691): the same row for every surface form
+            lang_tok = self.lang_token(lang_index)
+            hidden = torch.cat([hidden, lang_tok[None, None, :].expand(hidden.shape[0], 1, -1)],
+                               dim=1)
             attention_mask = torch.cat(
                 [attention_mask, attention_mask.new_ones(hidden.shape[0], 1)], dim=1)
         hidden = self.embeddings_ln(hidden)
@@ -554,8 +589,11 @@ class Hypernet(nn.Module):
                 lang_index=None, deterministic: bool = True, inference=None, generator=None):
         """The JAX module's call signature. ``target_priors`` (B,) feed the
         prior token and the inter-token prior bias where the config asks for
-        them; ``lang_index`` feeds features that are not ported and is
-        ignored. ``inference`` picks the route (default: ``deterministic``);
+        them (the bias only with ``add_inter_token_attention``, the one
+        place the JAX module reads it); ``lang_index`` (a scalar, or any
+        shape that squeezes to one row) feeds the language-id token where
+        ``embed_lang_id`` asks for it. ``inference`` picks the route
+        (default: ``deterministic``);
         ``generator`` (a CPU ``torch.Generator``) draws the dropout masks and
         seeds when ``deterministic`` is False."""
         cfg = self.config
@@ -566,8 +604,11 @@ class Hypernet(nn.Module):
         if inference and not deterministic:
             raise ValueError("the inference route is deterministic")
         if target_priors is None and (cfg.embed_target_priors
-                                      or cfg.inter_token_attention_bias_by_priors):
+                                      or (cfg.add_inter_token_attention
+                                          and cfg.inter_token_attention_bias_by_priors)):
             raise ValueError("this config reads target_priors")
+        if lang_index is None and cfg.embed_lang_id:
+            raise ValueError("this config reads lang_index")
         sf = target_surface_forms
         attention_mask = sf != cfg.pad_token_id
 
@@ -590,7 +631,8 @@ class Hypernet(nn.Module):
             inputs_embeds = self.input_projection(inputs_embeds)
 
         hidden = self.encoder(sf, attention_mask, inputs_embeds=inputs_embeds,
-                              target_priors=target_priors, inference=inference,
+                              target_priors=target_priors, lang_index=lang_index,
+                              inference=inference,
                               deterministic=deterministic, generator=generator)
         pooled = hidden[:, 0]
 

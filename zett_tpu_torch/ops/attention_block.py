@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_core import (attention_core, attention_core_bwd, check_heads,
+from .attention_core import (attention_core, attention_core_bwd, check_heads, check_row_fits,
                              merged_attention_reference)
 from .encoder_layer import check_gemm_widths, dense_exact, pack_weights
 
@@ -140,7 +140,8 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
         raise ValueError(f"attention_block: head width must be 64 (H={H}, h={num_heads})")
     if not 1 <= L <= 32:
         raise ValueError(f"attention_block: sequence length {L} outside 1..32")
-    check_heads("attention_block", dtype, num_heads)
+    check_heads("attention_block", dtype, num_heads, L)
+    check_row_fits("attention_block", dtype, L, L, num_heads, 64)
     check_gemm_widths("attention_block", dtype, (3 * H, H), (H,))
     if not x.is_cuda:
         raise ValueError(f"attention_block: no kernel for device {x.device}")

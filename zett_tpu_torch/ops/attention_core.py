@@ -47,9 +47,9 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _MASK_ROWS = 4096  # rows of the plain keep mask computed at a time
-# heads of a row in the bf16 forward (csrc/attention.cuh: one warp a head,
-# the row's heads in one CTA)
-MAX_HEADS_BF16 = 16
+# heads of a row in the bf16 forward (csrc/attention.cuh kMaxHeads: the
+# row's heads in one CTA of at most 16 warps, two heads a warp past 16)
+MAX_HEADS_BF16 = 32
 # the head widths the kernels are instantiated for (csrc/attention.cuh,
 # attention_core_bwd.cu: a template parameter); kernels 4 and 5 take 64 only
 HEAD_WIDTHS = (64, 128)
@@ -297,7 +297,8 @@ SMEM_BYTES = 232448  # an H100 block's shared memory
 def check_row_fits(what: str, dtype, Lq: int, Lk: int, num_heads: int, d: int) -> None:
     """The bf16 forward stages a row's q, k and v positions (every head) in
     shared memory (``attention.cuh`` ``attn_mma_smem``): at 16 heads of 128,
-    up to 18 positions."""
+    up to 18 positions; at 32 heads of 128, up to 26 (Lq = Lk = 8 takes
+    213,632 bytes)."""
     if dtype != torch.bfloat16:
         return
     h = num_heads
@@ -307,12 +308,20 @@ def check_row_fits(what: str, dtype, Lq: int, Lk: int, num_heads: int, d: int) -
                          f"needs {need} bytes of shared memory, over {SMEM_BYTES}")
 
 
-def check_heads(what: str, dtype, num_heads: int) -> None:
-    """The bf16 forward runs one warp per head of a row: at most
-    ``MAX_HEADS_BF16``."""
-    if dtype == torch.bfloat16 and num_heads > MAX_HEADS_BF16:
+def check_heads(what: str, dtype, num_heads: int, Lq: int = 1) -> None:
+    """The bf16 forward runs a row's heads in one CTA of at most 16 warps,
+    two heads a warp past 16: at most ``MAX_HEADS_BF16``, and past 16 heads
+    at most 16 query positions (one m16 tile; a longer row's merged width
+    is over 256, which the hypernet runs per head, as the JAX module
+    does)."""
+    if dtype != torch.bfloat16:
+        return
+    if num_heads > MAX_HEADS_BF16:
         raise ValueError(f"{what}: {num_heads} heads; the bf16 kernel takes at most "
                          f"{MAX_HEADS_BF16}")
+    if num_heads > 16 and Lq > 16:
+        raise ValueError(f"{what}: {num_heads} heads of {Lq} query positions; past 16 "
+                         "heads the bf16 kernel takes at most 16 query positions")
 
 
 def _dropout_args(rate: float, seed: int, dtype):
@@ -331,7 +340,7 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
     if not qm.is_cuda:
         raise ValueError(f"attention_core: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core")
-    check_heads("attention_core", qm.dtype, num_heads)
+    check_heads("attention_core", qm.dtype, num_heads, Lq)
     check_row_fits("attention_core", qm.dtype, Lq, Lk, num_heads, qm.shape[-1])
     qm, km, vm = (_build.aligned16(t) for t in (qm, km, vm))
     maskf = kmaskf.float().contiguous()
@@ -383,7 +392,8 @@ def _launch_merged(qm, km, vm, kmask, kbias, num_heads):
     if not qm.is_cuda:
         raise ValueError(f"merged_attention: no kernel for device {qm.device}")
     B, Lq, Lk = _check(qm, km, vm, num_heads, "merged_attention", widths=(64,))
-    check_heads("merged_attention", qm.dtype, num_heads)
+    check_heads("merged_attention", qm.dtype, num_heads, Lq)
+    check_row_fits("merged_attention", qm.dtype, Lq, Lk, num_heads, 64)
     Lkh = Lk * num_heads
     for name, t in (("kmask", kmask), ("kbias", kbias)):
         if t is not None and (tuple(t.shape) != (B, Lkh) or t.device != qm.device):

@@ -9,9 +9,11 @@ the bound (tensor-core operations at the transfer's shapes) and the design.
 kernels a layer (the [q|k|v] GEMM with the attention core in its epilogue,
 the output projection and the FFN-out each with the residual LayerNorm in
 theirs, on thread-block clusters of ``cluster`` CTAs, and the gelu FFN-in
-GEMM); in bf16 at head width 128, and in f32, the seven launches of the
-unfused sequence (the header note of ``encoder_layer.cu`` says why 128 does
-not fuse).
+GEMM); in bf16 at head width 128 or past ``FUSED_MAX_HEADS`` heads of 64,
+and in f32, the seven launches of the unfused sequence (the header note of
+``encoder_layer.cu`` says why 128 does not fuse; past 16 heads of 64 a
+LayerNorm cluster would be over the portable size). The shared attention
+core takes up to 32 heads (``attention_core.MAX_HEADS_BF16``).
 
 ``encoder_layer`` keeps the JAX function's signature. On CPU tensors it runs
 ``encoder_layer_reference``; on any other device it launches the kernel or
@@ -126,6 +128,9 @@ def check_gemm_widths(what: str, dtype, widths, depths) -> None:
 TILE_ROWS = 128       # the Hopper GEMMs' row tile (gemm.cuh GM)
 CLUSTER_SLICE = 192   # the columns of one CTA of a LayerNorm cluster (encoder_layer.cu kLnN)
 GELU_TILE_COLS = 192  # the gelu GEMM's column tile (encoder_layer.cu kGeluN)
+# heads of the fused route (encoder_layer.cu kFusedMaxHeads): past 16 heads
+# of 64 a LayerNorm cluster would be over the portable 8 CTAs
+FUSED_MAX_HEADS = 16
 
 
 @dataclass(frozen=True)
@@ -153,9 +158,9 @@ def layer_plan(dtype, L: int, H: int, num_heads: int, I: int) -> LayerPlan:
     check_head_width("encoder_layer", H, num_heads)
     if not 1 <= L <= 32:
         raise ValueError(f"encoder_layer: sequence length {L} outside 1..32")
-    check_heads("encoder_layer", dtype, num_heads)
+    check_heads("encoder_layer", dtype, num_heads, L)
     check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
-    if dtype == torch.float32 or H // num_heads == 128:
+    if dtype == torch.float32 or H // num_heads == 128 or num_heads > FUSED_MAX_HEADS:
         check_row_fits("encoder_layer", dtype, L, L, num_heads, H // num_heads)
         return LayerPlan("unfused", 7, 0, 0, 0)
     forms = TILE_ROWS // L

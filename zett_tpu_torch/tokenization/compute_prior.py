@@ -6,15 +6,20 @@ Usage:
   python -m zett_tpu_torch.tokenization.compute_prior \\
       --tokenizer TOK --data TEXTFILE [--mode reestimate] \\
       [--block-size 128] [--output priors.npy] [--max-texts N] \\
-      [--device [{cuda,cpu}]]
+      [--device [{cuda,cpu}] | --host-encode]
 
 Writes {"substring": ..., "token": ...} to <tokenizer dir>/priors.npy (or
---output). Without --device the token prior comes from the host encode
-(``chunked_tokenize`` + ``get_prior``). With --device (a bare --device means
-the card) a Unigram tokenizer's token usage is counted by the batched
-Viterbi on that device (``ops/device_viterbi.count_tokens_device``); only
-the (V,) histogram comes back. A bare --device without a card raises before
-any work.
+--output). In the default mode (reestimate) a Unigram tokenizer's token
+usage is counted by the batched Viterbi on the card
+(``ops/device_viterbi.count_tokens_device``; only the (V,) histogram comes
+back); ``--device cpu`` runs the same Viterbi on the CPU through the
+kernels' plain versions, and without a card the default raises before any
+work. ``--host-encode`` takes the host encode path instead
+(``chunked_tokenize`` + ``get_prior``, what the JAX CLI runs without its
+``--device``); a tokenizer that the device path cannot take (not Unigram,
+or a vocab piece outside its byte domain) raises a message that names it.
+``--mode use_tokenizer`` tokenizes on the host in both packages: no kernel
+computes it, so it reads neither --device nor --host-encode.
 """
 
 from __future__ import annotations
@@ -35,12 +40,22 @@ def parse_args(argv=None):
     p.add_argument("--block-size", type=int, default=128)
     p.add_argument("--output", default=None)
     p.add_argument("--max-texts", type=int, default=None)
-    p.add_argument(
-        "--device", nargs="?", const="cuda", default=None, choices=("cuda", "cpu"),
-        help="count token usage with the batched Viterbi on this device (bare: the card) "
-        "instead of the host encode; Unigram tokenizers only",
+    where = p.add_mutually_exclusive_group()
+    where.add_argument(
+        "--device", nargs="?", const="cuda", default="cuda", choices=("cuda", "cpu"),
+        help="count token usage with the batched Viterbi on this device (default and bare: "
+        "the card); Unigram tokenizers only. --mode use_tokenizer has no device path: it "
+        "tokenizes on the host",
+    )
+    where.add_argument(
+        "--host-encode", action="store_true",
+        help="count token usage with the host encode (the JAX CLI without --device) instead "
+        "of the device Viterbi",
     )
     return p.parse_args(argv)
+
+
+HOST_FLAG = "--host-encode"  # what a message tells the caller to pass for the host path
 
 
 def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
@@ -63,7 +78,7 @@ def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
         except KeyError:
             raise SystemExit(
                 f"vocab piece {tok!r} (id {i}) is not representable in the tokenizer's "
-                "byte domain; rerun without --device to use the host path")
+                f"byte domain; pass {HOST_FLAG} for the host path")
     # 48-byte rows: pretokens are GPT-2-split words; the longer tail is
     # segmented exactly on the host
     counts = count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48,
@@ -80,20 +95,25 @@ def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = None
-    if args.device is not None:
+    device = None  # the host encode: --host-encode, or --mode use_tokenizer
+    if not args.host_encode and args.mode == "reestimate":
         if args.device == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass --device cpu to count on "
-                               "the CPU, or leave out --device for the host path")
+                               f"the CPU, or {HOST_FLAG} for the host path")
         device = torch.device(args.device)
 
     from ..evaluation.perplexity import chunked_tokenize
     from .core import Tokenizer
+    from .models import Unigram
     from .priors import compute_substring_prior, get_prior
 
     tok_path = (os.path.join(args.tokenizer, "tokenizer.json")
                 if os.path.isdir(args.tokenizer) else args.tokenizer)
     tokenizer = Tokenizer.from_file(tok_path)
+    if device is not None and not isinstance(tokenizer.model, Unigram):
+        raise SystemExit(
+            f"the device path counts Unigram tokenizers only, not "
+            f"{type(tokenizer.model).__name__}; pass {HOST_FLAG} for the host path")
     with open(args.data) as f:
         texts = [line.rstrip("\n") for line in f if line.strip()]
     if args.max_texts:
@@ -101,7 +121,7 @@ def main(argv=None):
 
     substring_prior, pretoken_counts = compute_substring_prior(
         tokenizer, texts=texts, return_pretoken_counts=True)
-    if device is not None and args.mode == "reestimate":
+    if device is not None:
         token_prior = device_token_prior(tokenizer, pretoken_counts, device)
     else:
         data = chunked_tokenize(tokenizer, texts, args.block_size)

@@ -64,16 +64,23 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_hypernet(checkpoint: str, device: torch.device):
+    """The checkpoint's hypernet on ``device``. It is built on the meta
+    device and takes the checkpoint's tensors, cast to each parameter's
+    dtype, in place of a default init it would overwrite (0.7 G parameters
+    at Mistral-7B's hypernet)."""
     from ..models.convert import flax_to_torch
     from ..models.hypernet import Hypernet, HypernetConfig
 
     with open(os.path.join(checkpoint, "hn_config.json")) as f:
         raw = json.load(f)
     dtype = _DTYPES[raw.get("dtype", "float32")]
-    hypernet = Hypernet(HypernetConfig.from_dict(raw), dtype=dtype)
+    with torch.device("meta"):
+        hypernet = Hypernet(HypernetConfig.from_dict(raw), dtype=dtype)
     with np.load(os.path.join(checkpoint, "params.npz")) as params:
         state = flax_to_torch({k: params[k] for k in params.files})
-    hypernet.load_state_dict(state, strict=True)
+    dtypes = {k: v.dtype for k, v in hypernet.state_dict().items()}
+    hypernet.load_state_dict({k: v.to(dtypes.get(k, v.dtype)) for k, v in state.items()},
+                             strict=True, assign=True)
     return hypernet.to(device).eval()
 
 
