@@ -142,7 +142,23 @@ Phases (any failure exits non-zero and prints no result):
      tinyllama_multilingual_lw0.5_long (26 languages, batch 128, vocab
      sample 32768, the four levers) on phase 14's TinyLlama, 1 identity and
      2 train steps: finite losses, exact launches, lang_embedding's
-     gradient nonzero.
+     gradient nonzero;
+ 16. the eval CLIs on phase 14's TinyLlama: (a) ``python -m
+     zett_tpu_torch.evaluation`` (perplexity / bits-per-char, f32, block
+     512, batch 8) on the source model under its own metaspace BPE, through
+     the general encode pipeline, over the repo's Markdown (about 64
+     blocks): loss, perplexity, bits-per-char, chars-per-token, n_tokens,
+     the host encode's MB/s, eval tokens a second on the card, the eval
+     loop's idle share (a traced second run) and peak memory; (b) the same
+     on 14(e)'s transferred model under llama0001, through the native fast
+     path, with the transfer's lm-head bias where it wrote one; (c)
+     evaluate_lm on 4 blocks of (a) at a 2-layer cut, card vs CPU, f32:
+     loss within 1e-5 relative, n_tokens and chars equal; (d) the choice
+     CLI on the transferred model over out/multilingual_eval/copa_en.jsonl
+     and copa_code.jsonl (60 items of 3 choices each): acc, acc_norm,
+     requests a second; at the 2-layer cut, card vs CPU on the first 16
+     items of each: every request's ll within 1e-4, or 1e-5 of |ll| where
+     that is more, n_tokens, n_bytes and greedy equal.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -3204,6 +3220,212 @@ def phase_mistral(tinyllama_dir):
     return kernels, transfer_launches, train_launches, transfer
 
 
+EVAL_BLOCK, EVAL_BATCH = 512, 8  # the perplexity CLI's defaults
+EVAL_CUT = 2  # layers of the card-vs-CPU comparisons of phase 16 (c) and (d)
+CHOICE_CPU_ITEMS = 16  # items of each task that (d) scores on the CPU too
+COPA = os.path.join(REPO, "out", "multilingual_eval", "copa_{}.jsonl")
+
+
+def write_depth_cut(src_dir, n_layers):
+    """A copy of the Llama-family directory ``src_dir`` cut to its first
+    ``n_layers`` layers (config.json, the weights those layers and the
+    tables need, the tokenizer), for the card-vs-CPU comparisons. Returns
+    its path."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict, save_hf_model
+
+    with open(os.path.join(src_dir, "config.json")) as f:
+        config = dict(json.load(f), num_hidden_layers=n_layers)
+    dst_dir = f"{src_dir}_{n_layers}layers"
+    state = {k: v for k, v in load_hf_state_dict(src_dir).items()
+             if not k.startswith("model.layers.") or int(k.split(".")[2]) < n_layers}
+    save_hf_model(dst_dir, state, config)
+    shutil.copy(os.path.join(src_dir, "tokenizer.json"), dst_dir)
+    return dst_dir
+
+
+def timed_eval_cli(cli_main, argv):
+    """Run an eval CLI's ``main`` on the card with its stages timed: the
+    host encode (``chunked_tokenize``), the eval loop (``evaluate_lm``,
+    synchronised) and the peak memory. Returns (metrics, stages), where
+    stages holds the loop's arguments to run it again."""
+    import zett_tpu_torch.evaluation.perplexity as ppl
+
+    stages = {}
+    encode, evaluate = ppl.chunked_tokenize, ppl.evaluate_lm
+
+    def timed_encode(tokenizer, texts, block_size):
+        t0 = time.perf_counter()
+        data = encode(tokenizer, texts, block_size)
+        stages["encode_s"] = time.perf_counter() - t0
+        stages["encode_mb"] = sum(len(t.encode("utf-8")) for t in texts) / 1e6
+        stages["text_chars"] = sum(len(t.replace("\x00", "").strip()) for t in texts)
+        return data
+
+    def timed_evaluate(apply_fn, data, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(apply_fn, data, **kw)
+        torch.cuda.synchronize()
+        stages["eval_s"] = time.perf_counter() - t0
+        stages["rerun"] = lambda: evaluate(apply_fn, data, **kw)
+        return out
+
+    ppl.chunked_tokenize, ppl.evaluate_lm = timed_encode, timed_evaluate
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        metrics = cli_main(argv)
+    finally:
+        ppl.chunked_tokenize, ppl.evaluate_lm = encode, evaluate
+    stages["wall_s"] = time.perf_counter() - t0
+    stages["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return metrics, stages
+
+
+def eval_report(tag, metrics, stages):
+    """Print a perplexity CLI run's metrics and rates; fail on non-finite
+    metrics."""
+    n_tokens = metrics["n_tokens"]
+    busy, wall_ms, _ = device_breakdown(stages.pop("rerun"), top=6)
+    idle = "not measured" if busy is None else f"{1 - busy / wall_ms:.3f}"
+    log(f"  ({tag}) loss {metrics['loss']:.6f} ppl {metrics['perplexity']:.6g} bpc "
+        f"{metrics['bits_per_char']:.6g} cpt {metrics['chars_per_token']:.6g} n_tokens "
+        f"{n_tokens:.0f} ({n_tokens / (EVAL_BLOCK - 1):.0f} blocks); the texts' own chars per "
+        f"scored token {stages['text_chars'] / n_tokens:.4f}")
+    log(f"  ({tag}) host encode {stages['encode_mb']:.4f} MB in {stages['encode_s']:.3f} s "
+        f"({stages['encode_mb'] / stages['encode_s']:.4f} MB/s); eval loop "
+        f"{stages['eval_s']:.3f} s ({n_tokens / stages['eval_s']:.1f} tokens/s on the card); "
+        f"idle share of the eval loop {idle} (1 - traced device busy / loop wall, a second "
+        f"run); CLI wall {stages['wall_s']:.3f} s; peak memory {stages['peak_gib']:.2f} GiB")
+    if not all(math.isfinite(float(metrics[k])) for k in
+               ("loss", "perplexity", "bits_per_char", "chars_per_token")) or n_tokens <= 0:
+        raise AssertionError(f"({tag}) eval metrics: {metrics}")
+
+
+def phase_eval(tinyllama_dir, transferred_dir, card="cuda"):
+    """The eval CLIs on the card: (a) the perplexity CLI on TinyLlama under
+    its own metaspace BPE (the general encode pipeline); (b) on the
+    transferred model under llama0001 (the native fast path); (c)
+    evaluate_lm card vs CPU at a 2-layer cut; (d) the choice CLI on the
+    transferred model over COPA-style en and code tasks, and card vs CPU at
+    the 2-layer cut."""
+    from zett_tpu_torch.evaluation import choice
+    from zett_tpu_torch.evaluation.__main__ import main as ppl_main
+    from zett_tpu_torch.evaluation.perplexity import chunked_tokenize, evaluate_lm, load_causal_lm
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.tokenization.fast_encode import fast_encoder_or_none
+
+    t_phase = time.perf_counter()
+    text_dir = os.path.join(WORK, "eval_text")
+    n_par, n_chars = write_training_text(text_dir)
+    text = os.path.join(text_dir, "en.txt")
+    log(f"  the repo's Markdown: {n_par} paragraphs, {n_chars} characters, one a line")
+    argv = ["--data", text, "--block-size", str(EVAL_BLOCK), "--batch-size", str(EVAL_BATCH),
+            "--device", card]
+    source = Tokenizer.from_file(os.path.join(tinyllama_dir, "tokenizer.json"))
+    target = Tokenizer.from_file(os.path.join(transferred_dir, "tokenizer.json"))
+    if fast_encoder_or_none(source) is not None or fast_encoder_or_none(target) is None:
+        raise AssertionError("(a) must take the general encode pipeline and (b) the fast path")
+
+    step("(a) the perplexity CLI on TinyLlama under its own metaspace BPE")
+    metrics_a, stages = timed_eval_cli(ppl_main, ["--model", tinyllama_dir] + argv)
+    eval_report("a", metrics_a, stages)
+    out = {"a": dict(metrics_a, **stages)}
+
+    step("(b) the perplexity CLI on the transferred TinyLlama under llama0001")
+    bias = os.path.join(transferred_dir, "bias.npy")
+    extra = ["--bias", bias] if os.path.exists(bias) else []
+    metrics_b, stages = timed_eval_cli(ppl_main, ["--model", transferred_dir] + argv + extra)
+    eval_report("b", metrics_b, stages)
+    log(f"  (b) with the transfer's lm-head bias: {bool(extra)}")
+    out["b"] = dict(metrics_b, **stages)
+
+    step(f"(c) evaluate_lm card vs CPU at {EVAL_CUT} layers, f32")
+    with open(text) as f:
+        texts = [line.rstrip("\n") for line in f if line.strip()]
+    data = chunked_tokenize(source, texts, EVAL_BLOCK)
+    data = {k: v[:4] for k, v in data.items()}
+    cut_dir = write_depth_cut(tinyllama_dir, EVAL_CUT)
+    results = []
+    for device in (card, "cpu"):
+        fn = load_causal_lm(cut_dir, device)
+        results.append(evaluate_lm(fn, data, special_ids=source.all_special_ids,
+                                   batch_size=EVAL_BATCH, device=device))
+        del fn
+        gc_free()
+    on_card, cpu = results
+    rel = abs(on_card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    # the char totals are not compared: both sides sum the host encode's
+    # char_lengths, which the CPU tests hold against JAX
+    log(f"  (c) 4 blocks of (a): loss card {on_card['loss']:.9f} CPU {cpu['loss']:.9f} (rel "
+        f"{rel:.3g}, tol 1e-5); n_tokens {on_card['n_tokens']:.0f} / {cpu['n_tokens']:.0f}")
+    if rel > 1e-5 or on_card["n_tokens"] != cpu["n_tokens"]:
+        raise AssertionError(f"evaluate_lm differs on the card: {on_card} vs {cpu}")
+
+    step("(d) the choice CLI on the transferred TinyLlama")
+    out["d"] = {}
+    for task in ("en", "code"):
+        items = choice.read_items(COPA.format(task))
+        n_requests = sum(len(item["choices"]) for item in items)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = choice.main(["--model", transferred_dir, "--data", COPA.format(task),
+                               "--device", card])
+        wall = time.perf_counter() - t0
+        log(f"  (d) copa_{task}: {len(items)} items, {n_requests} requests: acc "
+            f"{metrics['acc']:.4f} acc_norm {metrics['acc_norm']:.4f}; CLI wall {wall:.3f} s "
+            f"({n_requests / wall:.1f} requests/s, the model's load included)")
+        out["d"][task] = dict(metrics, wall_s=wall, requests=n_requests)
+    requests = [(item["query"], c) for task in ("en", "code")
+                for item in choice.read_items(COPA.format(task), CHOICE_CPU_ITEMS)
+                for c in item["choices"]]
+    cut_dir = write_depth_cut(transferred_dir, EVAL_CUT)
+    scores = []
+    for device in (card, "cpu"):
+        fn = load_causal_lm(cut_dir, device)
+        t0 = time.perf_counter()
+        scores.append(choice.score_loglikelihoods(fn, target, requests, device=device))
+        if device == card:
+            torch.cuda.synchronize()
+            log(f"  (d) score_loglikelihoods at {EVAL_CUT} layers on the card: {len(requests)} "
+                f"requests in {time.perf_counter() - t0:.3f} s")
+            # a control for the bound below: the same requests with TF32
+            # matmuls, a precision the f32 comparison must tell apart
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = choice.score_loglikelihoods(fn, target, requests, device=device)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+        del fn
+        gc_free()
+    pairs = list(zip(*scores))
+    # 1e-4 absolute, or 1e-5 of |ll| where that is more (as (c) holds the
+    # loss): the random hypernet's tables give the transferred model token
+    # log-probs of about -100 ((b)'s loss), so a request's ll runs to the
+    # thousands, where 1e-4 is under f32's rounding of 2048-long products
+    gaps = [(abs(a["ll"] - b["ll"]), max(1e-4, 1e-5 * abs(b["ll"])), b["ll"]) for a, b in pairs]
+    worst = max(gaps, key=lambda g: g[0] / g[1])
+    same = all((a["n_tokens"], a["n_bytes"], a["greedy"]) == (b["n_tokens"], b["n_bytes"],
+                                                              b["greedy"]) for a, b in pairs)
+    log(f"  (d) {len(requests)} requests ({CHOICE_CPU_ITEMS} items a task) at {EVAL_CUT} "
+        f"layers, card vs CPU, f32: max |ll| gap {max(g[0] for g in gaps):.3g}, |ll| from "
+        f"{min(abs(g[2]) for g in gaps):.4g} to {max(abs(g[2]) for g in gaps):.4g}; closest "
+        f"to its bound: gap {worst[0]:.3g} at ll {worst[2]:.6g} (tol {worst[1]:.3g}: 1e-4 or "
+        f"1e-5 x |ll|); n_tokens, n_bytes, greedy equal {same}; greedy "
+        f"{sum(a['greedy'] for a, _ in pairs)} of {len(requests)}")
+    over = [abs(a["ll"] - b["ll"]) / max(1e-4, 1e-5 * abs(b["ll"]))
+            for a, b in zip(control, scores[1])]
+    log(f"  (d) control, TF32 matmuls on the card vs the CPU's f32: max |ll| gap "
+        f"{max(abs(a['ll'] - b['ll']) for a, b in zip(control, scores[1])):.3g}, worst gap over "
+        f"its bound {max(over):.3g}, requests over their bound {sum(x > 1 for x in over)} of "
+        f"{len(over)} (reported, not held)")
+    if any(g > tol for g, tol, _ in gaps) or not same:
+        raise AssertionError("score_loglikelihoods differs on the card")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.3f} s wall")
+    return out
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -3279,6 +3501,10 @@ def main():
         kernels32, mistral_launches, ml_launches, mistral = phase_mistral(
             os.path.join(WORK, "tinyllama"))
         kernels.update(kernels32)
+        phase("phase 16: the eval CLIs (perplexity and multiple choice) on TinyLlama under its "
+              "own metaspace tokenizer and, after transfer, under llama0001")
+        evals = phase_eval(os.path.join(WORK, "tinyllama"),
+                           os.path.join(WORK, "tinyllama_llama0001"))
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -3339,7 +3565,10 @@ def main():
         f"mistral_en_code_hypernet_ms_per_32k {mistral['en_code']['ms_per_32k']:.3f} "
         f"mistral_multilingual_hypernet_ms_per_32k "
         f"{mistral['multilingual']['ms_per_32k']:.3f} "
-        f"mistral_en_code_transfer_wall_s {mistral[('en_code', 0)]['wall']:.3f}")
+        f"mistral_en_code_transfer_wall_s {mistral[('en_code', 0)]['wall']:.3f} "
+        f"eval_source_tokens_per_s {evals['a']['n_tokens'] / evals['a']['eval_s']:.1f} "
+        f"eval_transferred_tokens_per_s {evals['b']['n_tokens'] / evals['b']['eval_s']:.1f} "
+        f"eval_source_encode_mb_per_s {evals['a']['encode_mb'] / evals['a']['encode_s']:.4f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

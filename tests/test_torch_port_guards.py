@@ -55,12 +55,15 @@ def test_port_imports_nothing_forbidden(path):
 
 @pytest.mark.parametrize("module", ["zett_tpu_torch.transfer.__main__",
                                     "zett_tpu_torch.training.__main__",
-                                    "zett_tpu_torch.tokenization.compute_prior"])
+                                    "zett_tpu_torch.tokenization.compute_prior",
+                                    "zett_tpu_torch.evaluation.__main__",
+                                    "zett_tpu_torch.evaluation.choice"])
 def test_cli_import_leaves_jax_out(module):
     code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine, "
             "zett_tpu_torch.evaluation.loop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets')]; "
+            "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets', "
+            "'tokenizers', 'transformers')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)

@@ -9,6 +9,10 @@ MAX_CHARS_PER_TOKEN = 16
 
 EPSILON = 1e-8
 
+# Score penalty below the vocab's minimum for a Unigram lattice's unknown
+# character (sentencepiece's kUnkPenalty).
+UNK_PENALTY = 10.0
+
 # The GPT-2-style pre-tokenization patterns installed on converted and
 # sampled tokenizers. Kept as strings only: the port never compiles them (the
 # native host library's scanner implements both, zett_host.cpp).

@@ -7,9 +7,9 @@ texts, tokenize the texts with it, subsample the vocabulary (positives +
 random negatives, preserving special-token indices), and emit the
 hypernet's inputs: target_surface_forms, target_priors, mask, ids_to_embed,
 special indices, byte_lengths plus the LM's input_ids/attention_mask/labels.
-Texts are encoded by the native fast path only (``fast_encode.py``); a
-tokenizer outside it raises, since the JAX package's general encode needs
-``regex``.
+Texts are encoded by the native fast path (``fast_encode.py``) where the
+tokenizer is canonical byte-level, else by ``Tokenizer.encode_batch``, as
+in the JAX Collator.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def build_sampled_tokenizer(
         "added_tokens": [],
         "normalizer": {"type": "Prepend", "prepend": " "} if add_prefix_space else None,
         "pre_tokenizer": BYTE_LEVEL_PRETOKENIZER,
-        "post_processor": reference.to_json().get("post_processor"),
+        "post_processor": (reference.post_processor.to_json()
+                           if reference.post_processor is not None else None),
         "decoder": {"type": "ByteLevel", "add_prefix_space": True,
                     "trim_offsets": True, "use_regex": True},
         "model": {
@@ -258,13 +259,20 @@ class Collator:
         pad_id = tokenizer.token_to_id(pad_token) if pad_token else 0
 
         fast = fast_encoder_or_none(tokenizer)
-        if fast is None:
-            raise NotImplementedError(
-                "the tokenizer is not a canonical byte-level Unigram/BPE tokenizer: its "
-                "general encode pipeline (regex pre-tokenization) is not ported")
-        input_ids, attention_mask = fast.encode_batch(
-            texts, add_special_tokens=True, max_length=cfg.block_size, pad_id=pad_id
-        )
+        if fast is not None:
+            input_ids, attention_mask = fast.encode_batch(
+                texts, add_special_tokens=True, max_length=cfg.block_size, pad_id=pad_id
+            )
+        else:
+            tokenizer.enable_truncation(cfg.block_size)
+            tokenizer.enable_padding(
+                length=cfg.block_size, pad_id=pad_id, pad_token=pad_token or ""
+            )
+            encs = tokenizer.encode_batch(texts, add_special_tokens=True)
+            tokenizer.no_truncation()
+            tokenizer.no_padding()
+            input_ids = np.array([e.ids for e in encs], dtype=np.int32)
+            attention_mask = np.array([e.attention_mask for e in encs], dtype=np.int32)
 
         for key, value in (special_ids_map or {}).items():
             input_ids[input_ids == key] = value

@@ -1,6 +1,7 @@
-"""Host tokenization of the transfer path (no third-party dependencies)."""
+"""Host tokenization (no third-party dependencies): tokenizer.json load and
+save, the general encode pipeline and decode."""
 
-from .core import AddedToken, Tokenizer
+from .core import AddedToken, Encoding, Tokenizer
 from .models import BPE, Model, Unigram, WordPiece
 
-__all__ = ["AddedToken", "BPE", "Model", "Tokenizer", "Unigram", "WordPiece"]
+__all__ = ["AddedToken", "BPE", "Encoding", "Model", "Tokenizer", "Unigram", "WordPiece"]

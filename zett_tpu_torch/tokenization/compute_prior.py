@@ -79,6 +79,15 @@ def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
             raise SystemExit(
                 f"vocab piece {tok!r} (id {i}) is not representable in the tokenizer's "
                 f"byte domain; pass {HOST_FLAG} for the host path")
+    if any(isinstance(p, str) for p in pretoken_counts):
+        # a tokenizer outside the canonical structure counts its pretoken
+        # strings, byte chars where its vocab is byte level
+        try:
+            pretoken_counts = {bytes(CHARS_TO_BYTES[c] for c in p): n
+                               for p, n in pretoken_counts.items()}
+        except KeyError:
+            raise SystemExit("a pretoken is not representable in the tokenizer's byte domain; "
+                             f"pass {HOST_FLAG} for the host path")
     # 48-byte rows: pretokens are GPT-2-split words; the longer tail is
     # segmented exactly on the host
     counts = count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48,

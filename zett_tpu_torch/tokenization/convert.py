@@ -9,7 +9,8 @@ normalizer and pre-tokenizer, ``normalizers.py``/``pretokenizers.py``), the
 byte-fallback collapse, whitespace canonicalization, special-token alignment
 to a reference tokenizer with post-processor id fixup, the Unigram score
 transplant and BPE merge re-derivation. A normalizer or pre-tokenizer with
-a ``Regex`` pattern in the probe's way raises ``NotImplementedError``.
+a ``Regex`` pattern that the port refuses (``patterns.py``) in the probe's
+way raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,6 @@ from typing import Dict, List, Optional, Set, Tuple
 from ..constants import EXTRA_WHITESPACE_CHARS, NEGATIVE_INF_FILL_VALUE, SPLIT_REGEX
 from .bytemaps import BYTES_TO_CHARS, CHARS_TO_BYTES
 from .core import AddedToken, Tokenizer
-from .normalizers import normalize_str
-from .pretokenizers import pre_tokenize_str
 
 # The canonical byte-level normalizer/pre-tokenizer installed on converted
 # tokenizers.
@@ -65,9 +64,11 @@ def _get_byte_fn(tok: Tokenizer, tokenizer_data: dict):
         assert not (tokenizer_data["model"].get("continuing_subword_prefix") or "")
         return (lambda x: x), None
 
-    probe = normalize_str(tok.normalizer, " test")
+    probe = " test"
+    if tok.normalizer is not None:
+        probe = tok.normalizer.normalize_str(probe)
     if tok.pre_tokenizer is not None:
-        pieces = pre_tokenize_str(tok.pre_tokenizer, probe)
+        pieces = tok.pre_tokenizer.pre_tokenize_str(probe)
         probe = pieces[0][0] if pieces else probe
     meta_char = probe[0] if probe and probe[0] != " " and probe != "test" else None
 

@@ -3,12 +3,9 @@ native host library (counterpart of ``zett_tpu/tokenization/fast_encode.py``).
 
 Valid only for the canonical sampled/converted pipeline: a Prepend(" ")
 normalizer (optional), Split(SPLIT_REGEX, invert) + ByteLevel (or a plain
-ByteLevel with use_regex) pre-tokenization, and a byte-complete model. The
-port keeps normalizers, pre-tokenizers and post-processors as their
-tokenizer.json dicts, so the structure checks read those dicts. Any other
-tokenizer gets None from ``fast_encoder_or_none``: the JAX package then
-encodes with its pure-Python pipeline, which needs ``regex`` and is not
-ported.
+ByteLevel with use_regex) pre-tokenization, and a byte-complete model. Any
+other tokenizer gets None from ``fast_encoder_or_none`` and its callers
+encode with the general pipeline (``Tokenizer.encode_batch``).
 """
 
 from __future__ import annotations
@@ -21,6 +18,9 @@ from ..csrc import host_lib
 from .bytemaps import CHARS_TO_BYTES
 from .core import Tokenizer
 from .models import BPE, Unigram
+from .normalizers import Prepend
+from .postprocessors import ByteLevelPost, TemplateProcessing
+from .pretokenizers import ByteLevel, Sequence, Split
 
 # byte-char -> latin-1 char translation. Raw chars outside the byte alphabet
 # but < 0x100 map to an un-encodable char so the piece is skipped.
@@ -62,10 +62,6 @@ def _build_native_bpe(model: BPE, trans) -> Optional[host_lib.NativeBPE]:
                               ignore_merges=model.ignore_merges)
 
 
-def _is_byte_level_pre(pt) -> bool:
-    return isinstance(pt, dict) and pt.get("type") == "ByteLevel"
-
-
 def _canonical_structure(tok: Tokenizer) -> bool:
     if isinstance(tok.model, BPE):
         m = tok.model
@@ -74,12 +70,11 @@ def _canonical_structure(tok: Tokenizer) -> bool:
     elif not isinstance(tok.model, Unigram):
         return False
     pt = tok.pre_tokenizer
-    if (isinstance(pt, dict) and pt.get("type") == "Sequence"
-            and len(pt["pretokenizers"]) == 2
-            and pt["pretokenizers"][0].get("type") == "Split"
-            and _is_byte_level_pre(pt["pretokenizers"][1])):
+    if (isinstance(pt, Sequence) and len(pt.pretokenizers) == 2
+            and isinstance(pt.pretokenizers[0], Split)
+            and isinstance(pt.pretokenizers[1], ByteLevel)):
         return True
-    return _is_byte_level_pre(pt) and pt.get("use_regex", True)
+    return isinstance(pt, ByteLevel) and pt.use_regex
 
 
 class SplitConfig:
@@ -101,14 +96,13 @@ class SplitConfig:
         norm = tok.normalizer
         prepend = None
         if norm is not None:
-            if norm.get("type") != "Prepend":
-                raise ValueError(f"unsupported normalizer for the fast path: {norm}")
-            prepend = norm["prepend"]
+            if not isinstance(norm, Prepend):
+                raise ValueError(f"unsupported normalizer for the fast path: {norm.to_json()}")
+            prepend = norm.prepend
         pt = tok.pre_tokenizer
-        if _is_byte_level_pre(pt):
-            return SplitConfig(prepend, False, bool(pt.get("add_prefix_space", True)))
-        pattern = pt["pretokenizers"][0]["pattern"]
-        return SplitConfig(prepend, r"\p{M}" in pattern.get("Regex", ""), False)
+        if isinstance(pt, ByteLevel):
+            return SplitConfig(prepend, False, bool(pt.add_prefix_space))
+        return SplitConfig(prepend, r"\p{M}" in pt.pretokenizers[0].pattern, False)
 
     def raw_texts(self, texts: List[str]) -> List[bytes]:
         """The normalized utf-8 texts that the native split takes."""
@@ -152,19 +146,17 @@ class FastUnigramEncoder:
         self.prefix_ids: List[int] = []
         self.suffix_ids: List[int] = []
         post = tok.post_processor
-        if post is not None and post.get("type") == "TemplateProcessing":
-            specials = post["special_tokens"]
-            if isinstance(specials, list):
-                specials = {st["id"]: st for st in specials}
+        if isinstance(post, TemplateProcessing):
+            specials = post.special_tokens
             seen_seq = False
-            for piece in post["single"]:
+            for piece in post.single:
                 if "Sequence" in piece:
                     seen_seq = True
                 elif "SpecialToken" in piece:
                     ids = specials[piece["SpecialToken"]["id"]]["ids"]
                     (self.suffix_ids if seen_seq else self.prefix_ids).extend(ids)
-        elif post is not None and post.get("type") != "ByteLevel":
-            raise ValueError(f"unsupported post_processor for the fast path: {post}")
+        elif post is not None and not isinstance(post, ByteLevelPost):
+            raise ValueError(f"unsupported post_processor for the fast path: {post.to_json()}")
 
     def encode_batch(self, texts: List[str], add_special_tokens: bool = True,
                      max_length: Optional[int] = None,

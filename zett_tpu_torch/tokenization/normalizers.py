@@ -1,19 +1,120 @@
-"""Text normalizers over the dict-held ``normalizer`` of a tokenizer.json
-(counterpart of ``zett_tpu/tokenization/normalizers.py``), the subset the
-byte-level conversion's metaspace probe runs: ``Prepend``, ``Replace``
-with a ``String`` pattern, ``Sequence``, ``Strip``, ``Lowercase``, the
-unicode forms (``unicodedata``) and ``BertNormalizer``.
+"""Text normalizers, JSON-compatible with HF tokenizers' serialization
+(counterpart of ``zett_tpu/tokenization/normalizers.py``): ``Prepend``,
+``Sequence``, the unicode forms, ``Lowercase``, ``Replace`` with a
+``String`` or a ``Regex`` pattern, ``Strip`` and ``BertNormalizer``.
 
-Standard library only. A ``Replace`` with a ``Regex`` pattern raises
-``NotImplementedError`` naming the pattern: the card's machine has no
-``regex`` module, and an approximation with ``re`` could silently differ.
-Any other unknown type raises ``ValueError``.
+Standard library only. A ``Regex`` pattern runs as ``patterns.py`` says:
+the stdlib ``re`` where it reads the same as under ``regex``, else it raises
+``NotImplementedError`` when first used. Any other unknown type raises
+``ValueError``.
 """
 
 from __future__ import annotations
 
 import unicodedata
 from typing import Optional
+
+from .patterns import compile_pattern
+
+
+class Normalizer:
+    def normalize_str(self, text: str) -> str:
+        raise NotImplementedError
+
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
+    @staticmethod
+    def from_json(data: Optional[dict]) -> Optional["Normalizer"]:
+        if data is None:
+            return None
+        t = data["type"]
+        if t == "Prepend":
+            return Prepend(data["prepend"])
+        if t == "Sequence":
+            return Sequence([Normalizer.from_json(n) for n in data["normalizers"]])
+        if t in ("NFC", "NFD", "NFKC", "NFKD"):
+            return UnicodeForm(t)
+        if t == "Lowercase":
+            return Lowercase()
+        if t == "Replace":
+            return Replace(data["pattern"], data["content"])
+        if t == "Strip":
+            return Strip(data.get("strip_left", True), data.get("strip_right", True))
+        if t == "BertNormalizer":
+            return BertNormalizer(
+                clean_text=data.get("clean_text", True),
+                handle_chinese_chars=data.get("handle_chinese_chars", True),
+                strip_accents=data.get("strip_accents"),
+                lowercase=data.get("lowercase", True),
+            )
+        raise ValueError(f"Unsupported normalizer type: {t}")
+
+
+class Prepend(Normalizer):
+    def __init__(self, prepend: str):
+        self.prepend = prepend
+
+    def normalize_str(self, text: str) -> str:
+        return self.prepend + text if text else text
+
+    def to_json(self) -> dict:
+        return {"type": "Prepend", "prepend": self.prepend}
+
+
+class Sequence(Normalizer):
+    def __init__(self, normalizers):
+        self.normalizers = [n for n in normalizers if n is not None]
+
+    def normalize_str(self, text: str) -> str:
+        for n in self.normalizers:
+            text = n.normalize_str(text)
+        return text
+
+    def to_json(self) -> dict:
+        return {"type": "Sequence", "normalizers": [n.to_json() for n in self.normalizers]}
+
+
+class UnicodeForm(Normalizer):
+    def __init__(self, form: str):
+        assert form in ("NFC", "NFD", "NFKC", "NFKD")
+        self.form = form
+
+    def normalize_str(self, text: str) -> str:
+        return unicodedata.normalize(self.form, text)
+
+    def to_json(self) -> dict:
+        return {"type": self.form}
+
+
+class Lowercase(Normalizer):
+    def normalize_str(self, text: str) -> str:
+        return text.lower()
+
+    def to_json(self) -> dict:
+        return {"type": "Lowercase"}
+
+
+class Replace(Normalizer):
+    def __init__(self, pattern, content: str):
+        # pattern is either {"String": s} or {"Regex": r}
+        self.pattern = pattern
+        self.content = content
+        if isinstance(pattern, dict) and "Regex" in pattern:
+            self._rx = compile_pattern(pattern["Regex"], "Replace normalizer")
+            self._lit = None
+        else:
+            self._rx = None
+            self._lit = pattern["String"] if isinstance(pattern, dict) else pattern
+
+    def normalize_str(self, text: str) -> str:
+        if self._rx is not None:
+            return self._rx.sub(self.content, text)
+        return text.replace(self._lit, self.content)
+
+    def to_json(self) -> dict:
+        pattern = self.pattern if isinstance(self.pattern, dict) else {"String": self.pattern}
+        return {"type": "Replace", "pattern": pattern, "content": self.content}
 
 
 def _is_cjk(cp: int) -> bool:
@@ -29,60 +130,62 @@ def _is_cjk(cp: int) -> bool:
     )
 
 
-def _bert_normalize(data: dict, text: str) -> str:
-    if data.get("clean_text", True):
-        out = []
-        for c in text:
-            cp = ord(c)
-            if cp == 0 or cp == 0xFFFD or (unicodedata.category(c).startswith("C")
-                                           and c not in "\t\n\r"):
-                continue
-            out.append(" " if c.isspace() else c)
-        text = "".join(out)
-    if data.get("handle_chinese_chars", True):
-        text = "".join(f" {c} " if _is_cjk(ord(c)) else c for c in text)
-    lowercase = data.get("lowercase", True)
-    strip_accents = data.get("strip_accents")
-    if strip_accents is None:
-        strip_accents = lowercase
-    if lowercase:
-        text = text.lower()
-    if strip_accents:
-        text = "".join(c for c in unicodedata.normalize("NFD", text)
-                       if unicodedata.category(c) != "Mn")
-    return text
+class BertNormalizer(Normalizer):
+    def __init__(
+        self,
+        clean_text: bool = True,
+        handle_chinese_chars: bool = True,
+        strip_accents: Optional[bool] = None,
+        lowercase: bool = True,
+    ):
+        self.clean_text = clean_text
+        self.handle_chinese_chars = handle_chinese_chars
+        self.strip_accents = strip_accents
+        self.lowercase = lowercase
+
+    def normalize_str(self, text: str) -> str:
+        if self.clean_text:
+            out = []
+            for c in text:
+                cp = ord(c)
+                if cp == 0 or cp == 0xFFFD or (unicodedata.category(c).startswith("C")
+                                               and c not in "\t\n\r"):
+                    continue
+                out.append(" " if c.isspace() else c)
+            text = "".join(out)
+        if self.handle_chinese_chars:
+            text = "".join(f" {c} " if _is_cjk(ord(c)) else c for c in text)
+        strip_accents = self.strip_accents
+        if strip_accents is None:
+            strip_accents = self.lowercase
+        if self.lowercase:
+            text = text.lower()
+        if strip_accents:
+            text = "".join(c for c in unicodedata.normalize("NFD", text)
+                           if unicodedata.category(c) != "Mn")
+        return text
+
+    def to_json(self) -> dict:
+        return {
+            "type": "BertNormalizer",
+            "clean_text": self.clean_text,
+            "handle_chinese_chars": self.handle_chinese_chars,
+            "strip_accents": self.strip_accents,
+            "lowercase": self.lowercase,
+        }
 
 
-def normalize_str(data: Optional[dict], text: str) -> str:
-    """``text`` through the normalizer ``data`` (None: unchanged)."""
-    if data is None:
-        return text
-    t = data["type"]
-    if t == "Prepend":
-        return data["prepend"] + text if text else text
-    if t == "Sequence":
-        for n in data["normalizers"]:
-            text = normalize_str(n, text)
-        return text
-    if t in ("NFC", "NFD", "NFKC", "NFKD"):
-        return unicodedata.normalize(t, text)
-    if t == "Lowercase":
-        return text.lower()
-    if t == "Strip":
-        if data.get("strip_left", True):
+class Strip(Normalizer):
+    def __init__(self, left: bool = True, right: bool = True):
+        self.left = left
+        self.right = right
+
+    def normalize_str(self, text: str) -> str:
+        if self.left:
             text = text.lstrip()
-        if data.get("strip_right", True):
+        if self.right:
             text = text.rstrip()
         return text
-    if t == "Replace":
-        pattern = data["pattern"]
-        if isinstance(pattern, dict) and "Regex" in pattern:
-            raise NotImplementedError(
-                f"Replace normalizer with the Regex pattern {pattern['Regex']!r}: regular "
-                "expressions of tokenizer.json need the regex module, which the port does "
-                "not use")
-        literal = pattern["String"] if isinstance(pattern, dict) else pattern
-        return text.replace(literal, data["content"])
-    if t == "BertNormalizer":
-        return _bert_normalize(data, text)
-    raise ValueError(f"Unsupported normalizer type: {t}")
+
+    def to_json(self) -> dict:
+        return {"type": "Strip", "strip_left": self.left, "strip_right": self.right}

@@ -9,11 +9,12 @@ zett/compute_prior.py:25-136), with the native Aho-Corasick automaton of
 host library is missing; the port has no such fallback, since its host
 library is built at first use or raises.
 
-Pre-tokenization runs on the native GPT-2-regex split, so it covers the
-canonical byte-level structure that ``fast_encode`` accepts (a Prepend
-normalizer or none, Split + ByteLevel or a plain ByteLevel with use_regex);
-any other structure raises ``NotImplementedError`` (the general pipeline
-needs ``regex``: ROADMAP A.15). Pretokens are raw bytes.
+Pretoken counts of the canonical byte-level structure that ``fast_encode``
+accepts (a Prepend normalizer or none, Split + ByteLevel or a plain
+ByteLevel with use_regex) come from the native GPT-2 split and are keyed
+by raw bytes. Any other tokenizer runs its own normalizer and
+pre-tokenizer, as the JAX package does, and its counts are keyed by the
+pretoken strings.
 """
 
 from __future__ import annotations
@@ -53,16 +54,21 @@ def get_prior(mode: str, input_ids: Optional[np.ndarray], tokenizer: Tokenizer,
 
 
 def get_pretoken_counts(tokenizer: Tokenizer, texts: Iterable[str]) -> Counter:
-    """Counts of the raw-byte pretokens of a corpus under the tokenizer's own
-    normalizer and pre-tokenizer (reference compute_prior.py:35-63)."""
+    """Counts of a corpus' pretokens under the tokenizer's own normalizer
+    and pre-tokenizer (reference compute_prior.py:35-63): raw bytes for a
+    canonical byte-level tokenizer, else the pretoken strings."""
+    counts: Counter = Counter()
     try:
         split = SplitConfig.of(tokenizer)
-    except ValueError as exc:
-        raise NotImplementedError(
-            "pretoken counts need the canonical byte-level structure (Prepend, "
-            "Split + ByteLevel); other tokenizers need the general pre-tokenizer "
-            f"(ROADMAP A.15): {exc}") from exc
-    counts: Counter = Counter()
+    except ValueError:
+        norm, pretok = tokenizer.normalizer, tokenizer.pre_tokenizer
+        for text in texts:
+            t = norm.normalize_str(text) if norm is not None else text
+            if pretok is not None:
+                counts.update(p for p, _ in pretok.pre_tokenize_str(t))
+            else:
+                counts[t] += 1
+        return counts
     for raw in split.raw_texts(list(texts)):
         counts.update(host_lib.split_pretokens_native(raw, use_marks=split.use_marks))
     return counts
@@ -72,14 +78,16 @@ def compute_substring_prior(tokenizer: Tokenizer, texts: Optional[Iterable[str]]
                             pretoken_counts: Optional[Mapping[bytes, int]] = None,
                             return_pretoken_counts: bool = False):
     """log-prior over the vocab from substring occurrence counts in the
-    pretokens (raw bytes, as ``get_pretoken_counts`` returns them)."""
+    pretokens (keyed as ``get_pretoken_counts`` returns them)."""
     if pretoken_counts is None:
         if texts is None:
             raise ValueError("compute_substring_prior needs texts or pretoken_counts")
         pretoken_counts = get_pretoken_counts(tokenizer, texts)
 
-    # vocab tokens are byte-char strings: match pretokens in the same domain
-    as_chars = {bytes_to_byte_chars(p): c for p, c in pretoken_counts.items()}
+    # a byte-level vocab holds byte-char strings: match raw-byte pretokens
+    # in the same domain
+    as_chars = {bytes_to_byte_chars(p) if isinstance(p, bytes) else p: c
+                for p, c in pretoken_counts.items()}
     acc = np.zeros(len(tokenizer), dtype=np.int64)
     host_lib.substring_counts(tokenizer.get_vocab(), as_chars, acc)
 
