@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the kernels from
      zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
-     host library (g++); print ptxas's registers, shared memory and spills
+     host library (g++) beside them, while the inputs of phases 12, 14 and
+     15 that no kernel makes are written (``prepare_inputs``); print
+     ptxas's registers, shared memory and spills
      of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
      HMMA (kernels 1 to 5: the attention core's mma.sync; in kernel 1 within
      its [q|k|v] GEMM, whose epilogue runs the core) in their SASS
@@ -13,15 +15,17 @@ Phases (any failure exits non-zero and prints no result):
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
-     call, beside the least time the card could take; kernel 1 also back to
-     back (20 calls), its wrapper's host ms, its plan (launches, cluster,
+     call (each timed loop stops past TIMING_BUDGET_MS), beside the least
+     time the card could take; kernel 1 also back to back (up to 20
+     calls), its wrapper's host ms, its plan (launches, cluster,
      [q|k|v] tile rows), its device kernels a call (at most four in bf16, at
      every width), its device time by kernel and each GEMM's TFLOP/s beside
      torch.matmul's (cuBLAS, timed only); kernel 1 at widths off the GEMMs'
      tiles (H 640 with 10 heads and I 1600, H 896 with 14 heads) and at the
      widest bf16 width (H 1024, 16 heads, I 4096);
-  3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 2048
-     rows: the card (kernels) against the CPU (plain versions), f32;
+  3. the Hypernet module at configs/zeroshot/gpt2_en.json's widths on 512
+     rows (cut from 2048 for time): the card (kernels) against the CPU
+     (plain versions), f32;
   4. zero-shot transfer end to end through ``zett_tpu_torch.transfer``'s
      CLI on its default device: a seeded GPT-2-small-shaped source model with
      gpt2_raw's tokenizer, a seeded hypernet at gpt2_en's config (bf16), the
@@ -36,7 +40,7 @@ Phases (any failure exits non-zero and prints no result):
      own mask, and seed determinism; times beside bounds, plain versions and
      SDPA; kernel 3 at rates 0 and 0.1 with a train batch's share of
      all-padding rows;
-  6. the hypernet's training route at gpt2_en's widths on 2048 rows, card
+  6. the hypernet's training route at gpt2_en's widths on 512 rows, card
      against CPU, f32: the loss and every parameter gradient;
   7. training through ``zett_tpu_torch.training``'s CLI on its default
      device at configs/zeroshot/gpt2_en.json's widths (6 steps, 2 of them
@@ -55,7 +59,7 @@ Phases (any failure exits non-zero and prints no result):
      kernel 4 at H 640 (10 heads) and H 896 (14 heads), kernel 5 at 14
      heads; attention_block_fused's backward card vs CPU;
   9. the Hypernet at configs/zeroshot/gpt2_en_priors_inter_token_attn.json's
-     widths and at a hidden_act="gelu" variant of gpt2_en on 2048 rows, card
+     widths and at a hidden_act="gelu" variant of gpt2_en on 512 rows, card
      against CPU, f32: inference outputs (and which kernels ran), the
      training route's loss and every parameter gradient;
  10. transfer through the CLI at the prior + inter-token-attention config
@@ -94,12 +98,12 @@ Phases (any failure exits non-zero and prints no result):
      preempt_step_2, and resume_from_checkpoint continues it: steps 3-4
      against an uninterrupted run (and two uninterrupted runs' gap); (c)
      Adafactor on a repeated batch, losses finite and falling; (d) at the
-     config's batch 128, prefetch_batches 0 and 2 with num_workers 0 and 4:
-     the loop's wall per train step, its idle share (a profiled step's
-     device busy time over the loop's wall per step), collate, wait and
-     device ms, no worker process left; (e) the in-training eval with
-     loss_chunk_size 32 on held-out paragraphs (kernel 1 on the inference
-     route, no (B, L, V) logits), and on its first batch the chunked eval
+     config's batch 128, prefetch_batches 0 and 2 with num_workers 0 and 4,
+     4 steps (cut from 6): the loop's wall per train step, its idle share
+     (a profiled step's device busy time over the loop's wall per step),
+     collate, wait and device ms, no worker process left; (e) the
+     in-training eval with loss_chunk_size 32 on held-out paragraphs
+     (kernel 1 on the inference route, no (B, L, V) logits), and on its first batch the chunked eval
      against the whole-logits eval; the phase's wall time;
  14. TinyLlama (TinyLlama-1.1B-intermediate-step-1431k-3T's published
      config.json, random bf16 weights from a seed, a 32000-piece metaspace
@@ -114,14 +118,16 @@ Phases (any failure exits non-zero and prints no result):
      vs CPU (f32); (d) the training CLI at
      configs/zeroshot/tinyllama_en_code_lw0.5_long.json (batch 128, vocab
      sample 32768; no lever and each lever alone: peak or out of memory;
-     then 6 steps, 2 of them identity steps, with the levers, eval at step
-     0 and 6 on en_raw and starcoder0001 and sampled tokenizers over the
-     repo's Markdown (en) and Python (the code languages)): finite losses
+     then 4 steps, 1 of them an identity step, with the levers, eval at
+     step 0 and 4 on en_raw and starcoder0001 and sampled tokenizers over
+     the repo's Markdown (en) and Python (the code languages); cut from 6
+     steps, 2 of them identity steps, to make room for phase 17): finite losses
      and eval rows, exact launches of kernels 1, 2 and 3, step times, idle
      share, peak memory; (e) the transfer CLI to llama0001 from the
      trained final/: both tables at 32771 rows and different, config.json's
      vocab_size, the written model's logits through the port's Llama, the
-     hypernet per 32k vocab, idle share and kernel launches;
+     hypernet per 32k vocab over the transfer's own batches, idle share and
+     kernel launches;
  15. Mistral-7B (mistralai/Mistral-7B-v0.1's published config.json, every
      width kept, cut to MISTRAL_LAYERS layers, random bf16 weights from a
      seed, a 32000-piece metaspace tokenizer): (a) the model directory; (b)
@@ -132,17 +138,20 @@ Phases (any failure exits non-zero and prints no result):
      heads of 64 on its seven-launch route, kernels 4 and 5 at 32 heads of
      64), bf16 timed beside the bound, the plain version and the library
      call, f32 at a smaller batch; (c) the hypernet of both Mistral configs
-     on 256 surface forms, card vs CPU, f32, with and without the language
-     id; (d) the transfer CLI on its default device from a seeded
-     checkpoint at mistral7b_en_code_lw0.5_long and (at --lang-index 0 and
-     5, whose tables must differ) mistral7b_multilingual_lw0.5_long to
-     llama0001: exact launches, both tables, wall and peak memory, the
-     hypernet per 32k vocab, its idle share, its device time by kernel and
-     its matrix products by input shapes; (e) the training CLI at
+     on 64 surface forms (cut from 256), card vs CPU, f32, with and without
+     the language id; (d) the transfer CLI on its default device from a seeded
+     checkpoint at mistral7b_en_code_lw0.5_long and (at --lang-index 5)
+     mistral7b_multilingual_lw0.5_long to llama0001: exact launches, both
+     tables, wall and peak memory, the hypernet per 32k vocab over the
+     transfer's own batches, its idle share and its device time by kernel;
+     the multilingual hypernet ran at the CLI's language id, and its first
+     batch at language id 0 differs (cut to make room for phase 17: a
+     second multilingual transfer at --lang-index 0, and the matrix
+     products by input shape); (e) the training CLI at
      tinyllama_multilingual_lw0.5_long (26 languages, batch 128, vocab
-     sample 32768, the four levers) on phase 14's TinyLlama, 1 identity and
-     2 train steps: finite losses, exact launches, lang_embedding's
-     gradient nonzero;
+     sample 32768, the four levers) on phase 14's TinyLlama cut to 2
+     layers (from 22, for time), 1 identity and 2 train steps: finite
+     losses, exact launches, lang_embedding's gradient nonzero;
  16. the eval CLIs on phase 14's TinyLlama: (a) ``python -m
      zett_tpu_torch.evaluation`` (perplexity / bits-per-char, f32, block
      512, batch 8) on the source model under its own metaspace BPE, through
@@ -156,15 +165,41 @@ Phases (any failure exits non-zero and prints no result):
      loss within 1e-5 relative, n_tokens and chars equal; (d) the choice
      CLI on the transferred model over out/multilingual_eval/copa_en.jsonl
      and copa_code.jsonl (60 items of 3 choices each): acc, acc_norm,
-     requests a second; at the 2-layer cut, card vs CPU on the first 16
-     items of each: every request's ll within 1e-4, or 1e-5 of |ll| where
-     that is more, n_tokens, n_bytes and greedy equal.
+     requests a second; at the 2-layer cut, card vs CPU on the first 4
+     items of each (cut from 8): every request's ll within 1e-4, or 1e-5
+     of |ll| where that is more, n_tokens, n_bytes and greedy equal;
+ 17. the n-shot and baseline path on phase 14's TinyLlama (launches no port
+     kernel; run under PYTHONHASHSEED 0, ROADMAP C.13): (a) ``python -m
+     zett_tpu_torch.transfer.baselines_cli`` to starcoder0001 for lexical,
+     bfvt, focus and ofa (char n-grams) on a 2-layer cut of the model (the
+     methods read its tables only): wall, overlap, rows per route,
+     finite tables; FOCUS's and OFA's search and combination card vs plain
+     on 4096 seeded new tokens (other top-k sets only at a tie within 1e-6,
+     counted; rows within 1e-5 of the scale); (b) the training CLI at
+     configs/baseline/tinyllama_code_original.json (passthrough tables and
+     full fine-tuning, batch 32, block 512, lr 1e-6, lexical weight 0) for 3
+     steps on the repo's Python, first at the config's own settings, then
+     with remat_backbone and the chunked loss in turn where it runs out of
+     memory: finite losses, the share of table and backbone elements (layers
+     0 and 21) that moved, step ms, peak memory, idle share (final/ with the
+     tables only, cut for time and disk writes: the full state is (c)'s);
+     (c) at a 2-layer cut, step 2 resumed through the CLI from a
+     1-step run's full state against a 2-step run: the same batch, loss
+     and a backbone weight within 1e-6; (d) the training CLI at
+     tinyllama_code_starcoder_from_focus.json on (a)'s FOCUS model (2
+     layers), 2 steps; (e) ``--method passthrough`` on (d)'s final/ and the
+     perplexity CLI on the written model over 4 blocks, and the named
+     refusal (ROADMAP C.16)
+     on (b)'s final/; (f) configs/nshot/gpt2_passthrough_ft.json's named
+     refusal (ROADMAP C.11) before any step.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -175,9 +210,17 @@ import subprocess
 import sys
 import time
 import traceback
+import zipfile
 
-import numpy as np
-import torch
+if __name__ == "__main__" and os.environ.get("PYTHONHASHSEED") != "0":
+    # phase 17's FOCUS and OFA bucket char n-grams by Python's string hash,
+    # salted per process unless PYTHONHASHSEED is set (ROADMAP C.13): the
+    # script runs again under a fixed one, in this process
+    os.execve(sys.executable, [sys.executable] + sys.argv,
+              dict(os.environ, PYTHONHASHSEED="0"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
@@ -198,6 +241,9 @@ GPT2_EN = dict(
 PITA = dict(GPT2_EN, embed_target_priors=True, add_inter_token_attention=True,
             inter_token_attention_bias_by_priors=True, n_inter_token_blocks=16)
 GPT2_EN_GELU = dict(GPT2_EN, hidden_act="gelu")
+# surface forms of the hypernet's card-vs-CPU checks (phases 3, 6 and 9;
+# cut from 2048 to spare the CPU's side)
+HYPERNET_ROWS = 512
 # kernels that no main path runs: no JAX path reaches the tier-1 core (only
 # its tests call merged_attention_pallas), and the device Viterbi's main
 # paths run kernel 6's DP fused with its span scores (viterbi_spans_dp);
@@ -222,19 +268,35 @@ def step(title):
     phase(f"  {title}")
 
 
+# a timed loop stops once its calls pass this much device time: fast
+# kernels still get every call, slow plain versions one or three
+TIMING_BUDGET_MS = 250.0
+
+
+def event_ms(fn):
+    """One call of ``fn`` between two CUDA events, in ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_ms(fn, reps=20, warmup=3):
-    """Median of per-call CUDA-event times, after warm-up."""
+    """Median of per-call CUDA-event times after warm-up: ``reps`` calls,
+    or fewer once they pass TIMING_BUDGET_MS together (at least 3, or one
+    call that alone passes it); one warm-up call where that call takes more
+    than a tenth of the budget."""
     for _ in range(warmup):
-        fn()
+        if event_ms(fn) > TIMING_BUDGET_MS / 10:
+            break
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(event_ms(fn))
+        if sum(times) > TIMING_BUDGET_MS and (len(times) >= 3 or times[0] > TIMING_BUDGET_MS):
+            break
     return float(np.median(times))
 
 
@@ -322,20 +384,21 @@ def check_build():
     # every instantiation that spills, the head-width-128 ones (Li128E) among
     # them, on lines of their own
     log(f"  ptxas spills: {len(spills)} kernels" + "".join(f"\n    {x}" for x in spills))
-    for name, ops in SASS_REQUIRED.items():
-        counts = _build.sass_counts(name, ops)
+    # each library's SASS, and kernel 1's three kernels in libencoder_layer.so
+    # (its core runs in the [q|k|v] GEMM's epilogue: mma.sync there): one
+    # cuobjdump process each, all at once
+    jobs = [(name, ops, None) for name, ops in SASS_REQUIRED.items()]
+    jobs += [("encoder_layer", ops, function) for function, ops in SASS_REQUIRED_IN.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(lambda job: _build.sass_counts(*job), jobs))
+    for (name, _, function), counts in zip(jobs, results):
         if counts is None:
             log("  cuobjdump is not in the toolkit: SASS not counted")
             return
-        log(f"  SASS of lib{name}.so: {counts}")
+        what = f"lib{name}.so" if function is None else f"{function} (lib{name}.so)"
+        log(f"  SASS of {what}: {counts}")
         if not all(counts.values()):
-            raise AssertionError(f"lib{name}.so lacks {[op for op, n in counts.items() if not n]}")
-    # kernel 1's core runs in its [q|k|v] GEMM's epilogue: mma.sync there
-    for function, ops in SASS_REQUIRED_IN.items():
-        counts = _build.sass_counts("encoder_layer", ops, function=function)
-        log(f"  SASS of {function} (libencoder_layer.so): {counts}")
-        if not all(counts.values()):
-            raise AssertionError(f"{function} lacks {[op for op, n in counts.items() if not n]}")
+            raise AssertionError(f"{what} lacks {[op for op, n in counts.items() if not n]}")
 
 
 # --------------------------------------------------------------------- phase 2
@@ -465,14 +528,17 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536, fan
     ms = median_ms(run)
     b2b = burst_ms(run)
     torch.cuda.synchronize()
+    n_host = min(20, max(3, int(TIMING_BUDGET_MS / ms)))
     t0 = time.perf_counter()
-    for _ in range(20):
+    for _ in range(n_host):
         run()
-    host_ms = (time.perf_counter() - t0) / 20 * 1e3  # enqueue: the repack, allocations, launch
+    host_ms = (time.perf_counter() - t0) / n_host * 1e3  # enqueue: the repack, allocations, launch
     torch.cuda.synchronize()
     with torch.no_grad():
+        # the plain versions' timings take no warm-up: the comparison above
+        # ran each on the same inputs
         plain_ms = median_ms(lambda: encoder_layer_reference(*args, h, eps), reps=plain_reps,
-                             warmup=min(3, plain_reps))
+                             warmup=0)
         lib = library_encoder_layer(args, h)
         library_ms = median_ms(lib, reps=10)
     size = torch.finfo(dtype).bits // 8
@@ -641,10 +707,10 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
                      reps=reps)
     b2b_b = burst_ms(lambda: attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed), n=reps)
     plain_f = median_ms(lambda: attention_core_reference(qm, km, vm, kmaskf, h, rate, seed),
-                        reps=plain_reps, warmup=1)
+                        reps=plain_reps, warmup=0)
     plain_b = median_ms(
         lambda: attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed),
-        reps=plain_reps, warmup=1)
+        reps=plain_reps, warmup=0)
     q4, k4, v4, amask = sdpa_layout(qm, km, vm, mask, Lq, Lk, h, d)
     q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -738,7 +804,7 @@ def phase_train_kernels():
 # --------------------------------------------------------------------- phase 6
 def phase_hypernet_train(config=GPT2_EN):
     """The hypernet's training route (inference=False: torch projections
-    around kernels 2 and 3) at ``config``'s widths on 2048 rows, f32: loss
+    around kernels 2 and 3) at ``config``'s widths on HYPERNET_ROWS rows, f32: loss
     and every parameter gradient on the card against the CPU's (plain
     versions), from the same weights and inputs."""
     from zett_tpu_torch.models import Hypernet, HypernetConfig
@@ -754,11 +820,11 @@ def phase_hypernet_train(config=GPT2_EN):
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model = gpu_model.cuda()
     src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
-    sf = torch.from_numpy(hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen,
+    sf = torch.from_numpy(hypernet_inputs(rng, HYPERNET_ROWS, vocab, cfg.hn_surface_maxlen,
                                           cfg.n_extra_tokens))
-    priors = torch.from_numpy(hypernet_priors(rng, 2048))
-    w_in = torch.from_numpy(rng.standard_normal((2048, 768), dtype=np.float32))
-    w_b = torch.from_numpy(rng.standard_normal(2048, dtype=np.float32))
+    priors = torch.from_numpy(hypernet_priors(rng, HYPERNET_ROWS))
+    w_in = torch.from_numpy(rng.standard_normal((HYPERNET_ROWS, 768), dtype=np.float32))
+    w_b = torch.from_numpy(rng.standard_normal(HYPERNET_ROWS, dtype=np.float32))
 
     def loss_of(model, dev):
         e, _, b = model(sf.to(dev), priors.to(dev), torch.from_numpy(src).to(dev), None,
@@ -790,7 +856,7 @@ def phase_hypernet_train(config=GPT2_EN):
             raise AssertionError(f"non-finite gradient of {name}")
         if ratio > worst:
             worst, worst_name = ratio, name
-    # f32 sums over 2048 rows in another order, through three layers and
+    # f32 sums over the rows in another order, through three layers and
     # the projector blocks; leaves whose exact gradient is 0 (the key
     # biases) are judged at 1% of the largest gradient
     log(f"  gradients of {len(grads)} parameters: worst max abs error / scale {worst:.3g} "
@@ -957,8 +1023,16 @@ def phase_training(model_dir):
 # --------------------------------------------------------------------- phase 3
 def flax_layout(model, rng):
     """Seeded parameters for a port Hypernet, keyed by Flax path (the layout
-    of a checkpoint's params.npz): kernels (in, out), embeddings, scales."""
+    of a checkpoint's params.npz): kernels (in, out), embeddings, scales, as
+    numpy arrays. ``rng`` is a numpy Generator, or a torch Generator whose
+    device draws them (the card draws Mistral's 0.7 G parameters in about a
+    second, numpy in about ten)."""
     from zett_tpu_torch.models.hypernet import Dense, LayerNorm
+
+    def normal(shape):
+        if isinstance(rng, torch.Generator):
+            return torch.randn(shape, generator=rng, device=rng.device)
+        return rng.standard_normal(shape, dtype=np.float32)
 
     kinds = {}
     for name, mod in model.named_modules():
@@ -975,18 +1049,18 @@ def flax_layout(model, rng):
         shape = tuple(p.shape)
         if kind == "dense" and leaf == "weight":
             fan_in = shape[1]
-            value = rng.standard_normal(shape[::-1], dtype=np.float32) / math.sqrt(fan_in)
+            value = normal(shape[::-1]) / math.sqrt(fan_in)
             leaf = "kernel"
         elif kind == "ln" and leaf == "weight":
-            value = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+            value = 1 + 0.1 * normal(shape)
             leaf = "scale"
         elif kind == "embed":
-            value = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+            value = 0.02 * normal(shape)
             leaf = "embedding"
         elif leaf == "w":
-            value = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+            value = 1 + 0.1 * normal(shape)
         else:
-            value = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+            value = 0.02 * normal(shape)
         parts = mod.split(".") if mod else []
         path, i = [], 0
         while i < len(parts):
@@ -996,7 +1070,8 @@ def flax_layout(model, rng):
                 continue
             path.append(f"layers_{parts[i]}" if parts[i].isdigit() else parts[i])
             i += 1
-        flat["/".join(path + [leaf])] = value
+        flat["/".join(path + [leaf])] = value if isinstance(value, np.ndarray) else \
+            value.cpu().numpy()
     return flat
 
 
@@ -1018,7 +1093,7 @@ def hypernet_priors(rng, n):
 
 
 def phase_hypernet(config=GPT2_EN, launched=None):
-    """The Hypernet's inference route on 2048 rows at ``config``'s widths,
+    """The Hypernet's inference route on HYPERNET_ROWS rows at ``config``'s widths,
     card against CPU, f32; ``launched`` maps each kernel to the launches the
     forward must count (default: kernel 1 on the non-CLS layers, kernel 2
     on the CLS layer)."""
@@ -1038,9 +1113,9 @@ def phase_hypernet(config=GPT2_EN, launched=None):
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model = gpu_model.cuda().eval()
     src = 0.1 * rng.standard_normal((vocab + (-vocab) % 128, 768), dtype=np.float32)
-    sf = hypernet_inputs(rng, 2048, vocab, cfg.hn_surface_maxlen, cfg.n_extra_tokens)
+    sf = hypernet_inputs(rng, HYPERNET_ROWS, vocab, cfg.hn_surface_maxlen, cfg.n_extra_tokens)
     sf_t, src_t = torch.from_numpy(sf), torch.from_numpy(src)
-    priors = torch.from_numpy(hypernet_priors(rng, 2048))
+    priors = torch.from_numpy(hypernet_priors(rng, HYPERNET_ROWS))
     before = dict(_build.launch_counts)
     with torch.inference_mode():
         got = gpu_model(sf_t.cuda(), priors.cuda(), src_t.cuda())
@@ -1112,56 +1187,65 @@ def write_checkpoint(path, vocab, rng, config=GPT2_EN):
     return cfg
 
 
-def hypernet_batches(ckpt, model_dir, target_path, batch_size, lang_index=0):
-    """The hypernet and its inputs for the target's whole vocab, batched and
-    length-bucketed as the transfer runs it (at ``lang_index``)."""
-    from zett_tpu_torch.constants import NEGATIVE_INF_FILL_VALUE
-    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
-    from zett_tpu_torch.models.splice import extract_embeddings
-    from zett_tpu_torch.tokenization.convert import convert_to_byte_level, is_byte_level
-    from zett_tpu_torch.tokenization.core import Tokenizer
-    from zett_tpu_torch.tokenization.models import Unigram
-    from zett_tpu_torch.tokenization.surface_forms import get_surface_form_matrix
-    from zett_tpu_torch.transfer.__main__ import load_hypernet
+@contextlib.contextmanager
+def captured_transfer():
+    """Inside the block, the transfer CLI's ``core.transfer`` also records
+    its hypernet and that hypernet's first call ((arguments), outputs), and
+    ``batched_inference`` its predict function, the vocab size and each
+    batch's (surface forms, priors): timed passes over the transfer's own
+    batches after the CLI returns, with no second load."""
+    from zett_tpu_torch.transfer import core
 
-    hypernet = load_hypernet(ckpt, torch.device("cuda"))
-    source_tok = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
-    if not is_byte_level(source_tok.to_json()):
-        source_tok, _ = convert_to_byte_level(source_tok)
-    target, _ = convert_to_byte_level(Tokenizer.from_file(target_path),
-                                      match_special_tokens_to=source_tok,
-                                      make_whitespace_consistent=True)
-    sf, _ = get_surface_form_matrix(target, hypernet.config.hn_surface_maxlen, source_tok)
-    priors = np.zeros(len(target), dtype=np.float32)
-    if isinstance(target.model, Unigram):  # as transfer/core.py computes them
-        scores = np.asarray(target.model.get_scores(), dtype=np.float32)
-        priors[:] = NEGATIVE_INF_FILL_VALUE
-        priors[: len(scores)] = scores
-    with open(os.path.join(model_dir, "config.json")) as f:
-        bb_config = json.load(f)
-    # the source table as the transfer passes it: [in | out] for an untied head
-    src, _ = extract_embeddings(load_hf_state_dict(model_dir), bb_config["model_type"],
-                                config=bb_config)
-    src = src.float().cuda()
-    maxlen = sf.shape[1]
-    nz = sf != 0
-    eff = np.where(nz.any(1), maxlen - np.argmax(nz[:, ::-1], axis=1), maxlen)
-    order = np.argsort(eff, kind="stable")
-    order = np.resize(order, len(order) + (-len(order)) % batch_size).reshape(-1, batch_size)
-    batches = []
-    for chunk in order:
-        w = min(-(-int(eff[chunk].max()) // 4) * 4, maxlen)
-        batches.append((torch.from_numpy(sf[chunk][:, :w].astype(np.int64)).cuda(),
-                        torch.from_numpy(priors[chunk]).cuda()))
+    captured = {}
+    orig_transfer, orig_batched = core.transfer, core.batched_inference
+
+    def transfer(**kw):
+        def first_call(module, args, out):
+            captured.setdefault("first", (args, out))
+
+        captured["hypernet"] = kw["hypernet"]
+        handle = kw["hypernet"].register_forward_hook(first_call)
+        try:
+            return orig_transfer(**kw)
+        finally:
+            handle.remove()
+
+    def batched(predict_fn, surface_forms, priors, **kw):
+        calls = []
+
+        def predict(sf, pr):
+            calls.append((sf, pr))
+            return predict_fn(sf, pr)
+
+        captured.update(predict=predict_fn, calls=calls, n=len(surface_forms))
+        return orig_batched(predict, surface_forms, priors, **kw)
+
+    core.transfer, core.batched_inference = transfer, batched
+    try:
+        yield captured
+    finally:
+        core.transfer, core.batched_inference = orig_transfer, orig_batched
+
+
+def timed_passes(captured, reps):
+    """The captured transfer's batches through its predict function (the
+    CLI's pass warmed them up): (the pass as a callable, median ms of
+    ``reps`` passes between CUDA events, all times, vocab, batch shapes)."""
+    predict, calls = captured["predict"], captured["calls"]
 
     def run():
-        with torch.inference_mode():
-            for b, p in batches:
-                hypernet(b, p, src, lang_index)
+        for sf, pr in calls:
+            predict(sf, pr)
 
-    with torch.inference_mode():
-        hypernet(*batches[0], src, lang_index)  # warm-up
-    return run, len(target), [tuple(b.shape) for b, _ in batches]
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return run, float(np.median(times)), times, captured["n"], [sf.shape for sf, _ in calls]
 
 
 def device_events(run):
@@ -1216,8 +1300,9 @@ def burst_ms(run, n=20):
     """Per-call time of ``n`` back-to-back calls between two CUDA events:
     while a call's kernel runs longer than the wrapper's host time, the card
     never waits for the host, and this is the kernel's own time (a median of
-    single timed calls also holds the host time of a short call)."""
-    run()  # warm
+    single timed calls also holds the host time of a short call). Fewer
+    calls (at least 2) where ``n`` would pass TIMING_BUDGET_MS."""
+    n = min(n, max(2, int(TIMING_BUDGET_MS / event_ms(run))))  # the warm call
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
@@ -1288,9 +1373,10 @@ def phase_transfer(config=GPT2_EN, tag="ckpt"):
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    transfer_main(["--checkpoint", ckpt, "--model", model_dir,
-                   "--target-tokenizer", target_path, "--output", out,
-                   "--batch-size", str(batch), "--seed", str(SEED)])
+    with captured_transfer() as captured:
+        transfer_main(["--checkpoint", ckpt, "--model", model_dir,
+                       "--target-tokenizer", target_path, "--output", out,
+                       "--batch-size", str(batch), "--seed", str(SEED)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
@@ -1326,16 +1412,7 @@ def phase_transfer(config=GPT2_EN, tag="ckpt"):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
 
-    run, n_vocab, shapes = hypernet_batches(ckpt, model_dir, target_path, batch)
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = float(np.median(times))
+    run, ms, times, n_vocab, shapes = timed_passes(captured, 5)
     log(f"  hypernet: median of 5 passes {ms:.3f} ms (min {min(times):.3f}, max "
         f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
         f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
@@ -1532,22 +1609,36 @@ def phase_block_kernels():
 PITA_LEVERS = dict(remat_hypernet=True, loss_chunk_size=32, remat_backbone=True)
 
 
-def train_peak(config_path, train_main):
-    """One run of the training CLI: (peak GiB, median train-step device ms
-    after the first, or None), or None when it ran out of the card's
-    memory (printed with what was allocated)."""
+def run_training_config(config, name):
+    """The training CLI's ``main`` on a config written to WORK: (trainer,
+    history, peak GiB, wall s), or None when it ran out of memory."""
+    from zett_tpu_torch.training.__main__ import main as train_main
+
+    path = os.path.join(WORK, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    shutil.rmtree(config["output_dir"], ignore_errors=True)
     gc_free()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     try:
-        trainer, _ = train_main([config_path])
+        trainer, history = train_main([path])
     except torch.cuda.OutOfMemoryError as exc:
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"    out of memory (peak {peak:.2f} GiB allocated): {str(exc).splitlines()[0][:160]}")
         return None
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    return trainer, history, torch.cuda.max_memory_allocated() / 2**30, time.perf_counter() - t0
+
+
+def train_peak(config, name):
+    """``run_training_config``'s run as (peak GiB, median train-step device
+    ms after the first, or None), or None when it ran out of memory."""
+    got = run_training_config(config, name)
+    if got is None:
+        return None
+    trainer, _, peak, _ = got
     ms = [r["device_ms"] for r in trainer.records if r["kind"] == "train"][1:]
-    del trainer
     return peak, (float(np.median(ms)) if ms else None)
 
 
@@ -1595,12 +1686,10 @@ def phase_training_eval(model_dir):
     peaks = {}
     for name, value in PITA_LEVERS.items():
         one = dict(config, steps=2, identity_steps=0, eval_steps=0, eval_at_step_zero=False,
+                   valid_directory=None, extra_valid_tokenizers=[],
                    output_dir=os.path.join(WORK, f"pita_{name}"), **{name: value})
-        path = os.path.join(WORK, f"gpt2_en_pita_{name}.json")
-        with open(path, "w") as f:
-            json.dump(one, f)
         t0 = time.perf_counter()
-        got = train_peak(path, train_main)
+        got = train_peak(one, "gpt2_en_pita_" + name)
         peaks[name] = got
         shown = ("out of memory" if got is None else
                  f"peak {got[0]:.2f} GiB, train step {got[1]:.3f} ms (CUDA events)")
@@ -1807,7 +1896,7 @@ def check_kernel6(S, I, tag, timed):
     B, L, K = S.shape
     ms = median_ms(lambda: viterbi_dp(S, I))
     b2b = burst_ms(lambda: viterbi_dp(S, I))
-    plain_ms = median_ms(lambda: viterbi_dp_plain(S, I), reps=5, warmup=1)
+    plain_ms = median_ms(lambda: viterbi_dp_plain(S, I), reps=5, warmup=0)
     nbytes = B * L * K * 8 + B * (L + K) * 12  # S + I read, dp/bk/bi written
     bound_ms, bound_by = bound(B * L * K, nbytes, torch.float32)
     log(f"  kernel 6 {tag}: bit-equal; {ms:.4f} ms (back to back {b2b:.4f} ms), plain "
@@ -1856,7 +1945,7 @@ def check_fused(r, ln, table, unk, K, tag, timed):
     ms = median_ms(lambda: viterbi_spans_dp(r, ln, tab, salt, unk, K))
     b2b = burst_ms(lambda: viterbi_spans_dp(r, ln, tab, salt, unk, K))
     plain_ms = median_ms(lambda: viterbi_spans_dp_plain(r, ln, tab, salt, unk, K), reps=3,
-                         warmup=1)
+                         warmup=0)
     nbytes = B * L * 4 + B * 4 + B * (L + K) * 12 + tab.numel() * 4
     bound_ms, bound_by = bound(lookups, nbytes, torch.float32)
     log(f"  fused spans + DP {tag}: bit-equal ({n_unk} unk-byte backpointers); {ms:.4f} ms "
@@ -1910,13 +1999,13 @@ def phase_prior_pipeline():
                       timed=False)
 
     tok, pieces, scores = neox_vocab()
-    t0 = time.perf_counter()
-    pretoken_counts = synthetic_pretokens(pieces, N_PRETOKENS, np.random.default_rng(SEED))
+    pretoken_counts, made_s = PREPARED.pop("pretokens")
     keys = list(pretoken_counts)
     lengths = np.fromiter(map(len, keys), dtype=np.int64, count=len(keys))
     log(f"  {len(keys)} synthetic unique pretokens ({int(lengths.sum())} bytes, "
         f"{(lengths > 48).mean():.4f} over 48 bytes, longest {lengths.max()}) with "
-        f"{sum(pretoken_counts.values())} occurrences, made in {time.perf_counter() - t0:.2f} s")
+        f"{sum(pretoken_counts.values())} occurrences, made in {made_s:.2f} s while the "
+        f"kernels built")
 
     # 12.2: span scores card vs CPU, with unk bytes (0xF5..0xFF have no
     # single-byte piece here), bytes >= 0x80, lens 0 and lens = L
@@ -2113,9 +2202,12 @@ def lever_config(model_dir, train_dir, name, **overrides):
         config.pop(key)
     out = os.path.join(WORK, "levers", name)
     shutil.rmtree(out, ignore_errors=True)
+    # final/ without the optimizer state: no run here resumes from it, and
+    # it keeps the run's disk writes small (a preemption saves the full
+    # state regardless)
     config.update(model_dir=model_dir, train_directory=train_dir, output_dir=out,
                   warmup_steps=[2, 4], random_warmup_steps=0, logging_steps=1, save_steps=0,
-                  num_workers=0, eval_at_step_zero=False)
+                  save_state=False, num_workers=0, eval_at_step_zero=False)
     config.update(overrides)
     path = os.path.join(WORK, "levers", f"{name}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2295,12 +2387,12 @@ def phase_trainer_levers(model_dir):
     for depth, workers in ((0, 0), (2, 0), (0, PREFETCH_WORKERS), (2, PREFETCH_WORKERS)):
         t0 = time.perf_counter()
         trainer, hist, _ = run(lever_config(model_dir, train_dir, f"d_{depth}_{workers}",
-                                            steps=6, identity_steps=1,
+                                            steps=4, identity_steps=1,
                                             prefetch_batches=depth, num_workers=workers))
         wall = time.perf_counter() - t0
         recs = [r for r in trainer.records if r["kind"] == "train"][1:]
         losses = [h["loss"] for h in hist if "loss" in h]
-        if len(recs) < 4 or not all(math.isfinite(x) for x in losses):
+        if len(recs) < 2 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"(d) prefetch {depth}, workers {workers}: {hist}")
         loop = float(np.mean([r["loop_ms"] for r in recs]))
 
@@ -2581,15 +2673,14 @@ def phase_tinyllama():
 
     t_phase = time.perf_counter()
     model_dir = os.path.join(WORK, "tinyllama")
-    t0 = time.perf_counter()
-    cfg, sd = write_tinyllama(model_dir)
+    cfg, sd, written_s = PREPARED.pop("tinyllama")
     n_params = sum(t.numel() for t in sd.values())
     source = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
     converted, n_added = convert_to_byte_level(source)
     log(f"  (a) wrote TinyLlama's published config ({n_params} parameters, bf16, "
         f"{os.path.getsize(os.path.join(model_dir, 'model.safetensors')) / 2**30:.3f} GiB) and a "
-        f"{len(source)}-piece metaspace tokenizer in {time.perf_counter() - t0:.3f} s; the "
-        f"byte-level conversion: {len(converted)} tokens, n_added_tokens {n_added}")
+        f"{len(source)}-piece metaspace tokenizer in {written_s:.3f} s, while the kernels "
+        f"built; the byte-level conversion: {len(converted)} tokens, n_added_tokens {n_added}")
     if len(source) != cfg.vocab_size or n_added is None or n_added < 0:
         raise AssertionError(f"tokenizer: {len(source)} pieces, n_added {n_added}")
 
@@ -2630,9 +2721,11 @@ def phase_tinyllama_training(model_dir):
     """(d) python -m zett_tpu_torch.training at
     configs/zeroshot/tinyllama_en_code_lw0.5_long.json through its ``main``:
     the config's batch 128 and vocab sample 32768 kept; first with no lever
-    and each of the trainer's memory levers alone (two train steps: peak memory or out
-    of memory), then 6 steps (2 identity steps) with the levers and
-    in-training eval at step 0 and at the end on held-out text."""
+    and each of the trainer's memory levers alone (two train steps: peak
+    memory or out of memory), then 4 steps (1 identity step) with the
+    levers and in-training eval at step 0 and at the end on held-out text.
+    Cut to make room for phase 17: 2 of the 6 steps (1 of the 2 identity
+    steps)."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.training import engine
     from zett_tpu_torch.training.__main__ import load_config_file, load_language_list
@@ -2647,10 +2740,10 @@ def phase_tinyllama_training(model_dir):
     n_code, n_code_valid = write_code_text(train_dir, valid_dir, [l for l in langs if l != "en"])
     if config["batch_size"] != LLAMA_BATCH or config["tokenizer_sample_max"] != LLAMA_VOCAB_SAMPLE:
         raise AssertionError("the TinyLlama config's batch or vocab sample changed")
-    steps, n_ident = 6, 2
+    steps, n_ident = 4, 1
     tokenizers = [os.path.join(REPO, t) for t in config["extra_valid_tokenizers"]]
     reduced = dict(model_dir=model_dir, train_directory=train_dir, valid_directory=valid_dir,
-                   output_dir=out, steps=steps, identity_steps=n_ident, warmup_steps=[2, 4],
+                   output_dir=out, steps=steps, identity_steps=n_ident, warmup_steps=[1, 2],
                    random_warmup_steps=0, logging_steps=1, save_steps=0, num_workers=0,
                    prefetch_batches=0, eval_steps=steps, eval_at_step_zero=True,
                    langs=os.path.join(REPO, config["langs"]), extra_valid_tokenizers=tokenizers)
@@ -2664,13 +2757,12 @@ def phase_tinyllama_training(model_dir):
     peaks = {}
     for name, levers in (("no lever", {}),
                          *((f"{k} alone", {k: v}) for k, v in LLAMA_LEVERS.items())):
+        # no eval runs here: no validation text or fixed tokenizers to set up
         one = dict(config, steps=2, identity_steps=0, eval_steps=0, eval_at_step_zero=False,
+                   valid_directory=None, extra_valid_tokenizers=[],
                    output_dir=os.path.join(WORK, "llama_lever"), **levers)
-        path = os.path.join(WORK, "tinyllama_lever.json")
-        with open(path, "w") as f:
-            json.dump(one, f)
         t0 = time.perf_counter()
-        got = train_peak(path, train_main)
+        got = train_peak(one, "tinyllama_lever")
         peaks[name] = got
         shown = ("out of memory" if got is None else
                  f"peak {got[0]:.2f} GiB, train step {got[1]:.3f} ms (CUDA events)")
@@ -2767,9 +2859,10 @@ def phase_tinyllama_transfer(model_dir, checkpoint):
     batch = 16384
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    transfer_main(["--checkpoint", checkpoint, "--model", model_dir,
-                   "--target-tokenizer", target_path, "--output", out,
-                   "--batch-size", str(batch), "--seed", str(SEED)])
+    with captured_transfer() as captured:
+        transfer_main(["--checkpoint", checkpoint, "--model", model_dir,
+                       "--target-tokenizer", target_path, "--output", out,
+                       "--batch-size", str(batch), "--seed", str(SEED)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
@@ -2813,20 +2906,12 @@ def phase_tinyllama_transfer(model_dir, checkpoint):
     del model, sd, logits
     gc_free()
 
-    run, n_vocab, shapes = hypernet_batches(checkpoint, model_dir, target_path, batch)
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = float(np.median(times))
+    run, ms, times, n_vocab, shapes = timed_passes(captured, 5)
     log(f"  (e) on {CARD}: hypernet median of 5 passes {ms:.3f} ms (min {min(times):.3f}, max "
         f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
         f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
     busy, pass_wall, _ = device_breakdown(run)
+    del run, captured
     gc_free()
     return dict(launches=launches, wall=wall, ms_per_32k=ms * 32768 / n_vocab,
                 idle=None if busy is None else 1 - busy / pass_wall)
@@ -2843,14 +2928,18 @@ MISTRAL = dict(
     rope_theta=10000.0, rms_norm_eps=1e-5, sliding_window=4096, tie_word_embeddings=False,
     bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16",
 )
-# the depth written (the cut: every width kept; the transfer reads the
-# whole model and writes it again, 14.5 GB at 32 layers, three times)
-MISTRAL_LAYERS = 2
+# the depth written (the cut: every width kept; each transfer reads the
+# whole model and writes it again, 14.5 GB at 32 layers, and copies its
+# layers untouched: one layer keeps the run's disk writes small)
+MISTRAL_LAYERS = 1
 MISTRAL_RUNS = {name: os.path.join(REPO, "configs", "zeroshot", f"mistral7b_{name}_lw0.5_long.json")
                 for name in ("en_code", "multilingual")}
 TINYLLAMA_ML_RUN = os.path.join(REPO, "configs", "zeroshot",
                                 "tinyllama_multilingual_lw0.5_long.json")
 PADDING_ROWS = 18991  # a train batch's all-padding surface forms of 32896 (phase 7)
+# layers of the TinyLlama that (e) trains on (cut from 22 for time: the
+# hypernet, its launches and the language ids do not depend on the depth)
+ML_TRAIN_CUT = 2
 
 
 def mistral_hypernet_config(name):
@@ -2917,40 +3006,23 @@ def phase_heads32_kernels():
     return results
 
 
-def op_shapes(run, top=8):
-    """The matrix products of one run by input shapes (torch.profiler with
-    ``record_shapes``): each aten op's device time, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages(group_by_input_shape=True)
-            if e.key in ("aten::mm", "aten::addmm", "aten::bmm")]
-
-    def device_ms(e):
-        return (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) / 1e3
-
-    for e in sorted(rows, key=device_ms, reverse=True)[:top]:
-        log(f"    {device_ms(e):9.3f} ms x{e.count:<4d} {e.key} {e.input_shapes}")
-
-
-def phase_mistral_hypernet(n=256):
+def phase_mistral_hypernet(n=64):
     """(c) The Mistral hypernet (both configs' widths), card against CPU,
     f32, on ``n`` surface forms: the multilingual one at a language id (L 8:
-    kernel 1 on the two full layers, kernel 2 on the CLS one), then the same
-    weights without the language-id table at en_code's config (L 7)."""
-    from zett_tpu_torch.models import Hypernet
+    kernel 1 on the two full layers, kernel 2 on the CLS one; its
+    prediction differs at language id 0), then the same weights without the
+    language-id table at en_code's config (L 7)."""
     from zett_tpu_torch.models.convert import flax_to_torch
     from zett_tpu_torch.ops import _build
 
     rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)  # the weights, on the card
     configs = {name: mistral_hypernet_config(name) for name in MISTRAL_RUNS}
     vocab = MISTRAL["vocab_size"]
-    src = torch.from_numpy(0.02 * rng.standard_normal((vocab, 2 * MISTRAL["hidden_size"]),
-                                                      dtype=np.float32))
-    state = flax_to_torch(flax_layout(meta_hypernet(configs["multilingual"]), rng))
+    src_card = 0.02 * torch.randn((vocab, 2 * MISTRAL["hidden_size"]), generator=gen,
+                                  device="cuda")
+    src = src_card.cpu()
+    state = flax_to_torch(flax_layout(meta_hypernet(configs["multilingual"]), gen))
     for name, lang in (("multilingual", 7), ("en_code", None)):
         cfg = configs[name]
         cpu_model = meta_hypernet(cfg)
@@ -2965,12 +3037,20 @@ def phase_mistral_hypernet(n=256):
         launched = {"encoder_layer": n_layers - 1, "attention_core": 1, "attention_block": 0}
         before = dict(_build.launch_counts)
         with torch.inference_mode():
-            got = gpu_model(sf.cuda(), None, src.cuda(), lang)
+            got = gpu_model(sf.cuda(), None, src_card, lang)
             torch.cuda.synchronize()
             counts = {k: _build.launch_counts[k] - before[k] for k in launched}
             t0 = time.perf_counter()
             ref = cpu_model(sf, None, src, lang)
             cpu_s = time.perf_counter() - t0
+            if lang is not None:
+                other = gpu_model(sf.cuda(), None, src_card, 0)[0]
+                diff = float((other.float() - got[0].float()).abs().max())
+                log(f"  (c) {name}: emb_in at language ids 0 and {lang} on the card: max "
+                    f"difference {diff:.4g}")
+                if diff == 0:
+                    raise AssertionError("the language id does not change the prediction")
+                del other
         L = cfg.hn_surface_maxlen + int(cfg.embed_lang_id)
         log(f"  (c) {name} (L {L}, language id {lang}): launches {counts} (expected "
             f"{launched}); the CPU forward {cpu_s:.3f} s")
@@ -3012,101 +3092,110 @@ def write_mistral_checkpoint(path, name, flat, hn_tokenizer):
     return cfg
 
 
+def add_language_table(path, name, rng):
+    """mistral7b_<name>'s checkpoint made from en_code's at ``path`` in
+    place: its config, and a seeded language table appended to params.npz
+    (np.savez's zip layout), rather than a second 2.5 GB file, to keep the
+    run's disk writes small."""
+    cfg = mistral_hypernet_config(name)
+    with open(os.path.join(path, "hn_config.json"), "w") as f:
+        json.dump({**cfg.to_dict(), "dtype": "bfloat16"}, f)
+    table = 0.02 * rng.standard_normal((cfg.n_langs, cfg.hidden_size), dtype=np.float32)
+    with zipfile.ZipFile(os.path.join(path, "params.npz"), "a") as z, \
+            z.open("encoder/lang_embedding/embedding.npy", "w") as f:
+        np.lib.format.write_array(f, table)
+    return cfg
+
+
 def phase_mistral_transfer(model_dir):
     """(d) python -m zett_tpu_torch.transfer on its default device from a
     seeded hypernet checkpoint at each Mistral config to llama0001: exact
-    launches, both tables at 32771 rows; the multilingual config at two
-    language ids, whose tables differ; the hypernet per 32k vocab, its idle
-    share and device time by kernel and by matrix-product shape; wall and
-    peak memory."""
+    launches, both tables at 32771 rows; the multilingual config at
+    --lang-index 5: its hypernet ran at that language id, and the first
+    batch at language id 0 gives another table; the hypernet per 32k vocab
+    over the transfer's own batches (captured from the CLI run), its idle
+    share and device time by kernel; wall and peak memory. Cut to make room
+    for phase 17: the multilingual transfer at --lang-index 0 (its first
+    batch through the same hypernet instead) and the products by input
+    shape."""
     from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
     from zett_tpu_torch.ops import _build
-    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
-    from zett_tpu_torch.tokenization.core import Tokenizer
     from zett_tpu_torch.transfer.__main__ import main as transfer_main
 
     target_path = os.path.join(REPO, "artifacts", "tokenizers", "llama0001", "tokenizer.json")
     rng = np.random.default_rng(SEED + 22)
     batch, n_target = 16384, 32771
-    hn_tokenizer, _ = convert_to_byte_level(
-        Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json")))
-    # the multilingual checkpoint: en_code's parameters and a language table
-    flat = flax_layout(meta_hypernet(mistral_hypernet_config("en_code")), rng)
-    launches, rows, tables = {}, {}, {}
-    for name, indices in (("en_code", (0,)), ("multilingual", (0, 5))):
-        ckpt = os.path.join(WORK, f"mistral_{name}_ckpt")
+    # en_code's checkpoint (written while the kernels built); the
+    # multilingual one: en_code's parameters and a language table
+    cfg, written_s = PREPARED.pop("mistral_ckpt")
+    ckpt = os.path.join(WORK, "mistral_ckpt")
+    launches, rows = {}, {}
+    for name, index in (("en_code", 0), ("multilingual", 5)):
         t0 = time.perf_counter()
         if name == "multilingual":
-            ml = mistral_hypernet_config(name)
-            flat["encoder/lang_embedding/embedding"] = 0.02 * rng.standard_normal(
-                (ml.n_langs, ml.hidden_size), dtype=np.float32)
-        cfg = write_mistral_checkpoint(ckpt, name, flat, hn_tokenizer)
+            cfg = add_language_table(ckpt, name, rng)
+            written_s = time.perf_counter() - t0
         log(f"  (d) wrote a seeded {name} checkpoint (params.npz "
             f"{os.path.getsize(os.path.join(ckpt, 'params.npz')) / 2**30:.3f} GiB, f32) in "
-            f"{time.perf_counter() - t0:.3f} s")
-        for index in indices:
-            out = os.path.join(WORK, f"mistral_{name}_{index}")
-            _build.reset_launch_counts()
-            gc_free()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
+            f"{written_s:.3f} s")
+        out = os.path.join(WORK, f"mistral_{name}_{index}")
+        _build.reset_launch_counts()
+        gc_free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with captured_transfer() as captured:
             transfer_main(["--checkpoint", ckpt, "--model", model_dir,
                            "--target-tokenizer", target_path, "--output", out,
                            "--batch-size", str(batch), "--seed", str(SEED),
                            "--lang-index", str(index)])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            got = dict(_build.launch_counts)
-            n_batches = -(-n_target // batch)
-            expected = dict.fromkeys(_build.launch_counts, 0)
-            expected["encoder_layer"] = n_batches * (cfg.num_hidden_layers - 1)
-            expected["attention_core"] = n_batches
-            sd = load_hf_state_dict(out)
-            emb, head = sd["model.embed_tokens.weight"], sd["lm_head.weight"]
-            log(f"  (d) {name} --lang-index {index}: {wall:.3f} s wall, peak memory {peak:.2f} "
-                f"GiB; embed_tokens {tuple(emb.shape)}, lm_head {tuple(head.shape)}; launches "
-                f"{got} (expected {expected})")
-            if got != expected:
-                raise AssertionError(f"kernel launches {got}, expected {expected}")
-            width = MISTRAL["hidden_size"]
-            if emb.shape != (n_target, width) or head.shape != (n_target, width) \
-                    or torch.equal(emb, head) or not bool(torch.isfinite(emb).all()) \
-                    or not bool(torch.isfinite(head).all()):
-                raise AssertionError("the transferred Mistral does not hold two finite tables")
-            for k, v in got.items():
-                launches[k] = launches.get(k, 0) + v
-            tables[(name, index)] = emb
-            rows[(name, index)] = dict(wall=wall, peak=peak)
-            del sd, head
-            shutil.rmtree(out, ignore_errors=True)
-        run, n_vocab, shapes = hypernet_batches(ckpt, model_dir, target_path, batch,
-                                                lang_index=indices[-1])
-        times = []
-        for _ in range(3):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        ms = float(np.median(times))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = dict(_build.launch_counts)
+        n_batches = -(-n_target // batch)
+        expected = dict.fromkeys(_build.launch_counts, 0)
+        expected["encoder_layer"] = n_batches * (cfg.num_hidden_layers - 1)
+        expected["attention_core"] = n_batches
+        sd = load_hf_state_dict(out)
+        emb, head = sd["model.embed_tokens.weight"], sd["lm_head.weight"]
+        log(f"  (d) {name} --lang-index {index}: {wall:.3f} s wall, peak memory {peak:.2f} "
+            f"GiB; embed_tokens {tuple(emb.shape)}, lm_head {tuple(head.shape)}; launches "
+            f"{got} (expected {expected})")
+        if got != expected:
+            raise AssertionError(f"kernel launches {got}, expected {expected}")
+        width = MISTRAL["hidden_size"]
+        if emb.shape != (n_target, width) or head.shape != (n_target, width) \
+                or torch.equal(emb, head) or not bool(torch.isfinite(emb).all()) \
+                or not bool(torch.isfinite(head).all()):
+            raise AssertionError("the transferred Mistral does not hold two finite tables")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rows[(name, index)] = dict(wall=wall, peak=peak)
+        del sd, emb, head
+        shutil.rmtree(out, ignore_errors=True)
+        if cfg.embed_lang_id:
+            # the language id the CLI's hypernet ran at, and its first batch
+            # at language id 0 through the same hypernet (outside the
+            # counted run)
+            (sf, pr, src, lang), (emb_at, _, _) = captured["first"]
+            with torch.inference_mode():
+                emb_0 = captured["hypernet"](sf, pr, src, 0)[0]
+            diff = float((emb_0.float() - emb_at.float()).abs().max())
+            log(f"  (d) {name}: the CLI's hypernet ran at language id {lang}; its first batch "
+                f"({len(sf)} rows) at language id 0: emb_in max difference {diff:.4g}")
+            if lang != index or diff == 0:
+                raise AssertionError("--lang-index does not reach the hypernet")
+            del sf, pr, src, emb_at, emb_0
+        run, ms, times, n_vocab, shapes = timed_passes(captured, 3)
         log(f"  (d) {name} on {CARD}: hypernet median of 3 passes {ms:.3f} ms (min "
             f"{min(times):.3f}, max {max(times):.3f}) for the {n_vocab}-token vocab in batches "
             f"{shapes} ({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
         busy, pass_wall, _ = device_breakdown(run)
-        log(f"  (d) {name}: the pass's matrix products by input shapes")
-        op_shapes(run)
         rows[name] = dict(ms_per_32k=ms * 32768 / n_vocab,
                           idle=None if busy is None else 1 - busy / pass_wall)
-        del run
-        shutil.rmtree(ckpt, ignore_errors=True)
+        del run, captured
         gc_free()
-    diff = float((tables[("multilingual", 0)].float()
-                  - tables[("multilingual", 5)].float()).abs().max())
-    log(f"  (d) multilingual tables at --lang-index 0 and 5: max difference {diff:.4g}")
-    if diff == 0:
-        raise AssertionError("the language id does not change the transferred table")
+    shutil.rmtree(ckpt, ignore_errors=True)
     return launches, rows
 
 
@@ -3121,10 +3210,11 @@ def allocator_settings(setting):
 def phase_multilingual_training(model_dir):
     """(e) python -m zett_tpu_torch.training at
     configs/zeroshot/tinyllama_multilingual_lw0.5_long.json through its
-    ``main`` on phase 14's TinyLlama: 26 <lang>.txt files of the repo's
-    Markdown, batch 128, vocab sample 32768 and every width kept, the four
-    levers; 1 identity step and 2 train steps. Finite losses, exact
-    launches, a nonzero gradient of lang_embedding."""
+    ``main`` on phase 14's TinyLlama cut to ML_TRAIN_CUT layers: 26
+    <lang>.txt files of the repo's Markdown, batch 128, vocab sample 32768
+    and every width kept, the four levers; 1 identity step and 2 train
+    steps. Finite losses, exact launches, a nonzero gradient of
+    lang_embedding."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.training.__main__ import load_config_file
     from zett_tpu_torch.training.__main__ import main as train_main
@@ -3141,8 +3231,8 @@ def phase_multilingual_training(model_dir):
         raise AssertionError("the multilingual TinyLlama config changed")
     out = os.path.join(WORK, "ml_out")
     steps, n_ident = 3, 1
-    config.update(model_dir=model_dir, train_directory=train_dir, valid_directory=None,
-                  output_dir=out, steps=steps,
+    config.update(model_dir=write_depth_cut(model_dir, ML_TRAIN_CUT),
+                  train_directory=train_dir, valid_directory=None, output_dir=out, steps=steps,
                   identity_steps=n_ident, warmup_steps=[1, 2], random_warmup_steps=0,
                   logging_steps=1, save_steps=0, save_state=False, num_workers=0,
                   prefetch_batches=0, eval_steps=0, eval_at_step_zero=False,
@@ -3151,8 +3241,8 @@ def phase_multilingual_training(model_dir):
     with open(path, "w") as f:
         json.dump(config, f)
     log(f"  (e) {len(langs)} languages {langs}, each {n_par} paragraphs of the repo's "
-        f"Markdown; batch {config['batch_size']}, vocab sample "
-        f"{config['tokenizer_sample_max']}, levers {LLAMA_LEVERS}")
+        f"Markdown; TinyLlama at {ML_TRAIN_CUT} layers; batch {config['batch_size']}, vocab "
+        f"sample {config['tokenizer_sample_max']}, levers {LLAMA_LEVERS}")
     gc_free()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -3199,15 +3289,11 @@ def phase_mistral(tinyllama_dir):
     training CLI."""
     t_phase = time.perf_counter()
     model_dir = os.path.join(WORK, "mistral")
-    hf = dict(MISTRAL, num_hidden_layers=MISTRAL_LAYERS)
-    t0 = time.perf_counter()
-    _, sd = write_llama(model_dir, hf, SEED + 23)
-    n_params = sum(t.numel() for t in sd.values())
-    del sd
+    n_params, written_s = PREPARED.pop("mistral")
     log(f"  (a) wrote Mistral-7B's published config cut to {MISTRAL_LAYERS} of "
         f"{MISTRAL['num_hidden_layers']} layers, every width kept ({n_params} parameters, bf16, "
         f"{os.path.getsize(os.path.join(model_dir, 'model.safetensors')) / 2**30:.3f} GiB) and "
-        f"a 32000-piece metaspace tokenizer in {time.perf_counter() - t0:.3f} s")
+        f"a 32000-piece metaspace tokenizer in {written_s:.3f} s, while the kernels built")
     step("(b) kernels 1 to 5 at 32 heads")
     kernels = phase_heads32_kernels()
     step("(c) the Mistral hypernets card vs CPU")
@@ -3222,7 +3308,7 @@ def phase_mistral(tinyllama_dir):
 
 EVAL_BLOCK, EVAL_BATCH = 512, 8  # the perplexity CLI's defaults
 EVAL_CUT = 2  # layers of the card-vs-CPU comparisons of phase 16 (c) and (d)
-CHOICE_CPU_ITEMS = 16  # items of each task that (d) scores on the CPU too
+CHOICE_CPU_ITEMS = 4  # items of each task that (d) scores on the CPU too (cut from 8)
 COPA = os.path.join(REPO, "out", "multilingual_eval", "copa_{}.jsonl")
 
 
@@ -3230,12 +3316,14 @@ def write_depth_cut(src_dir, n_layers):
     """A copy of the Llama-family directory ``src_dir`` cut to its first
     ``n_layers`` layers (config.json, the weights those layers and the
     tables need, the tokenizer), for the card-vs-CPU comparisons. Returns
-    its path."""
+    its path; a cut written before is used again."""
     from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict, save_hf_model
 
+    dst_dir = f"{src_dir}_{n_layers}layers"
+    if os.path.isdir(dst_dir):
+        return dst_dir
     with open(os.path.join(src_dir, "config.json")) as f:
         config = dict(json.load(f), num_hidden_layers=n_layers)
-    dst_dir = f"{src_dir}_{n_layers}layers"
     state = {k: v for k, v in load_hf_state_dict(src_dir).items()
              if not k.startswith("model.layers.") or int(k.split(".")[2]) < n_layers}
     save_hf_model(dst_dir, state, config)
@@ -3426,6 +3514,360 @@ def phase_eval(tinyllama_dir, transferred_dir, card="cuda"):
     return out
 
 
+BASELINE_RUN = os.path.join(REPO, "configs", "baseline", "tinyllama_code_original.json")
+FROM_FOCUS_RUN = os.path.join(REPO, "configs", "baseline",
+                              "tinyllama_code_starcoder_from_focus.json")
+NSHOT_RUN = os.path.join(REPO, "configs", "nshot", "gpt2_passthrough_ft.json")
+STARCODER = os.path.join(REPO, "artifacts", "tokenizers", "starcoder0001")
+BASELINE_METHODS = ("lexical", "bfvt", "focus", "ofa")
+BASELINE_ROWS = 4096  # seeded target rows of (a)'s card-vs-plain comparisons
+BASELINE_STEPS, FROM_FOCUS_STEPS = 3, 2
+RESUME_CUT = 2  # layers of (c)'s resume check
+TIE_GAP = 1e-6  # a k-th and (k+1)-th similarity this close are a tie
+# the memory levers (b) tries in turn when the config's own settings run out
+# of memory
+FT_LEVERS = (("remat_backbone", True), ("loss_chunk_size", 32))
+
+
+def compare_search(tag, card, plain, queries, keys, k):
+    """Card against plain top-k sets of a similarity search, row by row: a
+    row may pick other anchors only where its k-th and (k+1)-th plain
+    similarities tie (within TIE_GAP). Returns the rows whose sets agree."""
+    same = np.array([set(a) == set(b) for a, b in zip(card, plain)])
+    ties = 0
+    for r in np.nonzero(~same)[0]:
+        sims = np.sort(queries[r] @ keys.T)[::-1]
+        if sims[k - 1] - sims[k] > TIE_GAP:
+            raise AssertionError(f"{tag}: row {r} picks other anchors on the card without a "
+                                 f"tie ({sims[k - 1]} vs {sims[k]})")
+        ties += 1
+    log(f"  (a) {tag}: top-{k} sets equal on {int(same.sum())} of {len(same)} rows; {ties} "
+        f"rows differ at a tie of the k-th similarity (within {TIE_GAP})")
+    return same
+
+
+def baseline_config(model_dir, out, train_dir, run=BASELINE_RUN, **overrides):
+    """A baseline config with the run's reductions: the repo's Python as
+    code text, no validation text (ROADMAP C.15), no periodic saves."""
+    from zett_tpu_torch.training.__main__ import load_config_file
+
+    config = load_config_file(run)
+    config.update(model_dir=model_dir, output_dir=out, train_directory=train_dir,
+                  valid_directory=None, extra_valid_tokenizers=[], logging_steps=1,
+                  save_steps=0, eval_steps=0, eval_at_step_zero=False, num_workers=0,
+                  prefetch_batches=0, steps=BASELINE_STEPS)
+    config.update(overrides)
+    return config
+
+
+def check_losses(tag, history, steps):
+    losses = [h["loss"] for h in history if "loss" in h]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    return losses
+
+
+def phase_baselines(tinyllama_dir):
+    """Phase 17, the n-shot and baseline path on phase 14's TinyLlama: (a)
+    the baselines CLI to starcoder0001 (lexical, bfvt, focus, ofa), FOCUS's
+    and OFA's similarity search and combination card vs plain on
+    BASELINE_ROWS seeded target rows; (b) the training CLI at
+    tinyllama_code_original.json (passthrough tables, full fine-tuning,
+    batch 32, block 512, lr 1e-6, lexical weight 0) for BASELINE_STEPS steps
+    on the repo's Python, at the config's own settings first, then with the
+    memory levers in turn (FT_LEVERS) where it runs out of memory, final/
+    with the tables only; (c) at a RESUME_CUT-layer cut, step 2 resumed from
+    a 1-step run's full state through the CLI against a 2-step run; (d)
+    the training CLI at
+    tinyllama_code_starcoder_from_focus.json on (a)'s FOCUS model; (e)
+    --method passthrough on (d)'s final/ and the perplexity CLI on the
+    written model; on (b)'s final/ the named refusal of ROADMAP C.16; (f)
+    gpt2_passthrough_ft.json's named refusal (ROADMAP C.11). Launches no
+    port kernel: the passthrough tables are lookups and the backbone runs
+    cuBLAS and PyTorch; the search runs torch.matmul and torch.topk.
+    Reductions: 3 and 2 steps (the configs: 50000); no validation text or
+    extra tokenizers (C.15); (b) and (d) without a full-state save (the
+    full state is (c)'s, at 2 layers); (a) (which reads the tables only),
+    (c), (d) and (e) at 2 of 22 layers."""
+    from zett_tpu_torch.evaluation.__main__ import main as ppl_main
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.training.__main__ import main as train_main
+    from zett_tpu_torch.transfer import baselines as tb
+    from zett_tpu_torch.transfer.baselines_cli import main as baselines_main
+
+    t_phase = time.perf_counter()
+    launches_before = dict(_build.launch_counts)
+    log(f"  PYTHONHASHSEED {os.environ.get('PYTHONHASHSEED')} (the char-n-gram space "
+        "depends on it, ROADMAP C.13)")
+
+    step("(a) the baselines CLI to starcoder0001")
+    # the methods read the tables only: they run on a cut of the model (its
+    # tables whole), as do (c), (d) and (e)
+    cut = write_depth_cut(tinyllama_dir, RESUME_CUT)
+    outputs = {}
+    for method in BASELINE_METHODS:
+        out = os.path.join(WORK, f"tinyllama_starcoder_{method}")
+        t0 = time.perf_counter()
+        summary = baselines_main(["--method", method, "--model", cut,
+                                  "--target-tokenizer", STARCODER, "--output", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  (a) {method} on {CARD} ({RESUME_CUT} layers): {wall:.3f} s wall; {summary['n_target']} tokens, "
+            f"overlap {summary['overlap']}, rows per route {summary['routes']}, finite "
+            f"{summary['finite']}")
+        if not summary["finite"] or summary["routes"]["in"] != summary["routes"]["out"]:
+            raise AssertionError(f"(a) {method}: {summary}")
+        outputs[method] = out
+    sd = load_hf_state_dict(cut)  # the tables and layers 0-1
+    emb = sd["model.embed_tokens.weight"].float().numpy()
+    source, _ = convert_to_byte_level(
+        Tokenizer.from_file(os.path.join(tinyllama_dir, "tokenizer.json")))
+    target, _ = convert_to_byte_level(
+        Tokenizer.from_file(os.path.join(STARCODER, "tokenizer.json")),
+        match_special_tokens_to=source, make_whitespace_consistent=True)
+    rng = np.random.default_rng(SEED + 17)
+    k = 10
+
+    _, source_ids, new_ids, aux_overlap, aux_new = tb.focus_anchors(source, target, len(emb))
+    rows = rng.choice(len(new_ids), min(BASELINE_ROWS, len(new_ids)), replace=False)
+    q = aux_new[rows]
+    same = compare_search("FOCUS", tb.top_k_similar(q, aux_overlap, k, "cuda")[0],
+                          tb.top_k_similar(q, aux_overlap, k, "cpu")[0], q, aux_overlap, k)
+    anchors = emb[np.asarray(source_ids)]
+    (card, card_cov), (plain, plain_cov) = (tb.focus_rows(q, aux_overlap, anchors, device=d)
+                                            for d in ("cuda", "cpu"))
+    err = np.abs(card - plain)[same].max()
+    scale = np.abs(plain).max()
+    log(f"  (a) FOCUS rows card vs plain on {len(rows)} seeded new tokens: covered "
+        f"{int(plain_cov.sum())}, max abs {err:.3g} at scale {scale:.3g} on the rows whose "
+        f"sets agree (tol 1e-5 x scale)")
+    if (card_cov != plain_cov)[same].any() or err > 1e-5 * scale:
+        raise AssertionError("(a) FOCUS differs on the card")
+
+    src_reps, src_has, tgt_reps, tgt_has = tb.ofa_anchors(source, target, len(emb))
+    vocab = source.get_vocab()
+    candidates = [i for i in range(len(target)) if tgt_has[i]
+                  and not (vocab.get(target.id_to_token(i) or "", len(emb)) < len(emb))]
+    rows = rng.choice(candidates, min(BASELINE_ROWS, len(candidates)), replace=False)
+    src_ids = np.nonzero(src_has)[0]
+    q, keys = tgt_reps[rows], src_reps[src_ids]
+    same = compare_search("OFA", tb.top_k_similar(q, keys, k, "cuda")[0],
+                          tb.top_k_similar(q, keys, k, "cpu")[0], q, keys, k)
+    card, plain = (tb.ofa_rows(q, keys, emb[src_ids], None, device=d) for d in ("cuda", "cpu"))
+    err = np.abs(card - plain)[same].max()
+    scale = np.abs(plain).max()
+    log(f"  (a) OFA rows card vs plain on {len(rows)} seeded new tokens: max abs {err:.3g} "
+        f"at scale {scale:.3g} on the rows whose sets agree (tol 1e-5 x scale)")
+    if err > 1e-5 * scale:
+        raise AssertionError("(a) OFA differs on the card")
+    for method in ("lexical", "bfvt", "ofa"):
+        shutil.rmtree(outputs[method], ignore_errors=True)
+
+    step("(b) the training CLI at tinyllama_code_original.json")
+    train_dir, valid_dir = os.path.join(WORK, "code_train"), os.path.join(WORK, "code_valid")
+    os.makedirs(train_dir, exist_ok=True)
+    os.makedirs(valid_dir, exist_ok=True)
+    n_lines, _ = write_code_text(train_dir, valid_dir, ["code"])
+    out_b = os.path.join(WORK, "baseline_original")
+    # final/ with the tables only: the full state (13.55 GiB at 22 layers,
+    # chip, PR 13) is written and resumed in (c), at a 2-layer cut
+    config = baseline_config(tinyllama_dir, out_b, train_dir, save_state=False)
+    shown = {key: config[key] for key in ("batch_size", "block_size", "learning_rate",
+                                          "lexical_loss_weight", "backbone_training",
+                                          "use_passthrough_hypernet", "max_grad_norm", "dtype")}
+    log(f"  (b) {n_lines} lines of the repo's Python as langs ['code']; {shown}")
+    levers = {}
+    got = run_training_config(config, "baseline_original")
+    for key, value in FT_LEVERS:
+        if got is not None:
+            break
+        log(f"  (b) on {CARD}: the config's settings{' + ' if levers else ''}"
+            f"{', '.join(levers)} ran out of memory; adding {key}={value}")
+        levers[key] = value
+        got = run_training_config(dict(config, **levers), "baseline_original")
+    if got is None:
+        raise AssertionError("(b) out of memory with every lever")
+    trainer, history, peak_b, wall = got
+    del got
+    losses_b = check_losses("(b)", history, BASELINE_STEPS)
+    ms = [r["device_ms"] for r in trainer.records if r["kind"] == "train"]
+    rows_src = len(emb)
+    moved = {}
+    for name, key in (("input", "model.embed_tokens.weight"), ("output", "lm_head.weight")):
+        table = getattr(trainer.hypernet, f"{name}_embeddings").weight.detach().float().cpu()
+        start = torch.zeros_like(table)
+        start[:rows_src] = sd[key].to(trainer.dtype).float()
+        changed = table != start
+        moved[f"{name} table, source rows"] = float(changed[:rows_src].float().mean())
+        # informational: an input row past the source moves only where the
+        # text uses its token
+        moved[f"{name} table, rows past the source"] = float(changed[rows_src:].float().mean())
+    last = f"model.layers.{trainer.backbone.config.num_hidden_layers - 1}.mlp.down_proj.weight"
+    sd.update({last: load_hf_state_dict(tinyllama_dir)[last]})
+    for key in ("model.layers.0.mlp.down_proj.weight", last):
+        delta = (trainer.backbone.raw(key).detach().cpu() - sd[key].float()).abs()
+        moved[key] = float((delta > 0).float().mean())
+        log(f"  (b) {key}: max |change| {float(delta.max()):.3g}")
+    log(f"  (b) on {CARD}: {BASELINE_STEPS} steps with levers {levers or 'none'} in {wall:.3f} "
+        f"s wall (loading, conversion and final/ included); losses "
+        f"{['%.4f' % x for x in losses_b]}; train steps {['%.3f' % x for x in ms]} ms (CUDA "
+        f"events); peak memory {peak_b:.2f} GiB; tables {tuple(table.shape)} in "
+        f"{trainer.hypernet.input_embeddings.weight.dtype}; share of elements moved {moved}")
+    if not all(v > 0 for k, v in moved.items() if "past the source" not in k):
+        raise AssertionError(f"(b) weights that did not move: {moved}")
+    final_b = os.path.join(out_b, "final")
+    batch = trainer.last_train_batch
+    busy, _, _ = device_breakdown(lambda: trainer.train_step(batch), top=8)
+    step_ms = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+    idle = "not measured" if busy is None else f"{1 - busy / step_ms:.3f}"
+    log(f"  (b) on {CARD}: train step {step_ms:.3f} ms (median after the first), idle share "
+        f"{idle} (1 - traced device busy / step)")
+    del trainer, batch, table, start, changed
+    gc_free()
+
+    step(f"(c) a one-step resume at a {RESUME_CUT}-layer cut")
+    # one step with its full state in final/, step 2 resumed from it
+    # through the CLI, and two continuous steps through the CLI: the same
+    # step-2 batch (the data replay), loss and weight (one full-state save,
+    # to keep the run's disk writes small)
+    weight = f"model.layers.{RESUME_CUT - 1}.mlp.down_proj.weight"
+    saved = os.path.join(WORK, "baseline_step_1")
+    cfg_c = baseline_config(cut, saved, train_dir, steps=1, save_state=True, **levers)
+    check_losses("(c) first step", run_training_config(cfg_c, "baseline_step_1")[1], 1)
+    gc_free()
+    res = run_training_config(dict(cfg_c, output_dir=saved + "_resumed", steps=2,
+                                   save_state=False,
+                                   resume_from_checkpoint=os.path.join(saved, "final")),
+                              "baseline_resumed")
+    got_loss = check_losses("(c) resumed", res[1], 1)[0]
+    cont = run_training_config(dict(cfg_c, output_dir=saved + "_continuous", steps=2,
+                                    save_state=False), "baseline_continuous")
+    ref_loss = check_losses("(c) continuous", cont[1], 2)[1]
+    ref_batch, got_batch = cont[0].last_train_batch, res[0].last_train_batch
+    keys = sorted(k for k, v in ref_batch.items() if hasattr(v, "shape"))
+    same_batch = keys == sorted(k for k, v in got_batch.items() if hasattr(v, "shape")) and all(
+        np.array_equal(np.asarray(ref_batch[k]), np.asarray(got_batch[k])) for k in keys)
+    ref_w = cont[0].backbone.raw(weight).detach().cpu()
+    got_w = res[0].backbone.raw(weight).detach().cpu()
+    w_err = float((got_w - ref_w).abs().max())
+    log(f"  (c) step 2 continuous vs resumed from step 1's full state: batch {keys} equal "
+        f"{same_batch}; loss {ref_loss!r} vs {got_loss!r}; {weight} max abs {w_err:.3g} "
+        f"(bit-equal {bool(torch.equal(got_w, ref_w))})")
+    del cont, res, ref_batch, got_batch
+    if not same_batch or abs(got_loss - ref_loss) > 1e-6 * abs(ref_loss) or w_err > 1e-6:
+        raise AssertionError("(c) the resumed step differs")
+    gc_free()
+
+    step("(d) the training CLI at tinyllama_code_starcoder_from_focus.json")
+    out_d = os.path.join(WORK, "baseline_from_focus")
+    cfg_d = baseline_config(outputs["focus"], out_d, train_dir, run=FROM_FOCUS_RUN,
+                            steps=FROM_FOCUS_STEPS, save_state=False, **levers)
+    got = run_training_config(cfg_d, "baseline_from_focus")
+    if got is None:
+        raise AssertionError("(d) out of memory")
+    trainer, history, peak, wall = got
+    del got
+    losses = check_losses("(d)", history, FROM_FOCUS_STEPS)
+    log(f"  (d) on {CARD}: {FROM_FOCUS_STEPS} steps on the FOCUS model "
+        f"({trainer.hypernet.input_embeddings.weight.shape[0]} table rows) in {wall:.3f} s "
+        f"wall; losses {['%.4f' % x for x in losses]}; train steps "
+        f"{['%.3f' % r['device_ms'] for r in trainer.records]} ms; peak {peak:.2f} GiB")
+    del trainer
+    gc_free()
+
+    step("(e) --method passthrough, then the perplexity CLI")
+    out_e = os.path.join(WORK, "tinyllama_passthrough")
+    t0 = time.perf_counter()
+    summary = baselines_main(["--method", "passthrough", "--checkpoint",
+                              os.path.join(out_d, "final"), "--model", outputs["focus"],
+                              "--target-tokenizer", STARCODER, "--output", out_e])
+    log(f"  (e) passthrough from (d)'s final/: {summary['n_target']} tokens in "
+        f"{time.perf_counter() - t0:.3f} s wall, finite {summary['finite']}")
+    try:
+        baselines_main(["--method", "passthrough", "--checkpoint", final_b, "--model",
+                        cut, "--target-tokenizer", tinyllama_dir, "--output",
+                        os.path.join(WORK, "tinyllama_passthrough_original")])
+        raise AssertionError("(e) (b)'s tables were sliced to a tokenizer they were not "
+                             "trained on")
+    except ValueError as exc:
+        if "C.16" not in str(exc):
+            raise
+        log(f"  (e) on (b)'s final/: {str(exc)[:150]}...")
+    shutil.rmtree(os.path.join(WORK, "tinyllama_passthrough_original"), ignore_errors=True)
+    text = os.path.join(WORK, "passthrough_eval.txt")
+    tok = Tokenizer.from_file(os.path.join(out_e, "tokenizer.json"))
+    lines, n = [], 0
+    with open(os.path.join(train_dir, "code.txt")) as f:
+        for line in f:
+            lines.append(line.rstrip("\n"))
+            n += len(tok.encode(lines[-1], add_special_tokens=False).ids)
+            if n >= 4 * 512 + 256:
+                break
+    with open(text, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    metrics, stages = timed_eval_cli(ppl_main, ["--model", out_e, "--data", text,
+                                                "--block-size", "512", "--batch-size", "4"])
+    blocks = int(metrics["n_tokens"]) // 511  # a block of 512 scores 511 next tokens
+    log(f"  (e) the perplexity CLI on the passthrough model: {int(metrics['n_tokens'])} scored "
+        f"tokens ({blocks} blocks of 512), loss {metrics['loss']:.4f}, "
+        f"{stages['wall_s']:.3f} s wall")
+    if blocks < 4 or not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"(e) {metrics}")
+
+    step("(f) gpt2_passthrough_ft.json")
+    try:
+        train_main([NSHOT_RUN])
+        raise AssertionError("(f) the nshot config trained")
+    except ValueError as exc:
+        if "C.11" not in str(exc):
+            raise
+        log(f"  (f) refused before any step: {str(exc)[:120]}...")
+    if dict(_build.launch_counts) != launches_before:
+        raise AssertionError("phase 17 launched a port kernel")
+    log(f"  phase 17: {time.perf_counter() - t_phase:.3f} s wall; no port kernel launched")
+    return {"step_ms": step_ms, "peak_gib": peak_b, "levers": levers,
+            "wall_s": time.perf_counter() - t_phase}
+
+
+PREPARED = {}  # prepare_inputs' entries, each taken by its phase
+
+
+def prepare_inputs():
+    """The inputs of later phases that no port kernel makes, written while
+    nvcc builds the kernels (one nvcc process holds the build up for its
+    last half, the card idles): phase 12's synthetic pretokens, phase 14's
+    TinyLlama and its 2-layer cut, phase 15's Mistral and its seeded
+    en_code hypernet checkpoint. Each PREPARED entry holds its seconds."""
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+
+    t0 = time.perf_counter()
+    _, pieces, _ = neox_vocab()
+    PREPARED["pretokens"] = (
+        synthetic_pretokens(pieces, N_PRETOKENS, np.random.default_rng(SEED)),
+        time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tinyllama = os.path.join(WORK, "tinyllama")
+    PREPARED["tinyllama"] = (*write_tinyllama(tinyllama), time.perf_counter() - t0)
+    write_depth_cut(tinyllama, EVAL_CUT)  # 15(e), 16 and 17 use it
+    t0 = time.perf_counter()
+    mistral = os.path.join(WORK, "mistral")
+    _, sd = write_llama(mistral, dict(MISTRAL, num_hidden_layers=MISTRAL_LAYERS), SEED + 23)
+    PREPARED["mistral"] = (sum(t.numel() for t in sd.values()), time.perf_counter() - t0)
+    del sd
+    t0 = time.perf_counter()
+    hn_tokenizer, _ = convert_to_byte_level(
+        Tokenizer.from_file(os.path.join(mistral, "tokenizer.json")))
+    flat = flax_layout(meta_hypernet(mistral_hypernet_config("en_code")),
+                       torch.Generator(device="cuda").manual_seed(SEED + 22))
+    cfg = write_mistral_checkpoint(os.path.join(WORK, "mistral_ckpt"), "en_code", flat,
+                                   hn_tokenizer)
+    PREPARED["mistral_ckpt"] = (cfg, time.perf_counter() - t0)
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -3451,11 +3893,20 @@ def main():
 
         from zett_tpu_torch.csrc import host_lib
 
-        phase(f"phase 1: built {list(_build.SOURCES)} in {_build.build(verbose=True):.2f} s")
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        # nvcc and g++ in threads of their own, the inputs meanwhile here
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            t0 = time.perf_counter()
+            built = pool.submit(_build.build, verbose=True)
+            host_built = pool.submit(lambda: (host_lib.build(), time.perf_counter() - t0)[1])
+            prepare_inputs()
+            prepared_s = time.perf_counter() - t0
+            build_s, host_s = built.result(), host_built.result()
+        phase(f"phase 1: built {list(_build.SOURCES)} in {build_s:.2f} s; the native host "
+              f"library (g++) beside it in {host_s:.2f} s; later phases' inputs written "
+              f"meanwhile in {prepared_s:.2f} s")
         check_build()
-        t0 = time.perf_counter()
-        host_lib.build()
-        log(f"  built the native host library (g++) in {time.perf_counter() - t0:.2f} s")
         phase("phase 2: kernels against their plain versions")
         kernels = phase_kernels()
         phase("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
@@ -3505,6 +3956,9 @@ def main():
               "own metaspace tokenizer and, after transfer, under llama0001")
         evals = phase_eval(os.path.join(WORK, "tinyllama"),
                            os.path.join(WORK, "tinyllama_llama0001"))
+        phase("phase 17: the n-shot and baseline path on TinyLlama: the baselines CLI, "
+              "passthrough tables with full fine-tuning through the training CLI")
+        baselines = phase_baselines(os.path.join(WORK, "tinyllama"))
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -3568,7 +4022,10 @@ def main():
         f"mistral_en_code_transfer_wall_s {mistral[('en_code', 0)]['wall']:.3f} "
         f"eval_source_tokens_per_s {evals['a']['n_tokens'] / evals['a']['eval_s']:.1f} "
         f"eval_transferred_tokens_per_s {evals['b']['n_tokens'] / evals['b']['eval_s']:.1f} "
-        f"eval_source_encode_mb_per_s {evals['a']['encode_mb'] / evals['a']['encode_s']:.4f}")
+        f"eval_source_encode_mb_per_s {evals['a']['encode_mb'] / evals['a']['encode_s']:.4f} "
+        f"baseline_ft_step_ms {baselines['step_ms']:.3f} baseline_ft_peak_gib "
+        f"{baselines['peak_gib']:.2f} baseline_ft_levers {sorted(baselines['levers'])} "
+        f"phase17_wall_s {baselines['wall_s']:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,10 +57,11 @@ def test_port_imports_nothing_forbidden(path):
                                     "zett_tpu_torch.training.__main__",
                                     "zett_tpu_torch.tokenization.compute_prior",
                                     "zett_tpu_torch.evaluation.__main__",
-                                    "zett_tpu_torch.evaluation.choice"])
+                                    "zett_tpu_torch.evaluation.choice",
+                                    "zett_tpu_torch.transfer.baselines_cli"])
 def test_cli_import_leaves_jax_out(module):
     code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine, "
-            "zett_tpu_torch.evaluation.loop; "
+            "zett_tpu_torch.evaluation.loop, zett_tpu_torch.transfer.baselines; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets', "
             "'tokenizers', 'transformers')]; "
@@ -79,6 +80,22 @@ def test_cli_without_device_flag_needs_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--checkpoint", str(tmp_path), "--model", str(tmp_path),
               "--target-tokenizer", str(tmp_path), "--output", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")
+
+
+def test_baselines_cli_without_device_flag_needs_the_card(tmp_path):
+    """The baselines CLI searches FOCUS's and OFA's similarities on the card
+    unless --device cpu is given; with none it raises before reading or
+    writing anything."""
+    from zett_tpu_torch.transfer.baselines_cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for method in ("focus", "passthrough"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--method", method, "--model", str(tmp_path / "missing"),
+                  "--target-tokenizer", str(tmp_path / "missing"),
+                  "--checkpoint", str(tmp_path / "missing"), "--output", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
 
 

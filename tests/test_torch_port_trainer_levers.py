@@ -521,11 +521,14 @@ def test_fit_raises_the_prefetch_threads_error(backbone):
 
 
 def test_trainer_refuses_only_unported_settings(backbone):
-    for kw in (dict(backbone_training="full"), dict(loss="mlm")):
+    """MLM and backbone training regimes other than "no" and "full" are
+    refused; full fine-tuning is ported."""
+    for kw in (dict(backbone_training="lora"), dict(loss="mlm")):
         with pytest.raises(NotImplementedError):
             _port_trainer(backbone, **kw)
     _port_trainer(backbone, remat_hypernet=True, remat_backbone=True, loss_chunk_size=8,
                   use_adafactor=True, prefetch_batches=3, save_state=True)
+    _port_trainer(backbone, backbone_training="full")
 
 
 # ---------------------------------------------------------------------- CLI

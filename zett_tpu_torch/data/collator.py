@@ -137,11 +137,14 @@ class Collator:
         if not data_config.do_tokenizer_sampling:
             tokenizer = fixed_tokenizer
             self.original_length = len(tokenizer)
-            tokenizer, _ = convert_to_byte_level(
-                tokenizer,
-                match_special_tokens_to=reference,
-                make_whitespace_consistent=True,
-            )
+            # the passthrough hypernet's tables are keyed by the fixed
+            # tokenizer's own ids: it is used as given (collator.py:140)
+            if not data_config.use_passthrough_hypernet:
+                tokenizer, _ = convert_to_byte_level(
+                    tokenizer,
+                    match_special_tokens_to=reference,
+                    make_whitespace_consistent=True,
+                )
             if hn_tokenizer is None or hn_tokenizer.get_vocab() == tokenizer.get_vocab():
                 self.surface_forms = np.arange(len(tokenizer))[:, None].astype(np.int32)
             else:

@@ -1,3 +1,3 @@
-from .hypernet import Hypernet, HypernetConfig
+from .hypernet import Hypernet, HypernetConfig, PassthroughHypernet
 
-__all__ = ["Hypernet", "HypernetConfig"]
+__all__ = ["Hypernet", "HypernetConfig", "PassthroughHypernet"]

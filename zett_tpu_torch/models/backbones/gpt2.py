@@ -6,7 +6,9 @@
 splices the hypernet's predicted table in as ``wte``. Weights are the HF
 state dict's (Conv1D kernels are (in, out), as flax Dense kernels), held as
 parameters in their stored dtype and cast to the compute dtype at use, as
-flax promotes them. The arithmetic follows the JAX module
+flax promotes them (the LayerNorms take theirs as held: with full
+fine-tuning's f32 parameters their outputs are f32, as flax's promotion
+makes them). The arithmetic follows the JAX module
 (``gpt2.py:48-117``): attention scores accumulated and scaled in f32 with
 an additive ``finfo(f32).min`` causal/padding bias, an f32 softmax whose
 weights are cast to the compute dtype, flax LayerNorm (f32 statistics),
@@ -85,22 +87,29 @@ class GPT2LMHeadModel(nn.Module):
             for k in weight_keys(config)
         })
 
+    def raw(self, key: str) -> torch.Tensor:
+        return self.weights[key.replace(".", "__")]
+
     def w(self, key: str) -> torch.Tensor:
-        return self.weights[key.replace(".", "__")].to(self.dtype)
+        return self.raw(key).to(self.dtype)
 
     def named_hf_parameters(self):
         for k, p in self.weights.items():
             yield k.replace("__", "."), p
 
     def _ln(self, x, prefix):
-        # flax LayerNorm without a dtype: f32 statistics, output in the
-        # promoted dtype of x and the parameters (the compute dtype here)
-        return layer_norm_flax_exact(x, self.w(prefix + ".weight"), self.w(prefix + ".bias"),
-                                     self.config.layer_norm_epsilon, x.dtype)
+        # flax LayerNorm without a dtype: f32 statistics, the parameters as
+        # held, output in the promoted dtype of x and the parameters (the
+        # compute dtype for a frozen bf16 backbone, f32 for full
+        # fine-tuning's f32 parameters)
+        scale, bias = self.raw(prefix + ".weight"), self.raw(prefix + ".bias")
+        return layer_norm_flax_exact(x, scale, bias, self.config.layer_norm_epsilon,
+                                     torch.promote_types(x.dtype, scale.dtype))
 
     def _dense(self, x, prefix):
-        # flax Dense: product in the compute dtype, then the bias added in it
-        return x @ self.w(prefix + ".weight") + self.w(prefix + ".bias")
+        # flax Dense: input and kernel in the compute dtype, the product in
+        # it, then the bias added in it
+        return x.to(self.dtype) @ self.w(prefix + ".weight") + self.w(prefix + ".bias")
 
     def _attention(self, x, bias, prefix):
         cfg = self.config
@@ -118,7 +127,9 @@ class GPT2LMHeadModel(nn.Module):
         return self._dense(out, prefix + ".c_proj")
 
     def hidden_states(self, input_ids, attention_mask, wte):
-        """Final hidden states (after ln_f), (B, L, E) in the compute dtype."""
+        """Final hidden states (after ln_f), (B, L, E): in the compute dtype,
+        or f32 where ``ln_f``'s parameters are f32 and the compute dtype is
+        not."""
         cfg = self.config
         B, L = input_ids.shape
         dev = input_ids.device
@@ -142,6 +153,10 @@ class GPT2LMHeadModel(nn.Module):
         return hidden + self._dense(gelu(h), p + ".mlp.c_proj")
 
     def forward(self, input_ids, attention_mask, wte):
-        """Logits (B, L, V) in the compute dtype: ``hidden @ wte.T``."""
+        """Logits (B, L, V): ``hidden @ wte.T`` with the table in the
+        compute dtype, both promoted to a common dtype as jnp's matmul does
+        (f32 after an f32 ``ln_f``)."""
         hidden = self.hidden_states(input_ids, attention_mask, wte)
-        return hidden @ wte.to(self.dtype).t()
+        table = wte.to(self.dtype)
+        common = torch.promote_types(hidden.dtype, table.dtype)
+        return hidden.to(common) @ table.to(common).t()

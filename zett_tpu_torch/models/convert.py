@@ -137,6 +137,13 @@ def backbone_flax_path(model_type: str, key: str) -> tuple:
     return gpt2_flax_path(key) if model_type == "gpt2" else llama_flax_path(key)
 
 
+def backbone_transposed(model_type: str, key: str) -> bool:
+    """Whether the HF weight ``key`` is held transposed against its Flax
+    kernel: the Llama family's ``nn.Linear`` weights are (out, in), Flax
+    kernels (in, out); GPT-2's ``Conv1D`` weights are (in, out) already."""
+    return model_type != "gpt2" and backbone_flax_path(model_type, key)[-1] == "kernel"
+
+
 def invert_llama(flat: Dict[str, np.ndarray], tie_word_embeddings: bool) -> Dict[str, torch.Tensor]:
     """Flax Llama-family parameters ("/"-joined paths) -> the HF state dict
     (``loader.invert_llama``, loader.py:291-315): kernels (in, out) become

@@ -38,6 +38,9 @@ erf-gelu) are not ported yet. Configurations that leave these routes
 other head widths) raise ``NotImplementedError``, naming ROADMAP A.10 where
 that item holds them.
 
+``PassthroughHypernet`` is the n-shot baseline's stand-in with the same
+call: plain tables read at each row's first surface-form id.
+
 Parameters are stored as torch's ``nn.Linear`` layout; ``models.convert``
 maps a Flax parameter tree onto them. Weights are f32 and cast to the
 compute dtype at use, as flax's ``param_dtype``/``dtype`` split does; the
@@ -167,6 +170,20 @@ def _glue(fn, *args):
     if _REMAT_GLUE.get() and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def embed_take(table, ids):
+    """Rows ``ids`` of ``table`` by flax ``nn.Embed``'s rules: a one-row
+    table is broadcast to the ids' shape plus its width; otherwise
+    ``jnp.take``'s, negative ids counted from the end and an id past either
+    end a row of NaN."""
+    n = table.shape[0]
+    idx = ids.long()
+    if n == 1:
+        return table.expand(*idx.shape, table.shape[1])
+    inside = (idx >= -n) & (idx < n)
+    rows = table[torch.where(inside, idx % n, 0)]
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def gelu_exact(x):
@@ -505,13 +522,7 @@ class HypernetEncoder(nn.Module):
         negative indices counted from the end and an index past either end
         a row of NaN."""
         table = self.lang_embedding.weight.to(self.dtype)
-        n = table.shape[0]
-        idx = torch.as_tensor(lang_index, device=table.device).long()
-        if n == 1:
-            return table.expand(*idx.shape, table.shape[1]).squeeze()
-        inside = (idx >= -n) & (idx < n)
-        rows = table[torch.where(inside, idx % n, 0)]
-        return torch.where(inside[..., None], rows, float("nan")).squeeze()
+        return embed_take(table, torch.as_tensor(lang_index, device=table.device)).squeeze()
 
     def forward(self, input_ids, attention_mask, inputs_embeds=None, target_priors=None,
                 lang_index=None, inference: bool = True, deterministic: bool = True,
@@ -686,3 +697,47 @@ class Hypernet(nn.Module):
             if self.config.add_inter_token_attention:
                 blocks = self.encoder.inter_token_blocks
                 blocks.copy_(torch.randn(blocks.shape, generator=generator) * std)
+
+
+class PassthroughHypernet(nn.Module):
+    """The n-shot baseline (``zett_tpu/models/hypernet.py:908-941``): plain
+    learned tables indexed by each row's first surface-form id, in place of
+    the hypernet. ``input_embeddings`` (vocab_size, n_embd), with
+    ``separate_out_embeddings`` ``output_embeddings`` too, and with
+    ``predict_bias`` a ``bias`` table (vocab_size, 1); flax ``nn.Embed``s,
+    so their parameters are f32 (the trainer casts them to what JAX's state
+    holds) and a lookup is in the compute dtype, past the table a row of
+    NaN (``embed_take``). Takes ``Hypernet``'s call signature and reads only
+    the surface forms."""
+
+    def __init__(self, config: HypernetConfig, vocab_size: int, dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.dtype = dtype
+        self.vocab_size = vocab_size
+
+        def table(width):
+            return nn.Embedding(vocab_size, width)
+
+        self.input_embeddings = table(cfg.n_embd)
+        if cfg.separate_out_embeddings:
+            self.output_embeddings = table(cfg.n_embd)
+        if cfg.predict_bias:
+            self.bias = table(1)
+
+    def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
+                lang_index=None, deterministic: bool = True, inference=None, generator=None):
+        ids = target_surface_forms[..., 0]
+
+        def lookup(mod):
+            return embed_take(mod.weight, ids).to(self.dtype)
+
+        predicted_in = lookup(self.input_embeddings)
+        predicted_out = lookup(self.output_embeddings) \
+            if self.config.separate_out_embeddings else None
+        if self.config.predict_bias:
+            predicted_bias = lookup(self.bias)[..., 0]
+        else:
+            predicted_bias = torch.zeros(ids.shape, dtype=self.dtype, device=ids.device)
+        return predicted_in, predicted_out, predicted_bias

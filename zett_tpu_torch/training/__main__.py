@@ -32,6 +32,18 @@ signal end the run at the next step boundary with a full-state checkpoint
 in ``<output_dir>/preempt_step_<N>/`` and no ``final/``; resume from it.
 With ``save_state`` (the default) ``final/`` and the periodic
 ``step_<N>/`` checkpoints hold the full state too.
+
+The n-shot and baseline configs (``configs/nshot/``, ``configs/baseline/``:
+``use_passthrough_hypernet``, ``backbone_training: "full"``,
+``do_tokenizer_sampling: false``) train the passthrough tables and the
+whole backbone against one fixed tokenizer, ``target_tokenizer`` (converted
+to byte level) or the source's own; ``final/params.npz`` holds the tables,
+which ``python -m zett_tpu_torch.transfer.baselines_cli --method
+passthrough --checkpoint OUT/final`` slices into a model. A passthrough
+config with the lexical loss on (every ``configs/nshot/*.json``, through
+gpt2_en's ``lexical_loss_weight`` 0.5) raises ``ValueError`` naming
+ROADMAP C.11 before loading anything: the JAX trainer fails on it with a
+``TypeError`` at its first step.
 """
 
 from __future__ import annotations
@@ -174,12 +186,11 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     from ..tokenization.convert import convert_to_byte_level, is_byte_level
     from ..tokenization.core import Tokenizer
     from ..transfer.__main__ import resolve_device
-    from .engine import Trainer
+    from .engine import Trainer, check_passthrough
 
     dev = resolve_device(device)
     train_cfg, data_cfg, hn_cfg = load_configs(config)
-    if data_cfg.use_passthrough_hypernet:
-        raise NotImplementedError("the passthrough hypernet (n-shot runs) is not ported")
+    check_passthrough(hn_cfg, train_cfg, data_cfg.use_passthrough_hypernet)
     os.makedirs(train_cfg.output_dir, exist_ok=True)
 
     model_dir = config["model_dir"]
@@ -258,9 +269,20 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     # 274-278 builds a mesh only across devices)
     print(f"{model_type} backbone on one device ({dev}); n_model_parallel "
           f"{train_cfg.n_model_parallel} runs without a mesh", flush=True)
+    # the vocab rows of a batch (zett_tpu/training/__main__.py:281-287);
+    # the passthrough tables cover them and the hn tokenizer's ids
+    if data_cfg.n_token_subsample is not None:
+        vocab_batch = data_cfg.n_token_subsample
+    elif fixed_tokenizer is not None:
+        pad = data_cfg.pad_to_multiple_of
+        vocab_batch = -(-len(fixed_tokenizer) // pad) * pad
+    else:
+        vocab_batch = data_cfg.tokenizer_sample_max + data_cfg.pad_to_multiple_of
     trainer = Trainer(hn_config=hn_cfg, backbone_config=bb_config, backbone_state=bb_state,
                       model_type=model_type, train_config=train_cfg, device=dev,
-                      hn_pad_token_id=hn_cfg.pad_token_id)
+                      hn_pad_token_id=hn_cfg.pad_token_id,
+                      use_passthrough_hypernet=data_cfg.use_passthrough_hypernet,
+                      passthrough_rows=max(vocab_batch, len(hn_tokenizer)))
 
     num_workers = config.get("num_workers", 0)
     if num_workers > 0:

@@ -1,8 +1,8 @@
 """Training configuration (counterpart of ``zett_tpu/training/config.py``:
 the same fields and defaults, so the same JSON configs load, and one field
 of the port's own, ``remat_hypernet_glue``). The port runs
-``backbone_training="no"`` and the CLM loss; the Trainer raises for the
-other settings. Resume and preemption are keys of the CLI's config
+``backbone_training`` "no" and "full" and the CLM loss; the Trainer raises
+for the other settings. Resume and preemption are keys of the CLI's config
 (``resume_from_checkpoint``, ``resume_reset_steps``, ``preempt_signal``),
 as in the JAX CLI."""
 

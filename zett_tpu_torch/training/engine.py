@@ -31,9 +31,18 @@ chunk by chunk (``losses.chunked_clm_loss``/``chunked_clm_eval``), so the
 thread (``prefetch.BatchPrefetcher``), writes full-state checkpoints
 (parameters, optimizer state, step, dropout generator) and resumes from
 them by replaying the data stream, and on a preemption signal checkpoints
-and returns. Not ported: MLM, backbones other than GPT-2 and the Llama
-family, full backbone fine-tuning, multi-GPU (and with it the multihost
-preemption agreement).
+and returns.
+
+The n-shot and baseline runs (``use_passthrough_hypernet``,
+``backbone_training: "full"``): ``PassthroughHypernet``'s tables, set from
+the source rows, take the hypernet's place, and the state keeps no source
+table, so there is no special-token splice, no lexical loss (refused by
+name, ROADMAP C.11) and no identity step; under ``"full"`` the backbone's
+parameters are f32, computed in the compute dtype, and train with the
+tables (the optimizer sees the Llama family's ``(out, in)`` weights in the
+Flax layout), and a full-state checkpoint carries them. Not ported: MLM,
+backbones other than GPT-2 and the Llama family, multi-GPU (and with it
+the multihost preemption agreement).
 """
 
 from __future__ import annotations
@@ -52,8 +61,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import NEGATIVE_INF_FILL_VALUE
 from ..models.backbones.registry import build_model, headless_model, resolve_out_path
-from ..models.convert import backbone_flax_path, flax_paths, flax_to_torch, torch_to_flax
-from ..models.hypernet import Hypernet, HypernetConfig, remat_glue
+from ..models.convert import (backbone_flax_path, backbone_transposed, flax_paths,
+                              flax_to_torch, torch_to_flax)
+from ..models.hypernet import Hypernet, HypernetConfig, PassthroughHypernet, remat_glue
 from ..models.splice import extract_embeddings
 from .losses import chunked_clm_eval, chunked_clm_loss, lexical_loss, lm_loss
 from .optimizer import build_optimizer
@@ -62,6 +72,23 @@ from .schedules import create_learning_rate_fn
 from .state import TrainState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_passthrough(hn_config, train_config, use_passthrough_hypernet: bool) -> None:
+    """Refuse the lexical loss under the passthrough hypernet (ROADMAP
+    C.11). Its state keeps no source table (``engine.py:207``), and the
+    lexical loss reads one (``engine.py:520``): the JAX trainer raises
+    ``TypeError`` at its first step. Every ``configs/nshot/*.json`` asks
+    for it through gpt2_en's ``embed_using_source_embeddings`` and
+    ``lexical_loss_weight`` 0.5; the ``configs/baseline/`` ones set the
+    weight to 0."""
+    if (use_passthrough_hypernet and hn_config.embed_using_source_embeddings
+            and train_config.lexical_loss_weight > 0):
+        raise ValueError(
+            "ROADMAP C.11: the passthrough hypernet keeps no source embeddings, so the "
+            "lexical loss (embed_using_source_embeddings with lexical_loss_weight "
+            f"{train_config.lexical_loss_weight}) cannot run; set lexical_loss_weight to 0 "
+            "(the JAX trainer fails with TypeError at its first step)")
 
 
 class Trainer:
@@ -76,19 +103,21 @@ class Trainer:
         device,
         hn_pad_token_id: int = 0,
         hn_params: Optional[Dict[str, np.ndarray]] = None,
+        use_passthrough_hypernet: bool = False,
+        passthrough_rows: int = 0,
     ):
         cfg = train_config
-        unported = {
-            "backbone_training != 'no'": cfg.backbone_training != "no",
-            "loss=mlm": cfg.loss != "clm",
-        }
-        missing = [k for k, on in unported.items() if on]
-        if missing:
-            raise NotImplementedError(f"training options not ported: {', '.join(missing)}")
+        if cfg.loss != "clm":
+            raise NotImplementedError("training options not ported: loss=mlm")
+        if cfg.backbone_training not in ("no", "full"):
+            raise NotImplementedError(f"backbone_training={cfg.backbone_training!r} is not "
+                                      "ported ('no' and 'full' are)")
+        check_passthrough(hn_config, cfg, use_passthrough_hypernet)
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.hn_pad_token_id = hn_pad_token_id
+        self.model_type = model_type
 
         source, original_vocab = extract_embeddings(backbone_state, model_type,
                                                     config=backbone_config)
@@ -98,23 +127,37 @@ class Trainer:
             hn_config = dataclasses.replace(hn_config, original_vocab_size=original_vocab)
         self.hn_config = hn_config
 
-        # the frozen backbone is held in bf16 (engine.py:234-238)
-        frozen = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
-                  for k, v in backbone_state.items()}
+        if cfg.backbone_training == "no":
+            # the frozen backbone is held in bf16 (engine.py:234-238)
+            held = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 else v)
+                    for k, v in backbone_state.items()}
+        else:
+            # full fine-tuning: f32 parameters, as the JAX package loads
+            # them (its loader reads f32; a bf16 checkpoint widens exactly),
+            # cast to the compute dtype inside each op
+            held = {k: (v.float() if v.is_floating_point() else v)
+                    for k, v in backbone_state.items()}
         # per-block remat (engine.py:178-186)
         backbone_config = dataclasses.replace(backbone_config, remat_blocks=cfg.remat_backbone)
-        self.backbone = build_model(model_type, backbone_config, frozen,
+        self.backbone = build_model(model_type, backbone_config, held,
                                     self.dtype).to(self.device)
         self.headless = headless_model(model_type, self.backbone)
-        self.hypernet = Hypernet(hn_config, dtype=self.dtype)
+        if use_passthrough_hypernet:
+            self.hypernet = self._passthrough_tables(passthrough_rows)
+            # the state keeps no source table (engine.py:207): no
+            # special-token splice, no lexical loss, no identity step
+            self.source_embeddings = None
+        else:
+            self.hypernet = Hypernet(hn_config, dtype=self.dtype)
         if hn_params is not None:
             self.hypernet.load_state_dict(flax_to_torch(hn_params), strict=True)
-        else:
+        elif not use_passthrough_hypernet:
             self.hypernet.init_weights(torch.Generator().manual_seed(cfg.seed))
         self.hypernet.to(self.device)
 
         # every parameter under its Flax path, as jax.value_and_grad sees
-        # the state's params {"hypernet", "inner"}
+        # the state's params {"hypernet", "inner"}; the optimizer sees the
+        # Flax layout through ``transposed``
         self.params: Dict[tuple, torch.nn.Parameter] = {}
         transposed = []
         hn_paths = flax_paths(self.hypernet)
@@ -124,7 +167,11 @@ class Trainer:
             if transpose:
                 transposed.append(("hypernet",) + path)
         for key, p in self.backbone.named_hf_parameters():
-            self.params[("inner",) + backbone_flax_path(model_type, key)] = p
+            path = ("inner",) + backbone_flax_path(model_type, key)
+            self.params[path] = p
+            if backbone_transposed(model_type, key):
+                transposed.append(path)
+        self.transposed = frozenset(transposed)
 
         self.random_lr_fn, _ = create_learning_rate_fn(cfg)
         self.optimizer = build_optimizer(self.params, cfg, self.random_lr_fn, transposed)
@@ -162,7 +209,41 @@ class Trainer:
         has no padding rows to spare; ROADMAP C.7)."""
         return table[ids.clamp(max=table.shape[0] - 1)]
 
+    def _passthrough_tables(self, min_rows: int) -> PassthroughHypernet:
+        """The passthrough tables from the source rows (``engine.py:198-209``):
+        the input table, the output table where the head is untied, the
+        bias zeros. As in JAX they hold the source rows as cast to the
+        compute dtype. The tables have the padded source's rows, or
+        ``min_rows`` where that is more (the ids a batch can hold): JAX
+        sizes them by the source alone, so a fixed tokenizer with more ids
+        than that (a converted metaspace source) reads NaN rows past their
+        end and its loss is NaN (ROADMAP C.14); the port pads on with zero
+        rows, as ``extract_embeddings`` pads the source to a multiple of
+        128."""
+        hn_cfg = self.hn_config
+        if hn_cfg.separate_out_embeddings == self.out_tied:
+            raise ValueError(f"separate_out_embeddings={hn_cfg.separate_out_embeddings} "
+                             f"but the {self.model_type} head is "
+                             f"{'tied' if self.out_tied else 'untied'}")
+        source = self.source_embeddings
+        rows = max(source.shape[0], int(min_rows))
+        if rows > source.shape[0]:
+            print(f"passthrough tables: {rows} rows for the fixed tokenizer's ids, past the "
+                  f"source's {source.shape[0]}: the rows past the source start at zero, where "
+                  f"the reference reads NaN and its loss is NaN (ROADMAP C.14)", flush=True)
+        tables = PassthroughHypernet(hn_cfg, vocab_size=rows, dtype=self.dtype).to(self.dtype)
+        n, n_embd = source.shape[0], hn_cfg.n_embd
+        with torch.no_grad():
+            for p in tables.parameters():
+                p.zero_()
+            tables.input_embeddings.weight[:n] = source[:, :n_embd].cpu()
+            if hn_cfg.separate_out_embeddings:
+                tables.output_embeddings.weight[:n] = source[:, n_embd:].cpu()
+        return tables
+
     def _split_source(self):
+        if self.source_embeddings is None:
+            return None, None
         n_embd = self.hn_config.n_embd
         src_in = self.source_embeddings[:, :n_embd]
         src_out = None if self.out_tied else self.source_embeddings[:, n_embd:]
@@ -217,6 +298,8 @@ class Trainer:
         src_in, src_out = self._split_source()
         emb_in, emb_out, biases = self._hypernet(b, deterministic, inference, generator,
                                                  remat=self.cfg.remat_hypernet)
+        if src_in is None:  # the passthrough state keeps no source table
+            return emb_in, emb_out, biases
         special, special_ref = b["special_indices"].long(), b["special_indices_in_reference"].long()
         emb_in = emb_in.index_put((special,), src_in[special_ref].to(emb_in.dtype))
         if emb_out is not None and src_out is not None:
@@ -282,6 +365,10 @@ class Trainer:
 
     def _identity_loss(self, b):
         src_in, src_out = self._split_source()
+        if src_in is None:
+            raise ValueError("the identity step regresses onto the source table, which the "
+                             "passthrough hypernet's state does not keep (JAX fails at "
+                             "jnp.take of None); set identity_steps to 0")
         emb_in, emb_out, _ = self._hypernet(b, deterministic=True)
         # JAX takes the rows with jnp.take, which fills ids past the table
         # with NaN (ROADMAP C.7): the port clamps them as the lexical
@@ -515,7 +602,10 @@ class Trainer:
         ``state.npz`` (the optimizer state under "<slot>/<Flax path>", and
         the dropout generator's state under "dropout_generator") and
         ``state.json`` (the micro step, the optimizer's name and update
-        count); full state is taken at a step boundary."""
+        count), and under full fine-tuning the backbone's parameters under
+        "inner/<Flax path>"; full state is taken at a step boundary. The
+        parameters written are the hypernet's (the passthrough tables),
+        never the backbone's, as in JAX."""
         scalars = {"step": self.state.step, **self.optimizer.scalars()} if full_state else None
         os.makedirs(path, exist_ok=True)
         np.savez(os.path.join(path, "params.npz"), **torch_to_flax(self.hypernet))
@@ -529,15 +619,46 @@ class Trainer:
             # bf16 state goes to f32, which holds it exactly
             arrays = {k: t.detach().float().cpu().numpy()
                       for k, t in self.optimizer.state_arrays().items()}
+            arrays.update(self._inner_arrays())
             arrays["dropout_generator"] = self.state.dropout_generator.get_state().numpy()
             np.savez(os.path.join(resume, "state.npz"), **arrays)
             with open(os.path.join(resume, "state.json"), "w") as f:
                 json.dump(scalars, f, indent=2)
 
+    def _inner_arrays(self) -> Dict[str, np.ndarray]:
+        """Under full fine-tuning, the backbone's parameters under
+        "inner/<Flax path>" in the Flax layout (``engine.py:867-868``);
+        nothing when the backbone is frozen."""
+        if self.cfg.backbone_training != "full":
+            return {}
+        out = {}
+        for path, p in self.params.items():
+            if path[0] == "inner":
+                t = p.detach().float().cpu()
+                out["/".join(path)] = (t.t() if path in self.transposed else t).contiguous().numpy()
+        return out
+
+    @torch.no_grad()
+    def _load_inner(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Inverse of ``_inner_arrays`` (``engine.py:909-917``): pops the
+        "inner/..." arrays and copies each into its parameter."""
+        inner = {k: arrays.pop(k) for k in [k for k in arrays if k.startswith("inner/")]}
+        if self.cfg.backbone_training != "full":
+            return
+        for path, p in self.params.items():
+            if path[0] != "inner":
+                continue
+            key = "/".join(path)
+            if key not in inner:
+                raise KeyError(f"full fine-tuning state: {key} missing from the checkpoint")
+            t = torch.from_numpy(np.asarray(inner[key]))
+            p.copy_(t.t() if path in self.transposed else t)
+
     def restore_checkpoint(self, path: str, reset_steps: bool = False) -> int:
         """The hypernet's parameters from ``path`` always; the optimizer
-        state, micro step and dropout generator too where ``path/resume``
-        exists and not ``reset_steps`` (``engine.py:877-923``). Returns the
+        state, micro step and dropout generator (and a fine-tuned backbone)
+        too where ``path/resume`` exists and not ``reset_steps``
+        (``engine.py:877-923``). Returns the
         micro step the run goes on from."""
         with np.load(os.path.join(path, "params.npz")) as z:
             params = {k: z[k] for k in z.files}
@@ -550,6 +671,7 @@ class Trainer:
                 arrays = {k: z[k] for k in z.files}
             self.state.dropout_generator.set_state(
                 torch.from_numpy(arrays.pop("dropout_generator")))
+            self._load_inner(arrays)
             self.optimizer.load_state(arrays, scalars)
             self.state.step = int(scalars["step"])
         return self.state.step
