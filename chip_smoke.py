@@ -92,7 +92,7 @@ Phases (any failure exits non-zero and prints no result):
  13. the trainer's levers through the training CLI at gpt2_en's widths on
      phase 7's text: (a) at LM batch 32 with dropout on (kernels 2 and 3 at
      rate 0.1), remat_hypernet, remat_backbone, the chunked loss and all
-     three against the plain run for 3 steps (losses, every hypernet
+     three against the plain run for 2 steps (cut from 3; losses, every hypernet
      gradient, kernel 2 and 3 launches), the plain run twice for the card's
      own gap; (b) a SIGTERM sent from the log callback at step 2 writes
      preempt_step_2, and resume_from_checkpoint continues it: steps 3-4
@@ -191,7 +191,28 @@ Phases (any failure exits non-zero and prints no result):
      perplexity CLI on the written model over 4 blocks, and the named
      refusal (ROADMAP C.16)
      on (b)'s final/; (f) configs/nshot/gpt2_passthrough_ft.json's named
-     refusal (ROADMAP C.11) before any step.
+     refusal (ROADMAP C.11) before any step;
+ 18. XLM-R base (xlm-roberta-base's published config.json, random f32
+     weights from a seed, a 250002-id Unigram-Metaspace tokenizer built from
+     the repo's artifact tokenizers' pieces and seeded pieces in the scripts
+     of 26l.txt, written while nvcc builds): (a) the byte-level
+     conversion's vocab, n_added_tokens and host seconds; (b) the MLM
+     logits at full depth card vs CPU (bf16 weights, f32, a padded row);
+     (c) the training CLI at configs/zeroshot/xlmr_26l.json (batch 128,
+     block 128, vocab sample 32768, loss mlm, learnable bias, 26 languages
+     of the repo's Markdown drawn by MADLAD size ^ 0.1; 1 identity and 3
+     train steps; eval at step 0 and 4 over the four extra_valid_tokenizers
+     and sampled tokenizers on XLMR_VALID held-out paragraphs a language,
+     n_valid_subsample cut from 4000): finite losses, eval_loss and
+     eval_accuracy rows, exact launches of kernels 1, 2 and 3, the masked
+     share, step ms, idle share, peak memory; then the run's first two
+     train batches through 2 steps at a 2-layer cut with loss_chunk_size 32
+     and remat_backbone against the plain steps (phase 13(a)'s tolerance);
+     (d) the transfer CLI from (c)'s final/ to roberta0001: 32773 rows, the
+     tied decoder, zero lm-head biases, bias.npy, the written model's
+     logits, the hypernet per 32k vocab, kernel 1's launches, idle share;
+     (e) mlm_probe on (d)'s model over held-out paragraphs, and at a
+     2-layer cut card vs CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -269,8 +290,9 @@ def step(title):
 
 
 # a timed loop stops once its calls pass this much device time: fast
-# kernels still get every call, slow plain versions one or three
-TIMING_BUDGET_MS = 250.0
+# kernels still get every call, slow plain versions one or three (cut from
+# 250 ms to make room for phase 18)
+TIMING_BUDGET_MS = 100.0
 
 
 def event_ms(fn):
@@ -1352,6 +1374,21 @@ def gemm_split(run, shapes, dtype, what, reps=5):
     return out
 
 
+def write_transfer_inputs(config, tag):
+    """Phase 4's (and 10's) seeded GPT-2-small-shaped source model in
+    WORK/gpt2 (the same weights for every ``tag``) and a seeded hypernet
+    checkpoint at ``config`` in WORK/``tag``. Returns (the source table,
+    the checkpoint's config)."""
+    from zett_tpu_torch.tokenization.core import Tokenizer
+
+    vocab = len(Tokenizer.from_file(
+        os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json")))
+    rng = np.random.default_rng(SEED)
+    wte = write_source_model(os.path.join(WORK, "gpt2"), vocab, rng)
+    cfg = write_checkpoint(os.path.join(WORK, tag), vocab, rng, config)
+    return wte, cfg
+
+
 def phase_transfer(config=GPT2_EN, tag="ckpt"):
     """Zero-shot transfer through the CLI at ``config`` (bf16 checkpoint,
     gpt_neox0001 target, batch 16384) from phase 4's seeded source model.
@@ -1361,15 +1398,13 @@ def phase_transfer(config=GPT2_EN, tag="ckpt"):
     from zett_tpu_torch.tokenization.core import Tokenizer
     from zett_tpu_torch.transfer.__main__ import main as transfer_main
 
-    rng = np.random.default_rng(SEED)
     source_tok = Tokenizer.from_file(
         os.path.join(REPO, "artifacts", "tokenizers", "gpt2_raw", "tokenizer.json"))
     vocab = len(source_tok)
     model_dir, ckpt, out = (os.path.join(WORK, d) for d in ("gpt2", tag, f"{tag}_out"))
     target_path = os.path.join(REPO, "artifacts", "tokenizers", "gpt_neox0001", "tokenizer.json")
     batch = 16384
-    wte = write_source_model(model_dir, vocab, rng)
-    cfg = write_checkpoint(ckpt, vocab, rng, config)
+    wte, cfg = PREPARED.pop(tag)[:2] if tag in PREPARED else write_transfer_inputs(config, tag)
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2263,8 +2298,9 @@ def phase_trainer_levers(model_dir):
         return trainer, history, counted
 
     # (a) each lever against the plain run, dropout on (kernels 2 and 3 at
-    # rate 0.1), 3 steps; the plain run twice for the card's own gap
-    steps = 3
+    # rate 0.1), 2 steps (cut from 3 for phase 18); the plain run twice for
+    # the card's own gap
+    steps = 2
     common = dict(batch_size=LEVER_BATCH, steps=steps, identity_steps=0,
                   run_backbone_in_training_mode=True)
     variants = {"plain": {}, "plain again": {}, "remat_hypernet": dict(remat_hypernet=True),
@@ -2725,7 +2761,8 @@ def phase_tinyllama_training(model_dir):
     memory or out of memory), then 4 steps (1 identity step) with the
     levers and in-training eval at step 0 and at the end on held-out text.
     Cut to make room for phase 17: 2 of the 6 steps (1 of the 2 identity
-    steps)."""
+    steps); for phase 18: final/ without the optimizer state (the transfer
+    reads the parameters; 13(b) and 17(c) resume from full states)."""
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.training import engine
     from zett_tpu_torch.training.__main__ import load_config_file, load_language_list
@@ -2744,8 +2781,8 @@ def phase_tinyllama_training(model_dir):
     tokenizers = [os.path.join(REPO, t) for t in config["extra_valid_tokenizers"]]
     reduced = dict(model_dir=model_dir, train_directory=train_dir, valid_directory=valid_dir,
                    output_dir=out, steps=steps, identity_steps=n_ident, warmup_steps=[1, 2],
-                   random_warmup_steps=0, logging_steps=1, save_steps=0, num_workers=0,
-                   prefetch_batches=0, eval_steps=steps, eval_at_step_zero=True,
+                   random_warmup_steps=0, logging_steps=1, save_steps=0, save_state=False,
+                   num_workers=0, prefetch_batches=0, eval_steps=steps, eval_at_step_zero=True,
                    langs=os.path.join(REPO, config["langs"]), extra_valid_tokenizers=tokenizers)
     config.update(reduced)
     log(f"  (d) langs {langs} (en: {n_en} training and {n_en_valid} held-out Markdown "
@@ -3832,18 +3869,554 @@ def phase_baselines(tinyllama_dir):
             "wall_s": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------- phase 18
+# xlm-roberta-base's published config.json (HF hub; named here, not fetched):
+# the weights are random, from a seed
+XLMR = dict(
+    model_type="xlm-roberta", architectures=["XLMRobertaForMaskedLM"], vocab_size=250002,
+    hidden_size=768, num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+    max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
+    bos_token_id=0, eos_token_id=2, hidden_act="gelu", hidden_dropout_prob=0.1,
+    attention_probs_dropout_prob=0.1, initializer_range=0.02,
+    position_embedding_type="absolute",
+)
+XLMR_RUN = os.path.join(REPO, "configs", "zeroshot", "xlmr_26l.json")
+XLMR_SPECIALS = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}  # and <mask> last, as XLM-R
+# code points of the scripts of 26l.txt's languages: Latin (with its
+# accented letters), Cyrillic, Greek, Hangul, Arabic (Arabic and Urdu),
+# Devanagari, Bengali, Tamil, Telugu
+XLMR_SCRIPTS = ((0x61, 0x7A), (0xE0, 0xFF), (0x430, 0x44F), (0x3B1, 0x3C9), (0xAC00, 0xD7A3),
+                (0x621, 0x64A), (0x915, 0x939), (0x995, 0x9B9), (0xB95, 0xBB9), (0xC15, 0xC39))
+
+
+def xlmr_tokenizer_json(n_vocab=250002, seed=SEED + 30):
+    """An XLM-R-shaped tokenizer.json with exactly ``n_vocab`` ids: a Unigram
+    model (<s> 0, <pad> 1, </s> 2, <unk> 3, <mask> last), a Metaspace
+    pre-tokenizer ("▁", prepend always), the normalizer Replace(" {2,}", " ")
+    (XLM-R's Precompiled charsmap exists in neither package), the
+    post-processor <s> $A </s> and the Metaspace decoder. Pieces: those of
+    the repo's artifact tokenizers decoded to metaspace text (spaces as
+    "▁"; pieces that are not whole UTF-8 characters left out), then seeded
+    synthetic pieces of 1-6 letters of one script each (with "▁" in front
+    half the time); scores decrease with the id. Standard library and numpy
+    only."""
+    import glob
+
+    from zett_tpu_torch.tokenization.bytemaps import CHARS_TO_BYTES
+
+    pieces = list(XLMR_SPECIALS)
+    seen = set(pieces) | {"<mask>"}
+    for path in sorted(glob.glob(os.path.join(REPO, "artifacts", "tokenizers", "*",
+                                              "tokenizer.json"))):
+        with open(path) as f:
+            model = json.load(f)["model"]
+        vocab = model["vocab"]
+        tokens = ([t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])]
+                  if isinstance(vocab, dict) else [t for t, _ in vocab])
+        for token in tokens:
+            try:
+                piece = bytes(CHARS_TO_BYTES[c] for c in token).decode("utf-8")
+            except (KeyError, UnicodeDecodeError):
+                continue
+            piece = piece.replace(" ", "▁")
+            if piece and piece not in seen and len(pieces) < n_vocab - 1:
+                pieces.append(piece)
+                seen.add(piece)
+    n_real = len(pieces) - len(XLMR_SPECIALS)
+    rng = np.random.default_rng(seed)
+    while len(pieces) < n_vocab - 1:
+        lo, hi = XLMR_SCRIPTS[int(rng.integers(len(XLMR_SCRIPTS)))]
+        n = int(rng.integers(1, 7))
+        piece = ("▁" if rng.random() < 0.5 else "") + "".join(
+            chr(int(c)) for c in rng.integers(lo, hi + 1, size=n))
+        if piece not in seen:
+            pieces.append(piece)
+            seen.add(piece)
+    pieces.append("<mask>")
+    vocab = [[p, 0.0] for p in pieces[:len(XLMR_SPECIALS)]]
+    vocab += [[p, -2.0 - 14.0 * i / n_vocab] for i, p in enumerate(pieces[len(XLMR_SPECIALS):-1])]
+    vocab.append(["<mask>", 0.0])
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}
+             for i, t in ((i, pieces[i]) for i in (0, 1, 2, 3, n_vocab - 1))]
+    meta = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}
+    data = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 1}}],
+            "special_tokens": {t: {"id": t, "ids": [XLMR_SPECIALS[t]], "tokens": [t]}
+                               for t in ("<s>", "</s>")}},
+        "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                    "split": True},
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+    }
+    return data, n_real
+XLMR_BATCH, XLMR_VOCAB_SAMPLE = 128, 32768  # the config's, kept
+XLMR_STEPS, XLMR_IDENT = 4, 1  # 1 identity step and 3 train steps
+XLMR_VALID = 32  # held-out paragraphs a language (n_valid_subsample, cut from 4000)
+XLMR_CUT = 2  # layers of (c)'s lever comparison and (e)'s card-vs-CPU probe
+XLMR_LEVERS = dict(remat_backbone=True, loss_chunk_size=32)
+XLMR_PROBE_TEXTS = 64  # held-out paragraphs (e) scores (32 of them at the cut, card vs CPU)
+XLMR_PROBE_BLOCK = 128
+ROBERTA0001 = os.path.join(REPO, "artifacts", "tokenizers", "roberta0001")
+
+
+def write_xlmr(path, seed=SEED + 31):
+    """The XLM-R directory: XLMR as config.json, seeded random weights
+    drawn on the card (tables and projections N(0, 0.02), LayerNorm scales 1
+    and biases 0, the lm-head bias 0) written as f32 model.safetensors (with
+    the decoder's bias and the position_ids buffer; the decoder's weight is
+    the word table's, left out as HF leaves out tied weights), and
+    ``xlmr_tokenizer_json``. Returns (the config, the state dict, the
+    tokenizer's pieces taken from the repo)."""
+    from zett_tpu_torch.models.backbones.hf_io import save_hf_model
+    from zett_tpu_torch.models.backbones.roberta import RobertaConfig, weight_keys
+
+    cfg = RobertaConfig.from_hf(XLMR)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tables = {"word_embeddings": V, "position_embeddings": cfg.max_position_embeddings,
+              "token_type_embeddings": cfg.type_vocab_size}
+    sd = {}
+    for key in weight_keys(cfg):
+        module, leaf = key.rsplit(".", 1)
+        width = (I if module.endswith("intermediate.dense") else
+                 V if key == "lm_head.bias" else H)
+        if "LayerNorm" in module or "layer_norm" in module or leaf == "bias":
+            sd[key] = torch.full((width,), 1.0 if leaf == "weight" else 0.0)
+            continue
+        name = module.split(".")[-1]
+        if name in tables:
+            shape = (tables[name], H)
+        elif module.endswith("intermediate.dense"):
+            shape = (I, H)
+        elif module.endswith(".output.dense") and ".attention." not in module:
+            shape = (H, I)
+        else:
+            shape = (H, H)
+        sd[key] = (0.02 * torch.randn(shape, generator=gen, device="cuda")).cpu()
+    sd["lm_head.decoder.bias"] = sd["lm_head.bias"]
+    sd["roberta.embeddings.position_ids"] = torch.arange(cfg.max_position_embeddings)[None]
+    save_hf_model(path, sd, XLMR)
+    data, n_real = xlmr_tokenizer_json(cfg.vocab_size)
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(data, f, ensure_ascii=False)
+    return cfg, sd, n_real
+
+
+def xlmr_cut_state(sd, n_layers):
+    """``sd`` without the layers from ``n_layers`` on."""
+    return {k: v for k, v in sd.items()
+            if not k.startswith("roberta.encoder.layer.") or int(k.split(".")[3]) < n_layers}
+
+
+def write_language_text(train_dir, valid_dir, langs):
+    """<lang>.txt for each of ``langs``: phase 7's Markdown paragraphs, every
+    8th held out into ``valid_dir`` (the same text in every language).
+    Returns (training, held-out) paragraph counts."""
+    n_train, n_held = write_training_text(train_dir, valid_dir, hold_out_every=8)
+    for lang in langs:
+        if lang != "en":
+            for d in (train_dir, valid_dir):
+                shutil.copy(os.path.join(d, "en.txt"), os.path.join(d, f"{lang}.txt"))
+    return n_train, n_held
+
+
+def phase_xlmr():
+    """XLM-R base through the MLM path: (a) the model directory and its
+    tokenizer's byte-level conversion; (b) the backbone card vs CPU; (c)
+    the training CLI at configs/zeroshot/xlmr_26l.json and the levers at a
+    2-layer cut; (d) the transfer CLI to roberta0001 from (c)'s final/; (e)
+    mlm_probe on (d)'s model."""
+    from zett_tpu_torch.models.backbones.roberta import RobertaForMaskedLM
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(WORK, "xlmr")
+    cfg, sd, n_real, written_s = PREPARED.pop("xlmr")
+    n_params = sum(t.numel() for k, t in sd.items()
+                   if k not in ("lm_head.decoder.bias", "roberta.embeddings.position_ids"))
+    t0 = time.perf_counter()
+    source = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    converted, n_added = convert_to_byte_level(source)
+    convert_s = time.perf_counter() - t0
+    log(f"  (a) wrote xlm-roberta-base's published config ({n_params} parameters, f32, "
+        f"{os.path.getsize(os.path.join(model_dir, 'model.safetensors')) / 2**30:.3f} GiB) and a "
+        f"{len(source)}-id Unigram-Metaspace tokenizer ({n_real} pieces from the repo's "
+        f"tokenizers, the rest synthetic) in {written_s:.3f} s, while the kernels built; "
+        f"loading the tokenizer {load_s:.3f} s; the byte-level conversion: {len(converted)} "
+        f"tokens, n_added_tokens {n_added}, {convert_s:.3f} s on the host; the hypernet's "
+        f"vocab_size {len(converted) + 256}")
+    if len(source) != cfg.vocab_size or source.token_to_id("<mask>") != cfg.vocab_size - 1 \
+            or converted.token_to_id("<mask>") is None:
+        raise AssertionError(f"tokenizer: {len(source)} ids, <mask> at "
+                             f"{source.token_to_id('<mask>')}")
+
+    step("(b) the backbone card vs CPU")
+    # the frozen backbone's bf16 weights, computed in f32 on both sides
+    held = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v) for k, v in sd.items()}
+    rng = np.random.default_rng(SEED + 32)
+    ids = torch.from_numpy(rng.integers(4, cfg.vocab_size - 1, size=(2, 64)))
+    ids[:, 0] = 0
+    mask = torch.ones(2, 64, dtype=torch.long)
+    ids[1, 47], ids[1, 48:], mask[1, 48:] = 2, cfg.pad_token_id, 0
+    with torch.no_grad():
+        ref = RobertaForMaskedLM(cfg, held, torch.float32).mlm_logits(ids, mask)
+        card = RobertaForMaskedLM(cfg, held, torch.float32).cuda()
+        got = card.mlm_logits(ids.cuda(), mask.cuda()).cpu()
+        del card
+    gc_free()
+    valid = mask.bool()
+    err = float((got - ref).abs()[valid].max())
+    scale = float(ref.abs()[valid].max())
+    log(f"  (b) XLM-R MLM logits (2, 64, {cfg.vocab_size}) at full depth, bf16 weights, f32, "
+        f"a padded row: card vs CPU max abs {err:.3g} at logit scale {scale:.3g} (tol 1e-4 x "
+        f"scale)")
+    if not bool(torch.isfinite(got).all()) or err > 1e-4 * scale:
+        raise AssertionError(f"the RoBERTa backbone differs on the card: {err}")
+    del ref, got, held
+
+    step("(c) the training CLI at xlmr_26l.json")
+    train = phase_xlmr_training(model_dir, sd)
+    step("(d) the transfer CLI to roberta0001")
+    transfer = phase_xlmr_transfer(model_dir, train["final"])
+    step("(e) mlm_probe on the transferred model")
+    probe = phase_xlmr_probe(transfer["out"], train["held_out"])
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 18: {wall:.3f} s wall")
+    return dict(train=train, transfer=transfer, probe=probe, wall=wall)
+
+
+def phase_xlmr_training(model_dir, sd):
+    """(c) python -m zett_tpu_torch.training at configs/zeroshot/xlmr_26l.json
+    through its ``main``: batch 128, block 128, vocab sample 32768 and every
+    width kept; 26 languages of the repo's Markdown drawn by corpus size
+    (the MADLAD metadata at alpha 0.1); 1 identity step and 3 train steps,
+    eval at step 0 and at the last step over the four extra_valid_tokenizers
+    and sampled validation tokenizers on held-out paragraphs
+    (n_valid_subsample cut to XLMR_VALID), final/ without the optimizer
+    state (the transfer reads the parameters). Then the levers: the run's first
+    two train batches through two steps of a Trainer at a 2-layer cut of the
+    backbone, with loss_chunk_size 32 and remat_backbone and without."""
+    from zett_tpu_torch.data.datasets import (language_probs_from_sizes,
+                                              language_sizes_from_metadata)
+    from zett_tpu_torch.models.backbones.roberta import RobertaConfig
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.training import engine
+    from zett_tpu_torch.training.__main__ import load_config_file, load_language_list
+    from zett_tpu_torch.training.__main__ import main as train_main
+
+    config = load_config_file(XLMR_RUN)
+    langs, _ = load_language_list(os.path.join(REPO, config["langs"]))
+    csv = os.path.join(REPO, config["language_metadata_csv"])
+    probs = language_probs_from_sizes(language_sizes_from_metadata(langs, csv),
+                                      config["language_sampling_alpha"])
+    if config["batch_size"] != XLMR_BATCH or config["tokenizer_sample_max"] != \
+            XLMR_VOCAB_SAMPLE or config["loss"] != "mlm" or not config["learnable_bias"]:
+        raise AssertionError("the xlmr_26l config changed")
+    train_dir, valid_dir = os.path.join(WORK, "xlmr_train"), os.path.join(WORK, "xlmr_valid")
+    n_train, n_held = write_language_text(train_dir, valid_dir, langs)
+    out = os.path.join(WORK, "xlmr_out")
+    shutil.rmtree(out, ignore_errors=True)
+    steps, n_ident = XLMR_STEPS, XLMR_IDENT
+    tokenizers = [os.path.join(REPO, t) for t in config["extra_valid_tokenizers"]]
+    reduced = dict(model_dir=model_dir, train_directory=train_dir, valid_directory=valid_dir,
+                   output_dir=out, steps=steps, identity_steps=n_ident, warmup_steps=[1, 2],
+                   random_warmup_steps=0, logging_steps=1, save_steps=0, save_state=False,
+                   num_workers=0, prefetch_batches=0, eval_steps=steps, eval_at_step_zero=True,
+                   n_valid_subsample=XLMR_VALID, langs=os.path.join(REPO, config["langs"]),
+                   language_metadata_csv=csv, extra_valid_tokenizers=tokenizers)
+    config.update(reduced)
+    log(f"  (c) {len(langs)} languages, each {n_train} training and {n_held} held-out "
+        f"paragraphs of the repo's Markdown, drawn with probabilities (MADLAD n_pages ^ "
+        f"{config['language_sampling_alpha']}) " + ", ".join(
+            f"{lang} {p:.4f}" for lang, p in zip(langs, probs)))
+    shown = {k: v for k, v in reduced.items()
+             if k not in ("extra_valid_tokenizers", "langs", "language_metadata_csv")}
+    log(f"  (c) batch {config['batch_size']}, block {config['block_size']}, vocab sample "
+        f"{config['tokenizer_sample_max']}; overrides {shown}")
+    config_path = os.path.join(WORK, "xlmr_smoke.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+
+    passes, batches = [0], []
+    orig_embed, orig_step = engine.Trainer.compute_embeddings, engine.Trainer._train_step
+
+    def counted_embed(self, b):
+        passes[0] += 1
+        return orig_embed(self, b)
+
+    def kept_step(self, b):
+        if len(batches) < 2:
+            batches.append(b)
+        return orig_step(self, b)
+
+    engine.Trainer.compute_embeddings, engine.Trainer._train_step = counted_embed, kept_step
+    gc_free()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer, history = train_main([config_path])
+    finally:
+        engine.Trainer.compute_embeddings, engine.Trainer._train_step = orig_embed, orig_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    n_layers = trainer.hn_config.num_hidden_layers
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    eval_rows = [r for r in rows if any(k.startswith("eval") for k in r)]
+    train_rows = [r for r in rows if r not in eval_rows]
+    losses = [r.get("loss", r.get("identity_loss")) for r in train_rows]
+    log(f"  (c) {steps} steps ({n_ident} identity) in {wall:.3f} s wall (loading, the "
+        f"conversion, samplers and evals included); logged losses "
+        f"{['%.4f' % x for x in losses]}")
+    if len(train_rows) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad training rows {train_rows}")
+    names = [f"eval_{os.path.basename(t)}" for t in tokenizers] + ["eval"]
+    if [r.get("step", 0) for r in eval_rows] != [0, steps]:
+        raise AssertionError(f"eval rows at steps {[r.get('step') for r in eval_rows]}")
+    for r in eval_rows:
+        for name in names:
+            for metric in ("eval_loss", "eval_accuracy"):
+                v = r.get(f"{name}/{metric}")
+                if v is None or not math.isfinite(v):
+                    raise AssertionError(f"eval row {r.get('step', 0)}: {name}/{metric} = {v}")
+        log(f"  (c) eval at step {r.get('step', 0)} (labels unmasked, ROADMAP C.19): " + ", ".join(
+            f"{n} loss {r[n + '/eval_loss']:.4f} accuracy {r[n + '/eval_accuracy']:.4f}"
+            for n in names))
+    expected = dict.fromkeys(_build.launch_counts, 0)
+    expected["attention_core"] = steps * n_layers + passes[0]
+    expected["attention_core_bwd"] = steps * n_layers
+    expected["encoder_layer"] = passes[0] * (n_layers - 1)
+    log(f"  (c) launches {launches} (expected {expected}: kernels 2 and 3 {n_layers} times a "
+        f"step, kernel 1 {n_layers - 1} times and kernel 2 once an eval pass; "
+        f"{passes[0]} eval embedding passes)")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+
+    # the masked share of the last train batch's non-special labels
+    batch = trainer.last_train_batch
+    labels, ids = np.asarray(batch["labels"]), np.asarray(batch["input_ids"])
+    picked = labels != -100
+    original = np.where(picked, labels, ids)
+    special = np.isin(original, np.asarray(batch["special_indices"]))
+    attended = np.asarray(batch["attention_mask"]) == 1
+    share = picked.sum() / (attended & ~special).sum()
+    log(f"  (c) the last train batch ({batch['lang_code']}): {int(picked.sum())} masked of "
+        f"{int((attended & ~special).sum())} non-special attended positions, share "
+        f"{share:.4f} (expected near 0.15)")
+    if not 0.13 < share < 0.17 or (picked & ~attended).any():
+        raise AssertionError(f"masked share {share}")
+
+    recs = trainer.records
+    train_ms = [r["device_ms"] for r in recs if r["kind"] == "train"][1:]
+    ident_ms = [r["device_ms"] for r in recs if r["kind"] == "identity"]
+    trainer.train_step(batch)  # warm the exact shapes, outside the counted run
+    busy, _, _ = device_breakdown(lambda: trainer.train_step(batch), top=10)
+    step_ms = float(np.median(train_ms))
+    idle = None if busy is None else 1 - busy / step_ms
+    log(f"  (c) on {CARD}: train step {step_ms:.3f} ms (CUDA events, median of "
+        f"{['%.3f' % x for x in train_ms]}); identity step {['%.3f' % x for x in ident_ms]} ms; "
+        f"idle share of a train step "
+        f"{'not measured' if idle is None else f'{idle:.3f}'} (1 - traced device busy / step "
+        f"span); peak memory {peak_gb:.2f} GiB")
+    hn_config, train_cfg = trainer.hn_config, trainer.cfg
+    del trainer, batch
+    gc_free()
+
+    # the levers at a 2-layer cut on the run's first two train batches
+    cut_cfg = dataclasses.replace(RobertaConfig.from_hf(XLMR), num_hidden_layers=XLMR_CUT)
+    cut_sd = xlmr_cut_state(sd, XLMR_CUT)
+    results = {}
+    for name, levers in (("plain", {}), ("levers", XLMR_LEVERS)):
+        cfg = dataclasses.replace(train_cfg, steps=2, identity_steps=0, **levers)
+        tr = engine.Trainer(hn_config=hn_config, backbone_config=cut_cfg, backbone_state=cut_sd,
+                            model_type="xlm-roberta", train_config=cfg, device="cuda",
+                            hn_pad_token_id=hn_config.pad_token_id)
+        torch.cuda.reset_peak_memory_stats()
+        results[name] = ([tr._train_step(b)["loss"] for b in batches],
+                         torch.cuda.max_memory_allocated() / 2**30)
+        del tr
+        gc_free()
+    ref = results["plain"][0]
+    dl = loss_gap(results["levers"][0], ref)
+    # phase 13(a)'s limit for the chunked loss (its plain runs repeat bit for
+    # bit on the card, so the card's own gap adds nothing to it)
+    tol = LEVER_LOSS_TOL
+    log(f"  (c) at {XLMR_CUT} layers, the run's first two train batches: plain losses "
+        f"{['%.6f' % x for x in ref]} (peak {results['plain'][1]:.2f} GiB); with {XLMR_LEVERS} "
+        f"{['%.6f' % x for x in results['levers'][0]]} (peak {results['levers'][1]:.2f} GiB): "
+        f"largest loss difference {dl:.3e} (limit {tol:.3e}, phase 13(a)'s), relative")
+    if dl > tol or not all(math.isfinite(x) for x in results["levers"][0]):
+        raise AssertionError("the levers differ from the plain run under MLM")
+    del batches
+    gc_free()
+    held = [line.rstrip("\n") for line in open(os.path.join(valid_dir, "en.txt")) if line.strip()]
+    return dict(launches=launches, step_ms=step_ms, idle=idle, peak_gb=peak_gb, wall=wall,
+                share=share, final=os.path.join(out, "final"), held_out=held)
+
+
+def phase_xlmr_transfer(model_dir, checkpoint):
+    """(d) python -m zett_tpu_torch.transfer from (c)'s final/ to roberta0001
+    (32773 tokens): the rows, the tied decoder, both lm-head biases zero,
+    bias.npy, the written model's logits through the port's
+    RobertaForMaskedLM; the hypernet per 32k vocab over the CLI's own
+    batches, kernel 1's launches, the idle share."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.models.backbones.roberta import RobertaConfig, RobertaForMaskedLM
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    out = os.path.join(WORK, "xlmr_roberta0001")
+    batch = 16384
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with captured_transfer() as captured:
+        transfer_main(["--checkpoint", checkpoint, "--model", model_dir,
+                       "--target-tokenizer", ROBERTA0001, "--output", out,
+                       "--batch-size", str(batch), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+
+    target = Tokenizer.from_file(os.path.join(out, "tokenizer.json"))
+    with open(os.path.join(out, "config.json")) as f:
+        written = json.load(f)
+    sd = load_hf_state_dict(out)
+    table = sd["roberta.embeddings.word_embeddings.weight"]
+    n, width = len(target), XLMR["hidden_size"]
+    bias_npy = np.load(os.path.join(out, "bias.npy"))
+    log(f"  (d) transfer to roberta0001: {n} tokens in {wall:.3f} s wall; word_embeddings "
+        f"{tuple(table.shape)}, config vocab_size {written['vocab_size']}; decoder equal to "
+        f"the table {torch.equal(sd['lm_head.decoder.weight'], table)}; lm_head.bias and "
+        f"lm_head.decoder.bias zero {not sd['lm_head.bias'].any()} "
+        f"{not sd['lm_head.decoder.bias'].any()}; bias.npy {bias_npy.shape}, finite "
+        f"{bool(np.isfinite(bias_npy).all())}")
+    if n != 32773 or table.shape != (n, width) or written["vocab_size"] != n \
+            or not torch.equal(sd["lm_head.decoder.weight"], table) \
+            or sd["lm_head.bias"].any() or sd["lm_head.decoder.bias"].any() \
+            or bias_npy.shape != (n,) or not bool(torch.isfinite(table).all()):
+        raise AssertionError("the transferred XLM-R is not as the JAX CLI writes it")
+    with open(os.path.join(checkpoint, "hn_config.json")) as f:
+        n_layers = json.load(f)["num_hidden_layers"]
+    n_batches = -(-n // batch)
+    expected = dict.fromkeys(_build.launch_counts, 0)
+    expected["encoder_layer"] = n_batches * (n_layers - 1)
+    expected["attention_core"] = n_batches
+    log(f"  (d) launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+
+    cfg = RobertaConfig.from_hf(written)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 33).integers(4, n, size=(2, 64))).cuda()
+    with torch.no_grad():
+        model = RobertaForMaskedLM(cfg, sd, torch.bfloat16).cuda()
+        logits = model.mlm_logits(ids, torch.ones_like(ids))
+    if logits.shape != (2, 64, n) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"the written model's logits: {tuple(logits.shape)}")
+    log(f"  (d) the written model loads through the port's RobertaForMaskedLM (bf16): logits "
+        f"{tuple(logits.shape)}, finite, max |logit| {float(logits.float().abs().max()):.4g}")
+    del model, sd, logits
+    gc_free()
+
+    run, ms, times, n_vocab, shapes = timed_passes(captured, 5)
+    log(f"  (d) on {CARD}: hypernet median of 5 passes {ms:.3f} ms (min {min(times):.3f}, max "
+        f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
+        f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
+    busy, pass_wall, _ = device_breakdown(run, top=6)
+    del run, captured
+    gc_free()
+    return dict(launches=launches, wall=wall, ms_per_32k=ms * 32768 / n_vocab, out=out,
+                idle=None if busy is None else 1 - busy / pass_wall)
+
+
+def phase_xlmr_probe(model_dir, held_out):
+    """(e) mlm_probe on (d)'s model (f32) under its tokenizer (roberta0001,
+    converted) over XLMR_PROBE_TEXTS held-out paragraphs; then at a 2-layer
+    cut, card vs CPU on half of them."""
+    from zett_tpu_torch.evaluation import mlm_probe
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.models.backbones.roberta import RobertaConfig, RobertaForMaskedLM
+    from zett_tpu_torch.tokenization.core import Tokenizer
+
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = RobertaConfig.from_hf(json.load(f))
+    sd = load_hf_state_dict(model_dir)
+    tok = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    texts = held_out[:XLMR_PROBE_TEXTS]
+    with torch.no_grad():
+        model = RobertaForMaskedLM(cfg, sd, torch.float32).cuda()
+    t0 = time.perf_counter()
+    full = mlm_probe(model, tok, texts, block_size=XLMR_PROBE_BLOCK, batch_size=8, seed=SEED)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    del model
+    gc_free()
+    log(f"  (e) mlm_probe at full depth (f32) over {len(texts)} held-out paragraphs, block "
+        f"{XLMR_PROBE_BLOCK}: "
+        f"mlm_loss {full['mlm_loss']:.4f}, mlm_accuracy {full['mlm_accuracy']:.4f}, n_masked "
+        f"{full['n_masked']:.0f} in {probe_s:.3f} s")
+    if not (math.isfinite(full["mlm_loss"]) and full["n_masked"] > 0):
+        raise AssertionError(f"mlm_probe: {full}")
+
+    cut = dataclasses.replace(cfg, num_hidden_layers=XLMR_CUT)
+    cut_sd = xlmr_cut_state(sd, XLMR_CUT)
+    half = texts[:max(1, len(texts) // 2)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            model = RobertaForMaskedLM(cut, cut_sd, torch.float32).to(dev)
+        got[dev] = mlm_probe(model, tok, half, block_size=XLMR_PROBE_BLOCK, batch_size=8,
+                             seed=SEED)
+        del model
+    gc_free()
+    a, b = got["cuda"], got["cpu"]
+    rel = abs(a["mlm_loss"] - b["mlm_loss"]) / abs(b["mlm_loss"])
+    log(f"  (e) at {XLMR_CUT} layers over {len(half)} paragraphs, card vs CPU (f32): mlm_loss "
+        f"{a['mlm_loss']:.6f} vs {b['mlm_loss']:.6f} (relative {rel:.3g}, tol 1e-5), accuracy "
+        f"{a['mlm_accuracy']:.6f} vs {b['mlm_accuracy']:.6f}, n_masked {a['n_masked']:.0f} vs "
+        f"{b['n_masked']:.0f}")
+    if rel > 1e-5 or a["n_masked"] != b["n_masked"] or a["mlm_accuracy"] != b["mlm_accuracy"]:
+        raise AssertionError("mlm_probe differs on the card")
+    return dict(full=full, probe_s=probe_s, cut=got)
+
+
 PREPARED = {}  # prepare_inputs' entries, each taken by its phase
 
 
 def prepare_inputs():
     """The inputs of later phases that no port kernel makes, written while
     nvcc builds the kernels (one nvcc process holds the build up for its
-    last half, the card idles): phase 12's synthetic pretokens, phase 14's
+    last half, the card idles): phases 4 and 10's source model and
+    checkpoints, phase 12's synthetic pretokens, phase 14's
     TinyLlama and its 2-layer cut, phase 15's Mistral and its seeded
-    en_code hypernet checkpoint. Each PREPARED entry holds its seconds."""
+    en_code hypernet checkpoint, phase 18's XLM-R and its 250002-id
+    tokenizer. Each PREPARED entry holds its seconds."""
     from zett_tpu_torch.tokenization.convert import convert_to_byte_level
     from zett_tpu_torch.tokenization.core import Tokenizer
 
+    for config, tag in ((GPT2_EN, "ckpt"), (PITA, "pita_ckpt")):
+        t0 = time.perf_counter()
+        PREPARED[tag] = (*write_transfer_inputs(config, tag), time.perf_counter() - t0)
     t0 = time.perf_counter()
     _, pieces, _ = neox_vocab()
     PREPARED["pretokens"] = (
@@ -3866,6 +4439,9 @@ def prepare_inputs():
     cfg = write_mistral_checkpoint(os.path.join(WORK, "mistral_ckpt"), "en_code", flat,
                                    hn_tokenizer)
     PREPARED["mistral_ckpt"] = (cfg, time.perf_counter() - t0)
+    del flat
+    t0 = time.perf_counter()
+    PREPARED["xlmr"] = (*write_xlmr(os.path.join(WORK, "xlmr")), time.perf_counter() - t0)
 
 
 def main():
@@ -3959,6 +4535,9 @@ def main():
         phase("phase 17: the n-shot and baseline path on TinyLlama: the baselines CLI, "
               "passthrough tables with full fine-tuning through the training CLI")
         baselines = phase_baselines(os.path.join(WORK, "tinyllama"))
+        phase("phase 18: XLM-R base (random weights at its published config) through MLM "
+              "training at xlmr_26l, transfer to roberta0001 and mlm_probe")
+        xlmr = phase_xlmr()
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -3991,10 +4570,10 @@ def main():
     off_path = OFF_PATH + ("attention_core_bwd_h32",)
     rows = []
     for name, (source, replaces) in sources.items():
-        # launches: the main paths' runs, transfer (phases 4 and 10),
-        # training (phases 7, 11 and 13) and the prior pipeline (phase 12)
-        # at head width 64; TinyLlama's training and transfer (phase 14) at
-        # 128
+        # launches: the main paths' runs, transfer (phases 4, 10 and
+        # 18(d)), training (phases 7, 11, 13 and 18(c)) and the prior
+        # pipeline (phase 12) at head width 64; TinyLlama's training and
+        # transfer (phase 14) at 128
         if name.endswith("_d128"):
             n = sum(run.get(name[:-len("_d128")], 0) for run in llama_runs)
         elif name.endswith("_h32"):
@@ -4002,7 +4581,9 @@ def main():
         else:
             n = sum(run.get(name, 0) for run in (transfer_launches, train_launches,
                                                   pita_launches, eval_launches, lever_launches,
-                                                  {"viterbi_spans_dp": prior_launches}))
+                                                  {"viterbi_spans_dp": prior_launches},
+                                                  xlmr["train"]["launches"],
+                                                  xlmr["transfer"]["launches"]))
         if n == 0 and name not in off_path:
             log(f"{name} never launched on the main paths")
             return 1
@@ -4025,7 +4606,12 @@ def main():
         f"eval_source_encode_mb_per_s {evals['a']['encode_mb'] / evals['a']['encode_s']:.4f} "
         f"baseline_ft_step_ms {baselines['step_ms']:.3f} baseline_ft_peak_gib "
         f"{baselines['peak_gib']:.2f} baseline_ft_levers {sorted(baselines['levers'])} "
-        f"phase17_wall_s {baselines['wall_s']:.3f}")
+        f"phase17_wall_s {baselines['wall_s']:.3f} "
+        f"xlmr_train_step_ms {xlmr['train']['step_ms']:.3f} xlmr_train_peak_gib "
+        f"{xlmr['train']['peak_gb']:.2f} xlmr_masked_share {xlmr['train']['share']:.4f} "
+        f"xlmr_transfer_wall_s {xlmr['transfer']['wall']:.3f} xlmr_hypernet_ms_per_32k "
+        f"{xlmr['transfer']['ms_per_32k']:.3f} xlmr_mlm_loss "
+        f"{xlmr['probe']['full']['mlm_loss']:.4f} phase18_wall_s {xlmr['wall']:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -87,9 +87,12 @@ def test_lm_loss_matches_jax():
     got = lm_loss(torch.from_numpy(logits), torch.from_numpy(labels).long(),
                   torch.from_numpy(mask), "clm")
     _close(got, want, 1e-6)
-    with pytest.raises(NotImplementedError):
-        lm_loss(torch.from_numpy(logits), torch.from_numpy(labels).long(),
-                torch.from_numpy(mask), "mlm")
+    # the MLM loss: labelled (not -100) and attended positions, no shift
+    labels[rng.random((3, 9)) > 0.3] = -100
+    want = jax_lm_loss(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask), "mlm")
+    got = lm_loss(torch.from_numpy(logits), torch.from_numpy(labels).long(),
+                  torch.from_numpy(mask), "mlm")
+    _close(got, want, 1e-6)
 
 
 @pytest.mark.parametrize("kw", [

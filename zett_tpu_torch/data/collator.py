@@ -7,9 +7,10 @@ texts, tokenize the texts with it, subsample the vocabulary (positives +
 random negatives, preserving special-token indices), and emit the
 hypernet's inputs: target_surface_forms, target_priors, mask, ids_to_embed,
 special indices, byte_lengths plus the LM's input_ids/attention_mask/labels.
-Texts are encoded by the native fast path (``fast_encode.py``) where the
-tokenizer is canonical byte-level, else by ``Tokenizer.encode_batch``, as
-in the JAX Collator.
+An MLM run's masker (``inner_collator``) rewrites the ids and makes the
+labels before the vocab is subsampled. Texts are encoded by the native fast
+path (``fast_encode.py``) where the tokenizer is canonical byte-level, else
+by ``Tokenizer.encode_batch``, as in the JAX Collator.
 """
 
 from __future__ import annotations
@@ -107,6 +108,7 @@ class Collator:
         fixed_tokenizer: Optional[Tokenizer] = None,
         initial_texts: Optional[Dict[str, List[str]]] = None,
         lang_code: Optional[str] = None,
+        inner_collator=None,
         is_validation: bool = False,
         seed: Optional[int] = None,
     ):
@@ -115,6 +117,9 @@ class Collator:
         self.cfg = data_config
         self.batch_size = batch_size
         self.lang_code = lang_code
+        # the masker of an MLM run (``data/mlm.py``; collator.py:115): it
+        # rewrites the ids and makes the labels
+        self.inner_collator = inner_collator
         # a validation collator samples tokenizers without feeding the
         # sampler's pool (collator.py:214)
         self.is_validation = is_validation
@@ -130,6 +135,7 @@ class Collator:
         # piece -> hn surface ids, persisted across batches (sampled vocabs
         # repeat pieces heavily, so each distinct piece tokenizes once)
         self._surface_cache: Dict[str, tuple] = {}
+        self._fixed_fast = None  # (the fixed tokenizer's fast encoder or None,)
 
         if (fixed_tokenizer is None) != data_config.do_tokenizer_sampling:
             raise ValueError("a fixed tokenizer is given exactly when sampling is off")
@@ -190,6 +196,16 @@ class Collator:
                 self.samplers[lang] = pools
 
     # ------------------------------------------------------------------ utils
+    def _fast_encoder(self, tokenizer: Tokenizer):
+        """The native fast encoder of ``tokenizer`` (or None): built once for
+        the fixed tokenizer, which encodes every batch (a BPE's merge table
+        takes a fifth of a second to build), and anew for each sampled one."""
+        if tokenizer is not getattr(self, "tokenizer", None):
+            return fast_encoder_or_none(tokenizer)
+        if self._fixed_fast is None:
+            self._fixed_fast = (fast_encoder_or_none(tokenizer),)
+        return self._fixed_fast[0]
+
     def _sample_span(self, text: str) -> str:
         max_length = MAX_CHARS_PER_TOKEN * self.cfg.block_size
         if self.cfg.sample_text_span:
@@ -261,7 +277,7 @@ class Collator:
             pad_token = tokenizer.all_special_tokens[0]
         pad_id = tokenizer.token_to_id(pad_token) if pad_token else 0
 
-        fast = fast_encoder_or_none(tokenizer)
+        fast = self._fast_encoder(tokenizer)
         if fast is not None:
             input_ids, attention_mask = fast.encode_batch(
                 texts, add_special_tokens=True, max_length=cfg.block_size, pad_id=pad_id
@@ -284,7 +300,12 @@ class Collator:
             "input_ids": input_ids,
             "attention_mask": attention_mask,
         }
-        encodings["labels"] = input_ids.copy()
+        # after the special-id remap, before the vocab: the positives below
+        # come from the masked ids (collator.py:284-287)
+        if self.inner_collator is not None:
+            encodings.update(self.inner_collator(tokenizer, input_ids))
+        else:
+            encodings["labels"] = input_ids.copy()
 
         input_ids = encodings["input_ids"]
         special_ids = np.array(tokenizer.all_special_ids, dtype=np.int64)
@@ -391,9 +412,22 @@ class Collator:
         )
         return encodings
 
+    def inner_seed(self, batch: int) -> List[int]:
+        """The masker's seed for batch ``batch``: (the Collator's seed, the
+        batch counter, 1, and the DataLoader worker's id + 1 inside a
+        worker, else 0), so that workers forked from one Collator draw
+        different masks (ROADMAP C.18; the JAX CLI's masker is unseeded)."""
+        from torch.utils.data import get_worker_info
+
+        info = get_worker_info()
+        return [self._seed, batch, 1, 0 if info is None else info.id + 1]
+
     # --------------------------------------------------------------- __call__
     def __call__(self, data, for_identity_step: bool = False) -> Dict[str, np.ndarray]:
         self.rng = np.random.default_rng([self._seed, self._batch_counter])
+        reseed = getattr(self.inner_collator, "reseed", None)
+        if reseed is not None:
+            reseed(self.inner_seed(self._batch_counter))
         self._batch_counter += 1
         if for_identity_step:
             indices = self.rng.choice(

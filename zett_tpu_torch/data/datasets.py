@@ -1,6 +1,8 @@
 """Text streams (counterpart of ``zett_tpu/data/datasets.py``): per-language
 infinite packed streams, single-language (or mixed) training batches, and
-the deterministic validation batches.
+the deterministic validation batches, and the language list with its
+sampling probabilities (explicit weights, or corpus sizes from a metadata
+CSV raised to ``language_sampling_alpha``).
 
 Sources are ``<lang>.txt`` files (one text per line) under a training
 directory, or in-memory ``texts_by_lang``. The JAX package also reads HF
@@ -200,3 +202,42 @@ class ValidDataset(Dataset):
         texts = self.dataset[lang][start:start + self.batch_size]
         texts = texts + [""] * (self.batch_size - len(texts))
         return {"texts": texts, "lang_code": lang}
+
+
+# ------------------------------------------------------- language weighting
+def language_probs_from_sizes(sizes: Sequence[float], alpha: float = 0.3) -> np.ndarray:
+    """Sampling probabilities proportional to corpus_size ** alpha
+    (``datasets.py:312``)."""
+    p = np.asarray(sizes, dtype=np.float64) ** alpha
+    return p / p.sum()
+
+
+def load_language_list(path: str) -> Tuple[List[str], Optional[np.ndarray]]:
+    """One code per line, or "code,weight" lines whose weights become the
+    (normalized) sampling probabilities (``datasets.py:319``)."""
+    with open(path) as f:
+        rows = [line.strip() for line in f if line.strip()]
+    if rows and "," in rows[0]:
+        langs = [r.split(",")[0].strip() for r in rows]
+        weights = np.asarray([float(r.split(",")[1]) for r in rows])
+        return langs, weights / weights.sum()
+    return rows, None
+
+
+def language_sizes_from_metadata(langs: Sequence[str], csv_path: str,
+                                 size_column: str = "n_pages") -> np.ndarray:
+    """Per-language corpus sizes from a metadata CSV with a header row that
+    names ``lang_code`` and ``size_column`` (MADLAD-400's table,
+    ``datasets.py:333``); a language missing from it raises ``KeyError``."""
+    with open(csv_path) as f:
+        header = f.readline().strip().split(",")
+        key_i, size_i = header.index("lang_code"), header.index(size_column)
+        table = {}
+        for line in f:
+            cells = line.strip().split(",")
+            if len(cells) > max(key_i, size_i):
+                table[cells[key_i]] = float(cells[size_i])
+    missing = [lang for lang in langs if lang not in table]
+    if missing:
+        raise KeyError(f"languages missing from {csv_path}: {missing}")
+    return np.asarray([table[lang] for lang in langs])

@@ -28,10 +28,15 @@ _CODES = {v: k for k, v in _DTYPES.items()}
 
 
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The file's tensors. They are views of one buffer that holds the data
+    as read (a tensor whose start is not a multiple of its element size is
+    copied out)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        f.readinto(data)
+    raw = torch.frombuffer(data, dtype=torch.uint8) if data else None
     out: Dict[str, torch.Tensor] = {}
     for name, info in header.items():
         if name == "__metadata__":
@@ -44,8 +49,10 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
         if end == begin:
             out[name] = torch.empty(shape, dtype=dtype)
             continue
-        flat = torch.frombuffer(data, dtype=torch.uint8, count=end - begin, offset=begin)
-        out[name] = flat.clone().view(dtype).reshape(shape)
+        flat = raw[begin:end]
+        if begin % dtype.itemsize:
+            flat = flat.clone()
+        out[name] = flat.view(dtype).reshape(shape)
     return out
 
 
@@ -57,7 +64,7 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
         t = tensors[name].detach().cpu().contiguous()
         if t.dtype not in _CODES:
             raise ValueError(f"tensor {name} has unsupported dtype {t.dtype}")
-        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        blob = t.reshape(-1).view(torch.uint8).numpy()  # written from its memory
         header[name] = {
             "dtype": _CODES[t.dtype],
             "shape": list(t.shape),

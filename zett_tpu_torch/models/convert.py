@@ -20,9 +20,15 @@ import torch
 
 
 def _to_tensor(v: np.ndarray) -> torch.Tensor:
+    """A contiguous tensor of its own with ``v``'s values. A transposed
+    kernel is laid out by torch's blocked copy, many times faster than
+    numpy's at a (4096, 8192) kernel."""
     if v.dtype.name == "bfloat16":
         return torch.from_numpy(np.asarray(v, dtype=np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.array(v, copy=True, order="C"))
+    if not v.flags.writeable:
+        v = np.array(v)  # torch holds no read-only memory; the layout is kept
+    t = torch.from_numpy(v)
+    return t.contiguous() if not t.is_contiguous() else t.clone()
 
 
 def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -131,16 +137,50 @@ def llama_flax_path(key: str) -> tuple:
     return base + (rest[0], rest[1], "kernel" if rest[2] == "weight" else "bias")
 
 
+_ROBERTA_LAYER = {
+    "attention.self.query": "query", "attention.self.key": "key",
+    "attention.self.value": "value", "attention.output.dense": "attention_output",
+    "attention.output.LayerNorm": "attention_ln", "intermediate.dense": "intermediate",
+    "output.dense": "output", "output.LayerNorm": "output_ln",
+}
+
+
+def roberta_flax_path(key: str) -> tuple:
+    """HF RoBERTa key -> the JAX package's Flax path
+    (``loader.convert_roberta``, loader.py:154-208)."""
+    parts = key.split(".")
+    if key == "lm_head.bias":
+        return ("lm_head_bias",)
+    if parts[0] == "lm_head":  # dense, layer_norm
+        scope = {"dense": "lm_head_dense", "layer_norm": "lm_head_ln"}[parts[1]]
+        leaf = {"dense": "kernel", "layer_norm": "scale"}[parts[1]]
+        return (scope, leaf if parts[2] == "weight" else "bias")
+    if parts[1] == "embeddings":
+        if parts[2] == "LayerNorm":
+            return ("roberta", "embeddings_ln", "scale" if parts[3] == "weight" else "bias")
+        return ("roberta", parts[2], "embedding")
+    module = _ROBERTA_LAYER[".".join(parts[4:-1])]
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "scale" if module.endswith("_ln") else "kernel"
+    return ("roberta", f"layer_{parts[3]}", module, leaf)
+
+
 def backbone_flax_path(model_type: str, key: str) -> tuple:
     """HF key of a backbone -> its Flax path in the JAX package: the
     optimizer's labels, decay mask and leaf order read these."""
-    return gpt2_flax_path(key) if model_type == "gpt2" else llama_flax_path(key)
+    if model_type == "gpt2":
+        return gpt2_flax_path(key)
+    if model_type in ("roberta", "xlm-roberta"):
+        return roberta_flax_path(key)
+    return llama_flax_path(key)
 
 
 def backbone_transposed(model_type: str, key: str) -> bool:
     """Whether the HF weight ``key`` is held transposed against its Flax
-    kernel: the Llama family's ``nn.Linear`` weights are (out, in), Flax
-    kernels (in, out); GPT-2's ``Conv1D`` weights are (in, out) already."""
+    kernel: the Llama family's and RoBERTa's ``nn.Linear`` weights are (out,
+    in), Flax kernels (in, out); GPT-2's ``Conv1D`` weights are (in, out)
+    already."""
     return model_type != "gpt2" and backbone_flax_path(model_type, key)[-1] == "kernel"
 
 

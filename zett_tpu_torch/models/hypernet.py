@@ -667,6 +667,20 @@ class Hypernet(nn.Module):
             predicted_bias = torch.zeros(sf.shape[0], dtype=self.dtype, device=sf.device)
         return predicted_in, predicted_out, predicted_bias
 
+    @staticmethod
+    def _truncated_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+        """N(0, std) cut at +-2 std: one draw, then only the elements
+        outside redrawn until none is (``nn.init.trunc_normal_`` redraws the
+        whole tensor each round, six times over at a 64M-element kernel)."""
+        w = torch.randn(shape, generator=generator).mul_(std)
+        flat = w.view(-1)
+        redraw = torch.nonzero(flat.abs() > 2 * std).flatten()  # in index order
+        while redraw.numel():
+            values = torch.randn(redraw.numel(), generator=generator).mul_(std)
+            flat[redraw] = values
+            redraw = redraw[values.abs() > 2 * std]
+        return w
+
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` with flax's initializers
         (hypernet.py): lecun_normal Dense kernels (truncated normal, std
@@ -680,9 +694,7 @@ class Hypernet(nn.Module):
             for name, mod in self.named_modules():
                 if isinstance(mod, Dense):
                     s = (1.0 / mod.in_features) ** 0.5 / 0.87962566103423978
-                    w = torch.empty(mod.weight.shape)
-                    nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s, generator=generator)
-                    mod.weight.copy_(w)
+                    mod.weight.copy_(self._truncated_normal(mod.weight.shape, s, generator))
                     mod.bias.zero_()
                 elif isinstance(mod, LayerNorm):
                     mod.weight.fill_(1.0)

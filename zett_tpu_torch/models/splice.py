@@ -3,10 +3,12 @@ dict (counterpart of ``zett_tpu/models/splice.py`` and of the save path's
 ``invert_gpt2``/``invert_llama``).
 
 The port works on the HF state dict directly: the predicted input table
-replaces the embedding weight; a tied head gets the same table; an untied
-Llama-family head (``lm_head.weight``) gets the predicted output table. The
-keys the JAX package's converters drop are dropped, so the output holds
-exactly the keys the JAX transfer writes.
+replaces the embedding weight; a tied head gets the same table (RoBERTa's
+as ``lm_head.decoder.weight``); an untied Llama-family head
+(``lm_head.weight``) gets the predicted output table; RoBERTa's lm-head
+bias (both of its keys) gets the given bias, or zeros. The keys the JAX
+package's converters drop are dropped, so the output holds exactly the
+keys the JAX transfer writes.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .backbones.registry import IN_EMBEDDING_KEYS, KEEP_KEYS, check_supported, resolve_out_path
+from .backbones.registry import (BIAS_KEYS, IN_EMBEDDING_KEYS, KEEP_KEYS, TIED_HEAD_KEYS,
+                                 check_supported, resolve_out_path)
 
 
 def splice_embeddings(
@@ -24,6 +27,7 @@ def splice_embeddings(
     embeddings_in: torch.Tensor,
     embeddings_out: Optional[torch.Tensor] = None,
     tie_word_embeddings: bool = True,
+    bias: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """A new state dict with the vocab-dependent weights replaced
     (``splice.py:35-75``).
@@ -31,7 +35,9 @@ def splice_embeddings(
     embeddings_in, embeddings_out: (V, E). With tied embeddings the lm head
     is the input table; an untied Llama-family head becomes
     ``embeddings_out`` (required then); an untied GPT-2 head is not
-    vocab-spliced and keeps its weight, as in the JAX package."""
+    vocab-spliced and keeps its weight, as in the JAX package. bias: (V,)
+    for a family with an lm-head bias, or None for zeros in the input
+    table's dtype (``splice.py:63-70``)."""
     check_supported(model_type)
     keep = KEEP_KEYS[model_type]
     out_key = resolve_out_path(model_type, state_dict, {"tie_word_embeddings":
@@ -40,7 +46,7 @@ def splice_embeddings(
     for k, v in state_dict.items():
         if not keep.fullmatch(k):
             continue
-        if k == "lm_head.weight" and tie_word_embeddings:
+        if k == TIED_HEAD_KEYS[model_type] and tie_word_embeddings:
             continue
         new[k] = v
     new[IN_EMBEDDING_KEYS[model_type]] = embeddings_in
@@ -49,7 +55,9 @@ def splice_embeddings(
             raise ValueError(f"{model_type} has untied output embeddings: pass embeddings_out")
         new[out_key] = embeddings_out
     if tie_word_embeddings:
-        new["lm_head.weight"] = embeddings_in
+        new[TIED_HEAD_KEYS[model_type]] = embeddings_in
+    for key in BIAS_KEYS.get(model_type, ()):
+        new[key] = bias if bias is not None else embeddings_in.new_zeros(embeddings_in.shape[0])
     return new
 
 

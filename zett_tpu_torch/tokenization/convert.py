@@ -217,7 +217,9 @@ def convert_to_byte_level(
     """
     tokenizer_data = tok.to_json()
     tokenizer_data.pop("added_tokens", None)
-    original_data = copy.deepcopy(tokenizer_data)
+    # the model's vocab and merges as given: the conversion replaces those
+    # lists and never edits them in place, so a shallow copy keeps them
+    original_data = {"model": dict(tokenizer_data["model"])}
     preserved_indices = True
     original_length = len(tok)
 
@@ -276,7 +278,11 @@ def convert_to_byte_level(
         for idx, token in pairs:
             surface_forms.insert(idx, token)
         special_tokens = list(target.all_special_tokens)
-        special_ids = {t: i for i, t in zip(target.all_special_ids, target.all_special_tokens)}
+        # each special at its place in the vocab: the target's id, or the
+        # end of the vocab where that id lies past it (XLM-R's <mask> is id
+        # 250001); JAX registers the target's id there, which no table row
+        # of the converted vocab holds (ROADMAP C.20)
+        special_ids = {t: surface_forms.index(t) for t in special_tokens}
         preserved_indices = False
     else:
         special_tokens = list(tok.all_special_tokens)

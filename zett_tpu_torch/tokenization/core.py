@@ -419,7 +419,16 @@ class Tokenizer:
             return Tokenizer.from_str(f.read())
 
     def copy(self) -> "Tokenizer":
-        return Tokenizer.from_json(copy.deepcopy(self.to_json()))
+        data = self.to_json()
+        # the model's JSON is built anew by to_json but for a BPE's or
+        # WordPiece's vocab dict, its own: copied here, not deep-copied
+        # element by element (250k pieces take a second)
+        model = data.pop("model")
+        if isinstance(model.get("vocab"), dict):
+            model["vocab"] = dict(model["vocab"])
+        data = copy.deepcopy(data)
+        data["model"] = model
+        return Tokenizer.from_json(data)
 
     def __len__(self) -> int:
         return self.get_vocab_size(with_added_tokens=True)

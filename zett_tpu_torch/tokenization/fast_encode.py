@@ -158,6 +158,27 @@ class FastUnigramEncoder:
         elif post is not None and not isinstance(post, ByteLevelPost):
             raise ValueError(f"unsupported post_processor for the fast path: {post.to_json()}")
 
+    def segment(self, tokens: List[str]) -> List[Optional[np.ndarray]]:
+        """Each byte-level string segmented on its own by a Unigram model's
+        Viterbi, as ``Unigram.tokenize`` segments a pretoken (no normalizer,
+        no split; ties to the first begin, as there): int32 vocab ids, or
+        None for a string with a char outside the byte alphabet or a byte
+        no piece covers (the caller segments it the general way)."""
+        if self._id_map is None:
+            raise TypeError("segment: a Unigram model only")
+        out: List[Optional[np.ndarray]] = [None] * len(tokens)
+        raw, where = [], []
+        for i, token in enumerate(tokens):
+            try:
+                raw.append(token.translate(_BYTECHAR_TRANS).encode("latin-1"))
+            except UnicodeEncodeError:
+                continue
+            where.append(i)
+        for i, ids in zip(where, self._native.encode_pretokens(raw)):
+            if len(ids) and not (ids < 0).any():
+                out[i] = self._id_map[ids]
+        return out
+
     def encode_batch(self, texts: List[str], add_special_tokens: bool = True,
                      max_length: Optional[int] = None,
                      pad_id: int = 0) -> Tuple[np.ndarray, np.ndarray]:

@@ -3,16 +3,34 @@ the hypernetwork tokenizer into a fixed-width int32 matrix.
 
 Counterpart of ``zett_tpu/tokenization/surface_forms.py``. Special tokens are
 encoded as their single id in the hn tokenizer; all other tokens are
-byte-char strings segmented by the hn tokenizer's model.
+byte-char strings segmented by the hn tokenizer's model: a canonical
+byte-level Unigram's on the native host library (the same Viterbi in C++;
+a 250k-piece hn tokenizer segments a 250k vocab in seconds, not minutes),
+any other in Python.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from .core import Tokenizer
+from .fast_encode import fast_encoder_or_none
+from .models import Unigram
+
+# hn model -> its native encoder (or None), built at its first use
+_SEGMENTERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _native_segmenter(hn_tokenizer: Tokenizer):
+    model = hn_tokenizer.model
+    if not isinstance(model, Unigram):
+        return None
+    if model not in _SEGMENTERS:
+        _SEGMENTERS[model] = fast_encoder_or_none(hn_tokenizer)
+    return _SEGMENTERS[model]
 
 
 def get_surface_form_matrix(
@@ -37,19 +55,25 @@ def get_surface_form_matrix(
     out = np.full((len(tokens), maxlen), pad_id, dtype=np.int32)
     n_truncated = 0
     tokenize = hn_tokenizer.model.tokenize
+    native = {}
+    segmenter = _native_segmenter(hn_tokenizer)
+    if segmenter is not None:
+        todo = sorted({t for t in tokens if t is not None and t not in special_set
+                       and (cache is None or t not in cache)})
+        native = dict(zip(todo, segmenter.segment(todo)))
     for i, token in enumerate(tokens):
         if token is None:
             continue
         if token in special_set:
             out[i, 0] = hn_tokenizer.token_to_id(token)
             continue
-        if cache is not None:
-            ids = cache.get(token)
-            if ids is None:
-                ids = tuple(tid for tid, _ in tokenize(token))
+        ids = cache.get(token) if cache is not None else None
+        if ids is None:
+            seg = native.get(token)
+            ids = (tuple(seg.tolist()) if seg is not None
+                   else tuple(tid for tid, _ in tokenize(token)))
+            if cache is not None:
                 cache[token] = ids
-        else:
-            ids = [tid for tid, _ in tokenize(token)]
         if len(ids) > maxlen:
             ids = ids[:maxlen]
             n_truncated += 1

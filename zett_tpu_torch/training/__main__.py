@@ -6,10 +6,18 @@ Usage:
 
 The same JSON configs as ``python -m zett_tpu.training`` (``_base``
 inheritance included) map onto ``TrainingConfig``, ``DataConfig`` and
-``HypernetConfig``; the backbone is GPT-2 or a Llama-family model (its
-``config.json``'s ``model_type``), and a source tokenizer that is not
-byte-level is converted first. Runs on the card unless ``--device cpu`` is
-given, and raises when there is none. One process on one device: a
+``HypernetConfig``; the backbone is GPT-2, a Llama-family model or
+(XLM-)RoBERTa (its ``config.json``'s ``model_type``), and a source
+tokenizer that is not byte-level is converted first. ``loss: "mlm"``
+(configs/zeroshot/xlmr_26l.json) masks each training batch with
+``data.mlm.MLMCollator``, drawn from a generator seeded with (the run's
+``seed``, the batch counter), where the JAX CLI's masker is unseeded
+(ROADMAP C.18); as in the JAX CLI, the eval batches are not masked (C.19).
+``langs`` is a list, or a file of one code per line (or "code,weight"
+lines); without weights, ``language_metadata_csv`` gives corpus sizes and
+languages are drawn with probability size ** ``language_sampling_alpha``.
+Runs on the card unless ``--device cpu`` is given, and raises when there is
+none. One process on one device: a
 config's ``n_model_parallel`` runs without a mesh, as the JAX CLI does on
 one device. Metrics stream to ``<output_dir>/metrics.jsonl``;
 the trained hypernet is written to ``<output_dir>/final/`` in the transfer
@@ -58,6 +66,9 @@ import sys
 
 import numpy as np
 
+from ..data.datasets import (language_probs_from_sizes, language_sizes_from_metadata,
+                             load_language_list)
+
 
 def load_config_file(path: str) -> dict:
     """A JSON config with its ``_base`` chain resolved."""
@@ -82,18 +93,6 @@ def load_configs(config: dict):
         return cls(**{k: v for k, v in config.items() if k in known})
 
     return pick(TrainingConfig), pick(DataConfig), pick(HypernetConfig)
-
-
-def load_language_list(path: str):
-    """One code per line, or "code,weight" lines whose weights become the
-    (normalized) sampling probabilities."""
-    with open(path) as f:
-        rows = [line.strip() for line in f if line.strip()]
-    if rows and "," in rows[0]:
-        langs = [r.split(",")[0].strip() for r in rows]
-        weights = np.asarray([float(r.split(",")[1]) for r in rows])
-        return langs, weights / weights.sum()
-    return rows, None
 
 
 def main(argv=None):
@@ -135,7 +134,9 @@ def build_eval_fn(config: dict, data_cfg, reference, hn_tokenizer, batch_size: i
     None without validation text: one fixed-tokenizer collator per
     ``extra_valid_tokenizers`` entry (no vocab subsampling, no span
     sampling), evaluated with cached embeddings, then the sampled-tokenizer
-    validation collator at ``seed + 1``."""
+    validation collator at ``seed + 1``. Under ``loss: "mlm"`` no eval
+    collator masks, as in the JAX CLI (ROADMAP C.19): the labels are the
+    ids."""
     valid_dir = config.get("valid_directory")
     if not (valid_dir or config.get("valid_texts_by_lang")):
         return None
@@ -180,6 +181,7 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     """``zett_tpu/training/__main__.py:102`` without distributed init,
     trackers, cost analysis and profiling. Returns (trainer, history)."""
     from ..data import Collator, TrainDataset
+    from ..data.mlm import MLMCollator
     from ..models.backbones.hf_io import load_hf_state_dict
     from ..models.backbones.registry import (IN_EMBEDDING_KEYS, check_supported,
                                              config_from_hf, is_output_tied)
@@ -222,7 +224,8 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     if len(langs) == 1:
         lang_probs = np.array([1.0])
     elif lang_probs is None and config.get("language_metadata_csv"):
-        raise NotImplementedError("language_metadata_csv is not ported; give weights in langs")
+        sizes = language_sizes_from_metadata(langs, config["language_metadata_csv"])
+        lang_probs = language_probs_from_sizes(sizes, data_cfg.language_sampling_alpha)
     mix_languages = bool(config.get("mix_languages", data_cfg.mix_languages))
     data_cfg = dataclasses.replace(data_cfg, langs=(["all"] + langs) if mix_languages else langs,
                                    mix_languages=mix_languages)
@@ -250,9 +253,13 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     n_initial = config.get("n_initial_texts", 256)
     initial_texts = ({"all": dataset.get_texts(n_initial)} if mix_languages
                      else dataset.get_texts_in_each_language(n_initial))
+    # the masker of an MLM run, reseeded by the Collator before each batch
+    # (ROADMAP C.18)
+    inner_collator = MLMCollator() if train_cfg.loss == "mlm" else None
     collator = Collator(reference=reference, hn_tokenizer=hn_tokenizer, data_config=data_cfg,
                         batch_size=batch_size, initial_texts=initial_texts,
-                        fixed_tokenizer=fixed_tokenizer, seed=train_cfg.seed)
+                        fixed_tokenizer=fixed_tokenizer, inner_collator=inner_collator,
+                        seed=train_cfg.seed)
     identity_collator = None
     if train_cfg.identity_steps > 0:
         id_data_cfg = dataclasses.replace(

@@ -5,30 +5,33 @@ and in-training eval.
 One train step (``engine.py:500-543``): the hypernet predicts the
 embeddings of the batch's vocab rows on its training route (kernels 2 and
 3 for every attention core); the source model's special-token rows are
-spliced in; the frozen backbone (GPT-2 or the Llama family) runs with the
-predicted input table, and with the predicted output table as its head
-when the head is untied; the loss is the CLM loss plus the weighted lexical loss; the
-gradients of every parameter, the frozen backbone's included, go through
-the optimizer (``optimizer.py``), which updates the hypernet only. The
-identity step (``engine.py:545-573``) regresses the predicted embeddings of
-sampled source tokens onto their source embeddings. Eval
+spliced in; the frozen backbone (GPT-2, the Llama family or RoBERTa) runs
+with the predicted input table, and with the predicted output table as its
+head when the head is untied (RoBERTa's lm-head bias is zeroed, as the JAX
+splice zeroes it; the learnable bias is added to the logits); the loss is
+the CLM or MLM loss plus the weighted lexical loss; the gradients of every
+parameter, the frozen backbone's included, go through the optimizer
+(``optimizer.py``), which updates the hypernet only. The identity step
+(``engine.py:545-573``) regresses the predicted embeddings of sampled
+source tokens onto their source embeddings. Eval
 (``engine.py:575-620``) predicts the batch's embeddings on the hypernet's
 inference route without gradients (``compute_embeddings``: kernel 1, 4 or 2
 per layer as the configuration routes it) and reports the CLM loss and the
-bits-per-byte term (``eval_step``); a fixed tokenizer's embeddings are
-computed once and reused across batches (``eval_step_cached``,
-``evaluation/loop.py``).
+bits-per-byte term, or the MLM loss and accuracy (``eval_step``); a fixed
+tokenizer's embeddings are computed once and reused across batches
+(``eval_step_cached``, ``evaluation/loop.py``).
 
 The memory levers (``engine.py:341-346``, ``:397-498``): ``remat_hypernet``
 runs the hypernet's training forward under ``torch.utils.checkpoint``;
 ``remat_hypernet_glue`` (the port's own) rematerializes its f32 LayerNorm
 and gelu glue op by op (``models.hypernet.remat_glue``: what XLA's fusion
 keeps out of memory);
-``remat_backbone`` each backbone block; ``loss_chunk_size`` computes the CLM
+``remat_backbone`` each backbone block; ``loss_chunk_size`` computes the
 loss, in training and in eval, from the backbone's final hidden states
-chunk by chunk (``losses.chunked_clm_loss``/``chunked_clm_eval``), so the
-(B, L, V) logits never exist. The loop (``fit``) prefetches batches on a
-thread (``prefetch.BatchPrefetcher``), writes full-state checkpoints
+chunk by chunk (``losses.chunked_clm_loss``/``chunked_clm_eval``, and
+``chunked_mlm_loss``/``chunked_mlm_eval`` with RoBERTa's MLM head run per
+chunk), so the (B, L, V) logits never exist. The loop (``fit``) prefetches
+batches on a thread (``prefetch.BatchPrefetcher``), writes full-state checkpoints
 (parameters, optimizer state, step, dropout generator) and resumes from
 them by replaying the data stream, and on a preemption signal checkpoints
 and returns.
@@ -40,9 +43,8 @@ table, so there is no special-token splice, no lexical loss (refused by
 name, ROADMAP C.11) and no identity step; under ``"full"`` the backbone's
 parameters are f32, computed in the compute dtype, and train with the
 tables (the optimizer sees the Llama family's ``(out, in)`` weights in the
-Flax layout), and a full-state checkpoint carries them. Not ported: MLM,
-backbones other than GPT-2 and the Llama family, multi-GPU (and with it
-the multihost preemption agreement).
+Flax layout), and a full-state checkpoint carries them. Not ported: xglm,
+multi-GPU (and with it the multihost preemption agreement).
 """
 
 from __future__ import annotations
@@ -60,12 +62,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..constants import NEGATIVE_INF_FILL_VALUE
-from ..models.backbones.registry import build_model, headless_model, resolve_out_path
+from ..models.backbones.registry import build_model, headless_model, mlm_head, resolve_out_path
 from ..models.convert import (backbone_flax_path, backbone_transposed, flax_paths,
                               flax_to_torch, torch_to_flax)
 from ..models.hypernet import Hypernet, HypernetConfig, PassthroughHypernet, remat_glue
 from ..models.splice import extract_embeddings
-from .losses import chunked_clm_eval, chunked_clm_loss, lexical_loss, lm_loss
+from .losses import (chunked_clm_eval, chunked_clm_loss, chunked_mlm_eval, chunked_mlm_loss,
+                     lexical_loss, lm_loss, mlm_accuracy)
 from .optimizer import build_optimizer
 from .prefetch import BatchPrefetcher
 from .schedules import create_learning_rate_fn
@@ -107,8 +110,8 @@ class Trainer:
         passthrough_rows: int = 0,
     ):
         cfg = train_config
-        if cfg.loss != "clm":
-            raise NotImplementedError("training options not ported: loss=mlm")
+        if cfg.loss not in ("clm", "mlm"):
+            raise ValueError(f"unknown loss mode {cfg.loss}")
         if cfg.backbone_training not in ("no", "full"):
             raise NotImplementedError(f"backbone_training={cfg.backbone_training!r} is not "
                                       "ported ('no' and 'full' are)")
@@ -142,6 +145,7 @@ class Trainer:
         self.backbone = build_model(model_type, backbone_config, held,
                                     self.dtype).to(self.device)
         self.headless = headless_model(model_type, self.backbone)
+        self.mlm_head = mlm_head(model_type, self.backbone)
         if use_passthrough_hypernet:
             self.hypernet = self._passthrough_tables(passthrough_rows)
             # the state keeps no source table (engine.py:207): no
@@ -348,8 +352,10 @@ class Trainer:
         emb_in, emb_out, biases = self._embeddings(b, not cfg.run_backbone_in_training_mode)
         if self.cfg.loss_chunk_size > 0:
             hidden, head_w = self._headless(b, emb_in, emb_out)
-            loss = chunked_clm_loss(hidden, head_w, self._logit_offset(b, biases), b["labels"],
-                                    b["attention_mask"], cfg.loss_chunk_size)
+            args = (hidden, head_w, self._logit_offset(b, biases), b["labels"],
+                    b["attention_mask"], cfg.loss_chunk_size)
+            loss = (chunked_clm_loss(*args) if cfg.loss == "clm"
+                    else chunked_mlm_loss(*args, head_fn=self.mlm_head))
         else:
             logits = self._logits(b, emb_in, emb_out, biases)
             loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
@@ -429,10 +435,16 @@ class Trainer:
         return self._embeddings(b, deterministic, inference=deterministic, generator=generator)
 
     def eval_metrics_from_logits(self, logits, b) -> Dict[str, torch.Tensor]:
-        """``engine.py:589-596``, CLM only."""
-        loss, bpb = lm_loss(logits.float(), b["labels"], b["attention_mask"], "clm",
-                            byte_lengths=b["byte_lengths"], with_bpb=True)
-        return {"eval_loss": loss, "eval_bpb": bpb}
+        """``engine.py:589-597``: the CLM loss and bits-per-byte term, or the
+        MLM loss and accuracy."""
+        logits = logits.float()
+        if self.cfg.loss == "clm":
+            loss, bpb = lm_loss(logits, b["labels"], b["attention_mask"], "clm",
+                                byte_lengths=b["byte_lengths"], with_bpb=True)
+            return {"eval_loss": loss, "eval_bpb": bpb}
+        loss = lm_loss(logits, b["labels"], b["attention_mask"], "mlm")
+        return {"eval_loss": loss,
+                "eval_accuracy": mlm_accuracy(logits, b["labels"], b["attention_mask"])}
 
     @torch.no_grad()
     def eval_step(self, b) -> Dict[str, torch.Tensor]:
@@ -444,12 +456,19 @@ class Trainer:
         """Eval metrics with precomputed embeddings (``engine.py:604-613``);
         with ``loss_chunk_size``, chunk by chunk from the final hidden states
         (``chunked_eval_metrics``, ``engine.py:476-493``)."""
-        if self.cfg.loss_chunk_size > 0:
+        cfg = self.cfg
+        if cfg.loss_chunk_size > 0:
             hidden, head_w = self._headless(b, emb_in, emb_out)
-            loss, bpb = chunked_clm_eval(hidden, head_w, self._logit_offset(b, biases),
-                                         b["labels"], b["attention_mask"], b["byte_lengths"],
-                                         self.cfg.loss_chunk_size)
-            return {"eval_loss": loss, "eval_bpb": bpb}
+            offset = self._logit_offset(b, biases)
+            if cfg.loss == "clm":
+                loss, bpb = chunked_clm_eval(hidden, head_w, offset, b["labels"],
+                                             b["attention_mask"], b["byte_lengths"],
+                                             cfg.loss_chunk_size)
+                return {"eval_loss": loss, "eval_bpb": bpb}
+            loss, acc = chunked_mlm_eval(hidden, head_w, offset, b["labels"],
+                                         b["attention_mask"], cfg.loss_chunk_size,
+                                         head_fn=self.mlm_head)
+            return {"eval_loss": loss, "eval_accuracy": acc}
         return self.eval_metrics_from_logits(self._logits(b, emb_in, emb_out, biases), b)
 
     # ------------------------------------------------------------------- loop
@@ -612,7 +631,9 @@ class Trainer:
         with open(os.path.join(path, "hn_config.json"), "w") as f:
             json.dump({**self.hn_config.to_dict(), "dtype": self.cfg.dtype}, f, indent=2)
         if tokenizer is not None:
-            tokenizer.save(os.path.join(path, "tokenizer.json"))
+            # compact: a pretty dump of a 250k-piece vocab runs the json
+            # module's pure-Python encoder for seconds
+            tokenizer.save(os.path.join(path, "tokenizer.json"), pretty=False)
         if full_state:
             resume = os.path.join(path, "resume")
             os.makedirs(resume, exist_ok=True)

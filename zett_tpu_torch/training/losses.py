@@ -1,8 +1,8 @@
 """Training losses (counterpart of ``zett_tpu/training/losses.py``): the
-causal LM loss (with the eval's bits-per-byte term), its chunked form that
-never holds the (B, L, V) logits, and the lexical loss that anchors
-single-source-token predictions to the source embeddings. The MLM losses
-are not ported."""
+causal and masked LM losses (with the CLM eval's bits-per-byte term and the
+MLM eval's accuracy), their chunked forms that never hold the (B, L, V)
+logits, and the lexical loss that anchors single-source-token predictions
+to the source embeddings."""
 
 from __future__ import annotations
 
@@ -32,10 +32,11 @@ def _mean_bpb(per_seq_loss, byte_lengths):
 
 def lm_loss(logits, labels, attention_mask, loss_mode: str, byte_lengths=None,
             with_bpb: bool = False):
-    """Mean next-token cross entropy over attended positions
-    (``losses.py:183``, clm). logits (B, L, V) f32. With ``with_bpb``,
-    (loss, mean bits-per-byte term) from the per-sequence loss sums and the
-    tokens' byte lengths (B, L)."""
+    """``losses.py:183``. clm: the mean next-token cross entropy over
+    attended positions; with ``with_bpb``, (loss, mean bits-per-byte term)
+    from the per-sequence loss sums and the tokens' byte lengths (B, L).
+    mlm: the mean cross entropy over the attended positions whose label is
+    not -100. logits (B, L, V) f32."""
     if loss_mode == "clm":
         shift_logits = logits[..., :-1, :]
         shift_labels = labels[..., 1:].long().clamp(min=0)
@@ -45,7 +46,11 @@ def lm_loss(logits, labels, attention_mask, loss_mode: str, byte_lengths=None,
             return loss.sum() / shift_mask.sum(), _mean_bpb(loss.sum(-1), byte_lengths)
         return loss.sum() / shift_mask.sum()
     if loss_mode == "mlm":
-        raise NotImplementedError("the MLM loss is not ported")
+        if with_bpb:
+            raise NotImplementedError("bpb for mlm")
+        label_mask = _mlm_mask(labels, attention_mask).to(logits.dtype)
+        loss = _cross_entropy(logits, labels.long().clamp(min=0)) * label_mask
+        return loss.sum() / label_mask.sum()
     raise ValueError(f"unknown loss mode {loss_mode}")
 
 
@@ -106,6 +111,84 @@ def chunked_clm_eval(hidden, head_w, logit_offset, labels, attention_mask, byte_
     for s, e in bounds:
         per_seq = per_seq + _chunk_ce(h[:, s:e], y[:, s:e], m[:, s:e], w, offset).sum(-1)
     return per_seq.sum() / m.sum(), _mean_bpb(per_seq, byte_lengths)
+
+
+def _mlm_mask(labels, attention_mask):
+    """The positions an MLM loss counts: labelled and attended."""
+    return (labels != -100) & (attention_mask == 1)
+
+
+def _mlm_chunks(hidden, labels, attention_mask, chunk_size: int):
+    """The MLM operands (no shift) padded to whole chunks of positions
+    (``losses.py:63-73``): (h, y, m, [(start, end), ...]); y int64 labels
+    clamped at 0, m f32 (labelled and attended)."""
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size {chunk_size} must be positive")
+    L = hidden.shape[1]
+    pad = (-L) % chunk_size
+    h = F.pad(hidden, (0, 0, 0, pad))
+    y = F.pad(labels.long().clamp(min=0), (0, pad))
+    m = F.pad(_mlm_mask(labels, attention_mask).float(), (0, pad))
+    bounds = [(s, s + chunk_size) for s in range(0, L + pad, chunk_size)]
+    return h, y, m, bounds
+
+
+def _mlm_chunk_logits(h_c, head_w, logit_offset, head_fn):
+    """One chunk's logits: the head's transform where there is one, the
+    product in its output's dtype, then f32 with the offset
+    (``losses.py:77-80``)."""
+    t = head_fn(h_c) if head_fn is not None else h_c
+    return (t @ head_w.to(t.dtype).t()).float() + logit_offset[None, None, :]
+
+
+def _mlm_chunk_ce_sum(h_c, y_c, m_c, head_w, logit_offset, head_fn):
+    logits = _mlm_chunk_logits(h_c, head_w, logit_offset, head_fn)
+    return (_cross_entropy(logits, y_c) * m_c).sum()
+
+
+def chunked_mlm_loss(hidden, head_w, logit_offset, labels, attention_mask, chunk_size: int,
+                     head_fn=None):
+    """The MLM loss from the last hidden states without the (B, L, V)
+    logits (``losses.py:56``): each chunk of ``chunk_size`` positions runs
+    ``head_fn`` (RoBERTa's dense, gelu, LayerNorm), its logits ``t @
+    head_w.T + logit_offset`` and its masked cross-entropy sum under
+    ``checkpoint``, so autograd keeps the chunk's inputs and the backward
+    recomputes the rest. Equal to ``lm_loss(logits, ..., "mlm")`` on the
+    whole logits up to summation order (the mean is over at least one
+    position)."""
+    h, y, m, bounds = _mlm_chunks(hidden, labels, attention_mask, chunk_size)
+    offset = logit_offset.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s, e in bounds:
+        total = total + checkpoint(_mlm_chunk_ce_sum, h[:, s:e], y[:, s:e], m[:, s:e], head_w,
+                                   offset, head_fn, use_reentrant=False)
+    return total / torch.clamp(m.sum(), min=1.0)
+
+
+@torch.no_grad()
+def chunked_mlm_eval(hidden, head_w, logit_offset, labels, attention_mask, chunk_size: int,
+                     head_fn=None):
+    """Forward-only chunked MLM eval (``losses.py:130``): (loss, accuracy),
+    the accuracy from the argmax over the whole vocab inside each position
+    chunk (the first of equal maxima, as ``jnp.argmax``)."""
+    h, y, m, bounds = _mlm_chunks(hidden, labels, attention_mask, chunk_size)
+    offset = logit_offset.float()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    correct = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s, e in bounds:
+        logits = _mlm_chunk_logits(h[:, s:e], head_w, offset, head_fn)
+        loss_sum = loss_sum + (_cross_entropy(logits, y[:, s:e]) * m[:, s:e]).sum()
+        correct = correct + ((logits.argmax(-1) == y[:, s:e]).float() * m[:, s:e]).sum()
+    n = m.sum()
+    return loss_sum / n, correct / torch.clamp(n, min=1.0)
+
+
+def mlm_accuracy(logits, labels, attention_mask):
+    """Share of the labelled, attended positions whose argmax is the label
+    (``engine.py:593-596``)."""
+    label_mask = _mlm_mask(labels, attention_mask)
+    hits = (logits.argmax(-1) == labels) & label_mask
+    return hits.sum() / torch.clamp(label_mask.sum(), min=1)
 
 
 HUBER_DELTA = 1e-3

@@ -3,8 +3,8 @@
 Usage:
   python -m zett_tpu_torch.transfer \\
       --checkpoint CKPT_DIR         # hn_config.json + params.npz + tokenizer.json
-      --model MODEL_DIR             # HF gpt2 or Llama-family dir (config.json + weights
-                                    # + tokenizer.json)
+      --model MODEL_DIR             # HF gpt2, Llama-family or (XLM-)RoBERTa dir
+                                    # (config.json + weights + tokenizer.json)
       --target-tokenizer TOK        # tokenizer.json (or dir containing it)
       --output OUT_DIR
       [--hn-tokenizer TOK] [--batch-size N] [--do-batch-sampling] [--min-k K]
@@ -16,8 +16,10 @@ hypernet's compute dtype), ``params.npz`` (the Flax parameter tree, one array
 per "/"-joined path) and the hn tokenizer's ``tokenizer.json``. A source
 tokenizer that is not byte-level (a Llama-family sentencepiece/metaspace
 one) is converted to byte level first. Writes ``model.safetensors`` (an
-untied head gets the predicted output table), ``config.json`` (with the new
-``vocab_size``), ``tokenizer.json`` and ``bias.npy``. Runs on the card
+untied head gets the predicted output table; RoBERTa's tied decoder the
+predicted input table and its lm-head bias zeros, as the JAX CLI writes
+them), ``config.json`` (with the new ``vocab_size``), ``tokenizer.json``
+and ``bias.npy``, the predicted bias. Runs on the card
 unless ``--device cpu`` is given.
 """
 
@@ -89,7 +91,8 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     from ..models.backbones.hf_io import load_hf_state_dict, save_hf_model
-    from ..models.backbones.registry import IN_EMBEDDING_KEYS, check_supported, resolve_out_path
+    from ..models.backbones.registry import (IN_EMBEDDING_KEYS, ROBERTA_FAMILY, check_supported,
+                                             resolve_out_path)
     from ..models.splice import splice_embeddings
     from ..tokenization.convert import convert_to_byte_level, is_byte_level
     from ..tokenization.core import Tokenizer
@@ -133,13 +136,14 @@ def main(argv=None):
     spliced = splice_embeddings(
         state_dict, model_type, torch.from_numpy(new_in),
         torch.from_numpy(new_out) if (new_out is not None and out_key is not None) else None,
-        tie_word_embeddings=bb_config_json.get("tie_word_embeddings", model_type == "gpt2"),
+        tie_word_embeddings=(model_type in ROBERTA_FAMILY
+                             or bb_config_json.get("tie_word_embeddings", model_type == "gpt2")),
     )
     bb_config_json["vocab_size"] = int(new_in.shape[0])
     save_hf_model(args.output, spliced, bb_config_json)
     converted_target.save(os.path.join(args.output, "tokenizer.json"))
-    # no supported family has an lm-head bias: the predicted bias is a side
-    # artifact
+    # the predicted bias is a side artifact; RoBERTa's lm-head bias is
+    # written as zeros (transfer/__main__.py:125-138)
     np.save(os.path.join(args.output, "bias.npy"), bias)
     print(f"transferred {model_type} -> {len(converted_target)} tokens at {args.output}")
 
