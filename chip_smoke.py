@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result):
      of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
      HMMA (kernels 1 to 5: the attention core's mma.sync; in kernel 1 within
      its [q|k|v] GEMM, whose epilogue runs the core) in their SASS
-     (cuobjdump): a count of zero fails;
+     (cuobjdump, read while phases 2-4 run and reported after phase 4): a
+     count of zero fails;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
@@ -212,7 +213,26 @@ Phases (any failure exits non-zero and prints no result):
      tied decoder, zero lm-head biases, bias.npy, the written model's
      logits, the hypernet per 32k vocab, kernel 1's launches, idle share;
      (e) mlm_probe on (d)'s model over held-out paragraphs, and at a
-     2-layer cut card vs CPU.
+     2-layer cut card vs CPU;
+ 19. reference-format hypernet checkpoints (config.json with the hn_*
+     arguments and no hidden_act, so erf-gelu; flax_model.msgpack in the
+     reference's names with its placeholder tables, written by this
+     script's msgpack writer from seeded weights): (a) at
+     tinyllama_en_code's hypernet (2048 hidden, 16 heads of 128, I 4096, 3
+     layers, f32 leaves) over phase 14's TinyLlama, (b) at Mistral-7B's
+     (4096, 32 heads of 128, I 8192, 2 of its 3 layers, bf16 leaves) over
+     phase 15's Mistral: the file's size, load_reference_hypernet's
+     seconds, transfer() (bf16) to llama0001 with both tables, kernel 4 on
+     every non-CLS layer of every batch, the hypernet per 32k vocab; (c)
+     kernel 4 at 16 and 32 heads of 128 against its plain version (B 16384,
+     L 8 and 7, with and without the prior key bias, bf16 timed at L 8
+     beside the bound, the plain version and F.linear x3 + SDPA + F.linear;
+     f32 at B 2048); (d) at xlmr_26l's hypernet widths (768, 12 heads of
+     64, 26 language ids, 2 layers): language adapters under gelu_new and
+     erf-gelu, concat pooling (one position: ROADMAP C.21), relative
+     positions and the T5 encoder with gated-gelu, each from a
+     reference-format or port checkpoint, 4096 rows card vs CPU (f32,
+     within 1e-4 of the scale) with their launches of kernels 1, 2 and 4.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -222,11 +242,13 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import time
@@ -387,7 +409,10 @@ SASS_REQUIRED_IN = {"gemm_qkv_attention_kernel": ("HGMMA", "UTMALDG", "HMMA"),
 def check_build():
     """ptxas's report (registers, shared memory, spills) of the redesigned
     kernels, and their SASS: a required instruction counted zero times
-    fails the run (where the toolkit has no cuobjdump, the report stands)."""
+    fails the run (where the toolkit has no cuobjdump, the report stands).
+    The SASS is read by cuobjdump processes that run on while the next
+    phases use the card: returns the function that waits for them and
+    reports."""
     from zett_tpu_torch.ops import _build
 
     spills = []
@@ -411,16 +436,22 @@ def check_build():
     # cuobjdump process each, all at once
     jobs = [(name, ops, None) for name, ops in SASS_REQUIRED.items()]
     jobs += [("encoder_layer", ops, function) for function, ops in SASS_REQUIRED_IN.items()]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        results = list(pool.map(lambda job: _build.sass_counts(*job), jobs))
-    for (name, _, function), counts in zip(jobs, results):
-        if counts is None:
-            log("  cuobjdump is not in the toolkit: SASS not counted")
-            return
-        what = f"lib{name}.so" if function is None else f"{function} (lib{name}.so)"
-        log(f"  SASS of {what}: {counts}")
-        if not all(counts.values()):
-            raise AssertionError(f"{what} lacks {[op for op, n in counts.items() if not n]}")
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    futures = [pool.submit(_build.sass_counts, *job) for job in jobs]
+    pool.shutdown(wait=False)
+
+    def report():
+        for (name, _, function), future in zip(jobs, futures):
+            counts = future.result()
+            if counts is None:
+                log("  cuobjdump is not in the toolkit: SASS not counted")
+                return
+            what = f"lib{name}.so" if function is None else f"{function} (lib{name}.so)"
+            log(f"  SASS of {what}: {counts}")
+            if not all(counts.values()):
+                raise AssertionError(f"{what} lacks {[op for op, n in counts.items() if not n]}")
+
+    return report
 
 
 # --------------------------------------------------------------------- phase 2
@@ -1050,6 +1081,7 @@ def flax_layout(model, rng):
     device draws them (the card draws Mistral's 0.7 G parameters in about a
     second, numpy in about ten)."""
     from zett_tpu_torch.models.hypernet import Dense, LayerNorm
+    from zett_tpu_torch.models.hypernet_t5 import T5LayerNorm
 
     def normal(shape):
         if isinstance(rng, torch.Generator):
@@ -1062,6 +1094,8 @@ def flax_layout(model, rng):
             kinds[name] = "dense"
         elif isinstance(mod, LayerNorm):
             kinds[name] = "ln"
+        elif isinstance(mod, T5LayerNorm):
+            kinds[name] = "rms"
         elif isinstance(mod, torch.nn.Embedding):
             kinds[name] = "embed"
     flat = {}
@@ -1076,6 +1110,8 @@ def flax_layout(model, rng):
         elif kind == "ln" and leaf == "weight":
             value = 1 + 0.1 * normal(shape)
             leaf = "scale"
+        elif kind == "rms":
+            value = 1 + 0.1 * normal(shape)
         elif kind == "embed":
             value = 0.02 * normal(shape)
             leaf = "embedding"
@@ -1281,12 +1317,14 @@ def device_events(run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    # the profiler's raw events: its FunctionEvent list (prof.events()) takes
+    # seconds of host time to build for a train step's thousands of ops
+    events = [e for e in prof.profiler.kineto_results.events() if not e.is_hidden_event()]
     # the device timeline also carries annotations named after the host ops
     # that enclose its kernels: keep device events no host op is named as
-    host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    kernels = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in events
-               if e.device_type == DeviceType.CUDA and e.name not in host_names]
+    host_names = {e.name() for e in events if e.device_type() != DeviceType.CUDA}
+    kernels = [(torch._C._demangle(e.name()), e.start_ns() / 1e3, e.duration_ns() / 1e6)
+               for e in events if e.device_type() == DeviceType.CUDA and e.name() not in host_names]
     return sorted(kernels, key=lambda k: k[1]), wall_ms
 
 
@@ -1464,17 +1502,19 @@ def block_bias(B, L, dtype, gen):
     return kb.to(dtype).cuda()
 
 
-def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
-    """Kernel 4 (the tier-2 block) against its plain version; with
-    ``timed``, its median time beside the plain version's, the library
-    calls' (F.linear x3 + SDPA + F.linear) and the bound; with ``split``,
-    its device time by kernel and each GEMM against cuBLAS."""
+def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12, fan_in=False):
+    """Kernel 4 (the tier-2 block) against its plain version at head width
+    H / h; with ``timed``, its median time beside the plain version's, the
+    library calls' (F.linear x3 + SDPA + F.linear) and the bound; with
+    ``split``, its device time by kernel and each GEMM against cuBLAS.
+    ``fan_in``: weights at 1/sqrt(H) (``layer_inputs``)."""
     import torch.nn.functional as F
 
     from zett_tpu_torch.ops import _build
     from zett_tpu_torch.ops.attention_block import attention_block, attention_block_reference
 
-    args = layer_inputs(B, L, dtype, gen, H)
+    d = H // h
+    args = layer_inputs(B, L, dtype, gen, H, fan_in=fan_in)
     x, mask, w = args[0], args[1], args[2:10]
     kb = block_bias(B, L, dtype, gen) if with_bias else None
     tag = f"kernel 4 B={B} L={L} {str(dtype)[6:]} {'key bias' if with_bias else 'no bias'}"
@@ -1501,7 +1541,7 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
     sdpa = F.scaled_dot_product_attention
 
     def library():
-        q, k, v = (F.linear(x, wi, bi).view(B, L, h, 64).transpose(1, 2)
+        q, k, v = (F.linear(x, wi, bi).view(B, L, h, d).transpose(1, 2)
                    for wi, bi in zip(wt[:3], (bq, bk, bv)))
         ctx = sdpa(q, k, v, attn_mask=amask).transpose(1, 2).reshape(B, L, H)
         return F.linear(ctx, wt[3], bo)
@@ -1510,7 +1550,7 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12):
         library_ms = median_ms(library)
     size = torch.finfo(dtype).bits // 8
     M = B * L
-    flops = 2 * M * 4 * H * H + 2 * 2 * B * h * L * L * 64
+    flops = 2 * M * 4 * H * H + 2 * 2 * B * h * L * L * d
     nbytes = (2 * M * H + 4 * H * H + 4 * H + (B * L if with_bias else 0)) * size + B * L * 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     log(f"  {tag}: {ms:.4f} ms (back to back {b2b:.4f} ms), plain {plain_ms:.4f} ms, F.linear "
@@ -1678,8 +1718,6 @@ def train_peak(config, name):
 
 
 def gc_free():
-    import gc
-
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2943,8 +2981,8 @@ def phase_tinyllama_transfer(model_dir, checkpoint):
     del model, sd, logits
     gc_free()
 
-    run, ms, times, n_vocab, shapes = timed_passes(captured, 5)
-    log(f"  (e) on {CARD}: hypernet median of 5 passes {ms:.3f} ms (min {min(times):.3f}, max "
+    run, ms, times, n_vocab, shapes = timed_passes(captured, 3)
+    log(f"  (e) on {CARD}: hypernet median of 3 passes {ms:.3f} ms (min {min(times):.3f}, max "
         f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
         f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
     busy, pass_wall, _ = device_breakdown(run)
@@ -3223,8 +3261,8 @@ def phase_mistral_transfer(model_dir):
             if lang != index or diff == 0:
                 raise AssertionError("--lang-index does not reach the hypernet")
             del sf, pr, src, emb_at, emb_0
-        run, ms, times, n_vocab, shapes = timed_passes(captured, 3)
-        log(f"  (d) {name} on {CARD}: hypernet median of 3 passes {ms:.3f} ms (min "
+        run, ms, times, n_vocab, shapes = timed_passes(captured, 2)
+        log(f"  (d) {name} on {CARD}: hypernet median of 2 passes {ms:.3f} ms (min "
             f"{min(times):.3f}, max {max(times):.3f}) for the {n_vocab}-token vocab in batches "
             f"{shapes} ({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
         busy, pass_wall, _ = device_breakdown(run)
@@ -3965,7 +4003,8 @@ def xlmr_tokenizer_json(n_vocab=250002, seed=SEED + 30):
     return data, n_real
 XLMR_BATCH, XLMR_VOCAB_SAMPLE = 128, 32768  # the config's, kept
 XLMR_STEPS, XLMR_IDENT = 4, 1  # 1 identity step and 3 train steps
-XLMR_VALID = 32  # held-out paragraphs a language (n_valid_subsample, cut from 4000)
+# held-out paragraphs a language (n_valid_subsample, cut from 4000; 32 before phase 19)
+XLMR_VALID = 16
 XLMR_CUT = 2  # layers of (c)'s lever comparison and (e)'s card-vs-CPU probe
 XLMR_LEVERS = dict(remat_backbone=True, loss_chunk_size=32)
 XLMR_PROBE_TEXTS = 64  # held-out paragraphs (e) scores (32 of them at the cut, card vs CPU)
@@ -4400,6 +4439,480 @@ def phase_xlmr_probe(model_dir, held_out):
     return dict(full=full, probe_s=probe_s, cut=got)
 
 
+# -------------------------------------------------------------------- phase 19
+# reference-format hypernet checkpoints (the reference's HF save layout:
+# config.json with the hn_* arguments, flax_model.msgpack in the reference's
+# names), written here by a small msgpack writer (the port has none) and
+# read by the port's load_reference_hypernet
+LLAMA0001 = os.path.join(REPO, "artifacts", "tokenizers", "llama0001", "tokenizer.json")
+REF_LAYERS = {"tinyllama": 3, "mistral": 2}  # hypernet layers of (a) and (b)
+VARIANT_ROWS = 4096  # surface forms of (d)'s card-vs-CPU checks
+VARIANT_LAYERS = 2
+ADAPTER_DIM = 64  # (d)'s language-adapter bottleneck
+
+
+def _mp_uint(n):
+    for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16), (0xCE, ">I", 1 << 32)):
+        if n < 128:
+            return bytes([n])
+        if n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b"\xcf" + struct.pack(">Q", n)
+
+
+def _mp_sized(n, fix, fix_max, codes):
+    """A length header: the fix form below ``fix_max``, else 8/16/32-bit
+    (``codes`` holds the codes that exist, None where a width does not)."""
+    if fix is not None and n < fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n}")
+
+
+def _mp_str(s):
+    b = s.encode()
+    return _mp_sized(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + b
+
+
+def write_msgpack(f, tree):
+    """flax's msgpack layout of a tree of dicts with array leaves: maps
+    with str keys, each leaf flax's ndarray ext (type 1: a msgpack array of
+    shape, dtype name and the raw bytes). numpy leaves, or torch bf16
+    tensors for "bfloat16". Leaves past flax's 1 GiB chunk size are not
+    written here."""
+    if isinstance(tree, dict):
+        f.write(_mp_sized(len(tree), 0x80, 16, (None, 0xDE, 0xDF)))
+        for k, v in tree.items():
+            f.write(_mp_str(k))
+            write_msgpack(f, v)
+        return
+    if isinstance(tree, torch.Tensor):
+        name, data = "bfloat16", tree.contiguous().view(torch.int16).numpy()
+    else:
+        data = np.ascontiguousarray(tree)
+        name = data.dtype.name
+    if data.nbytes > 1 << 30:
+        raise ValueError("a leaf past flax's MAX_CHUNK_SIZE")
+    head = (b"\x93" + _mp_sized(data.ndim, 0x90, 16, (None, 0xDC, 0xDD))
+            + b"".join(_mp_uint(int(n)) for n in data.shape) + _mp_str(name)
+            + _mp_sized(data.nbytes, None, 0, (0xC4, 0xC5, 0xC6)))
+    f.write(_mp_sized(len(head) + data.nbytes, None, 0, (0xC7, 0xC8, 0xC9)) + b"\x01" + head)
+    f.write(memoryview(data).cast("B"))
+
+
+# The reference's own parameter names, HF FlaxRobertaModel's and
+# FlaxT5EncoderModel's paths with the reference's hypernet extensions, typed
+# here rather than taken from the port's rename tables: a wrong entry there
+# then fails on the card as well as in the CPU tests. Port name (under
+# encoder/ or encoder/layer_N/) -> the reference's (under model/embeddings/
+# or model/encoder/{layer,block}/N/).
+REF_EMBED_NAMES = {"word_embeddings": ("embeddings", "word_embeddings"),
+                   "embeddings_ln": ("embeddings", "LayerNorm"),
+                   "prior_projection": ("embeddings", "target_priors_projection"),
+                   "lang_embedding": ("embeddings", "lang_embedding")}
+REF_LAYER_NAMES = {
+    ("attention", "query"): ("attention", "self", "query"),
+    ("attention", "key"): ("attention", "self", "key"),
+    ("attention", "value"): ("attention", "self", "value"),
+    ("attention", "out"): ("attention", "output", "dense"),
+    ("attention_ln",): ("attention", "output", "LayerNorm"),
+    ("intermediate",): ("intermediate", "dense"),
+    ("output",): ("output", "dense"),
+    ("output_ln",): ("output", "LayerNorm"),
+    ("lang_adapter_down_weights",): ("output", "lang_adapter_down_weights"),
+    ("lang_adapter_down_bias",): ("output", "lang_adapter_down_bias"),
+    ("lang_adapter_up_weights",): ("output", "lang_adapter_up_weights"),
+    ("lang_adapter_up_bias",): ("output", "lang_adapter_up_bias"),
+    ("inter_token_down", "query"): ("inter_token_attention_down", "self", "query"),
+    ("inter_token_down", "key"): ("inter_token_attention_down", "self", "key"),
+    ("inter_token_down", "value"): ("inter_token_attention_down", "self", "value"),
+    ("inter_token_down", "out"): ("inter_token_attention_down", "output", "dense"),
+    ("inter_token_down_ln",): ("inter_token_attention_down", "output", "LayerNorm"),
+    ("inter_token_up", "query"): ("inter_token_attention_up", "self", "query"),
+    ("inter_token_up", "key"): ("inter_token_attention_up", "self", "key"),
+    ("inter_token_up", "value"): ("inter_token_attention_up", "self", "value"),
+    ("inter_token_up", "out"): ("inter_token_attention_up", "output", "dense"),
+    ("inter_token_up_ln",): ("inter_token_attention_up", "output", "LayerNorm"),
+}
+REF_T5_NAMES = {"word_embeddings": ("shared",),
+                "prior_projection": ("encoder", "target_priors_projection"),
+                "final_ln": ("encoder", "final_layer_norm")}
+REF_T5_LAYER_NAMES = {
+    ("attention", "q"): ("layer", "0", "SelfAttention", "q"),
+    ("attention", "k"): ("layer", "0", "SelfAttention", "k"),
+    ("attention", "v"): ("layer", "0", "SelfAttention", "v"),
+    ("attention", "o"): ("layer", "0", "SelfAttention", "o"),
+    ("attention", "relative_attention_bias"): ("layer", "0", "SelfAttention",
+                                               "relative_attention_bias"),
+    ("attn_ln",): ("layer", "0", "layer_norm"),
+    ("ff", "wi"): ("layer", "1", "DenseReluDense", "wi"),
+    ("ff", "wi_0"): ("layer", "1", "DenseReluDense", "wi_0"),
+    ("ff", "wi_1"): ("layer", "1", "DenseReluDense", "wi_1"),
+    ("ff", "wo"): ("layer", "1", "DenseReluDense", "wo"),
+    ("ff_ln",): ("layer", "1", "layer_norm"),
+    ("inter_token_down", "q"): ("layer", "inter_token_attention_down", "q"),
+    ("inter_token_down", "k"): ("layer", "inter_token_attention_down", "k"),
+    ("inter_token_down", "v"): ("layer", "inter_token_attention_down", "v"),
+    ("inter_token_down", "o"): ("layer", "inter_token_attention_down", "o"),
+    ("inter_token_up", "q"): ("layer", "inter_token_attention_up", "q"),
+    ("inter_token_up", "k"): ("layer", "inter_token_attention_up", "k"),
+    ("inter_token_up", "v"): ("layer", "inter_token_attention_up", "v"),
+    ("inter_token_up", "o"): ("layer", "inter_token_attention_up", "o"),
+    ("inter_token_ln1",): ("layer", "inter_token_layer_norm1"),
+    ("inter_token_ln2",): ("layer", "inter_token_layer_norm2"),
+}
+
+
+def reference_layout(flat, cfg, gen):
+    """The port's Flax-layout parameters ("/"-joined paths) under the
+    reference's names (REF_*_NAMES): the position table split into the
+    reference's table and its token-type row, no adapter LayerNorm (the
+    reference reuses the output one), and the tables the reference
+    allocates whatever the config says, seeded from ``gen``. A nested dict
+    of f32 numpy arrays."""
+    from zett_tpu_torch.models.convert import unflatten
+
+    def table(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=gen.device)).cpu().numpy()
+
+    t5 = cfg.encoder_type == "t5"
+    layer = REF_T5_LAYER_NAMES if t5 else REF_LAYER_NAMES
+    stack = ("model", "encoder", "block" if t5 else "layer")
+    ref = {}
+    for key, value in flat.items():
+        path = tuple(key.split("/"))
+        if path[0] != "encoder":
+            ref[path] = value
+        elif t5 and path[1] in REF_T5_NAMES:
+            ref[("model",) + REF_T5_NAMES[path[1]] + path[2:]] = value
+        elif path[1] == "inter_token_blocks":
+            ref[stack + ("inter_token_blocks",)] = value
+        elif path[1] == "position_embeddings":
+            token_type = table(1, cfg.hidden_size)
+            ref[("model", "embeddings", "token_type_embeddings", "embedding")] = token_type
+            ref[("model", "embeddings", "position_embeddings", "embedding")] = value - token_type[0]
+        elif path[1] in REF_EMBED_NAMES:
+            ref[("model",) + REF_EMBED_NAMES[path[1]] + path[2:]] = value
+        elif path[2] != "adapter_ln":
+            for n in range(len(path) - 2, 0, -1):
+                if path[2:2 + n] in layer:
+                    ref[stack + (path[1][len("layer_"):],) + layer[path[2:2 + n]]
+                        + path[2 + n:]] = value
+                    break
+            else:
+                raise KeyError(key)
+    H = cfg.hidden_size
+    if t5:
+        placeholders = {("model", "shared", "embedding"): (1, H),
+                        ("model", "encoder", "target_priors_projection", "kernel"): (1, H),
+                        ("model", "encoder", "target_priors_projection", "bias"): (H,)}
+    else:
+        placeholders = {("model", "embeddings", "word_embeddings", "embedding"): (1, H),
+                        ("model", "embeddings", "target_priors_projection", "kernel"): (1, H),
+                        ("model", "embeddings", "target_priors_projection", "bias"): (H,),
+                        ("model", "embeddings", "lang_embedding", "embedding"): (1, H)}
+    placeholders[stack + ("inter_token_blocks",)] = (cfg.n_inter_token_blocks, H)
+    for path, shape in placeholders.items():
+        if path not in ref:
+            ref[path] = table(*shape)
+    return unflatten(ref)
+
+
+def reference_config(cfg, backbone_vocab, **extra):
+    """A reference config.json for ``cfg``: the hn_* arguments (the port's
+    _CONFIG_KEYMAP inverted), the backbone's vocab and position sizes (which
+    the loader replaces by the tables' sizes), no hidden_act (HF roberta's
+    erf-gelu) unless ``extra`` names one."""
+    from zett_tpu_torch.models import reference_io as rio
+
+    out = {src: getattr(cfg, dst) for src, dst in rio._CONFIG_KEYMAP.items()}
+    out.update(vocab_size=backbone_vocab, max_position_embeddings=2048,
+               hn_model_type="t5" if cfg.encoder_type == "t5" else "roberta")
+    if cfg.encoder_type == "t5":
+        out.update(d_model=cfg.hidden_size, d_ff=cfg.intermediate_size,
+                   num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
+                   d_kv=cfg.hidden_size // cfg.num_attention_heads,
+                   layer_norm_epsilon=cfg.layer_norm_eps, feed_forward_proj=cfg.hidden_act)
+    out.update(extra)
+    return out
+
+
+def write_reference_checkpoint(path, cfg, backbone_vocab, gen, bf16=False, **extra):
+    """A seeded reference-format checkpoint of ``cfg`` at ``path``:
+    config.json and flax_model.msgpack (f32 leaves, or bf16). Returns the
+    file's bytes and the seconds the draw and the write took."""
+    t0 = time.perf_counter()
+    tree = reference_layout(flax_layout(meta_hypernet(cfg), gen), cfg, gen)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(reference_config(cfg, backbone_vocab, **extra), f)
+
+    def leaves(node):
+        return {k: leaves(v) if isinstance(v, dict) else
+                (torch.from_numpy(v).to(torch.bfloat16) if bf16 else v)
+                for k, v in node.items()}
+
+    with open(os.path.join(path, "flax_model.msgpack"), "wb") as f:
+        write_msgpack(f, leaves(tree))
+    return os.path.getsize(os.path.join(path, "flax_model.msgpack")), time.perf_counter() - t0
+
+
+def load_reference_on(path, device, dtype):
+    """``load_reference_hypernet`` and the port's Hypernet holding its
+    parameters on ``device`` in ``dtype``: (hypernet, seconds of the load
+    and of the move)."""
+    from zett_tpu_torch.models import load_reference_hypernet
+    from zett_tpu_torch.models.convert import flax_to_torch
+
+    t0 = time.perf_counter()
+    cfg, params = load_reference_hypernet(path)
+    state = flax_to_torch(params)
+    load_s = time.perf_counter() - t0
+    model = meta_hypernet(cfg, dtype)
+    own = model.state_dict()
+    model.load_state_dict({k: v.to(device).to(own[k].dtype) for k, v in state.items()},
+                          assign=True)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return model.to(device).eval(), load_s, time.perf_counter() - t0 - load_s
+
+
+def reference_transfer(tag, cfg, model_dir, heads, reps):
+    """(a)/(b): the seeded reference-format checkpoint of ``cfg``
+    (``prepare_inputs`` wrote it while the kernels built) over the
+    Llama-family source at ``model_dir``, loaded by the port, through
+    ``transfer()`` (bf16) to llama0001: both tables at 32771 rows, kernel
+    4's launches (every non-CLS layer of every batch: erf-gelu), the
+    hypernet per 32k vocab over the transfer's own batches (median of
+    ``reps`` passes)."""
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.transfer import core
+
+    ckpt = os.path.join(WORK, f"reference_{tag}")
+    nbytes, write_s, leaf_dtype = PREPARED.pop(f"reference_{tag}")
+    hypernet, load_s, move_s = load_reference_on(ckpt, "cuda", torch.bfloat16)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sd = load_hf_state_dict(model_dir)
+    got_cfg = hypernet.config
+    log(f"  ({tag}) reference checkpoint: flax_model.msgpack {nbytes / 2**30:.3f} GiB "
+        f"({leaf_dtype} leaves, drawn and written in {write_s:.3f} s while the kernels built); "
+        f"load_reference_hypernet {load_s:.3f} s, to the card {move_s:.3f} s; hidden_act "
+        f"{got_cfg.hidden_act!r}, {got_cfg.num_hidden_layers} layers, {got_cfg.hidden_size} "
+        f"hidden, {got_cfg.num_attention_heads} heads of "
+        f"{got_cfg.hidden_size // got_cfg.num_attention_heads}")
+    if got_cfg.hidden_act != "gelu" or got_cfg.num_attention_heads != heads:
+        raise AssertionError(f"the reference config read as {got_cfg}")
+    source, _ = convert_to_byte_level(Tokenizer.from_file(os.path.join(model_dir,
+                                                                       "tokenizer.json")))
+    emb_in = sd["model.embed_tokens.weight"].float().numpy()
+    emb_out = sd["lm_head.weight"].float().numpy()
+    del sd
+    batch = 16384
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with captured_transfer() as captured:
+        new_in, new_out, bias, target = core.transfer(
+            hypernet=hypernet, hn_tokenizer=source, source_tokenizer=source,
+            source_embeddings_in=emb_in, source_embeddings_out=emb_out,
+            target_tokenizer=Tokenizer.from_file(LLAMA0001), batch_size=batch, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    n = len(target)
+    n_batches = -(-n // batch)
+    expected = dict.fromkeys(_build.launch_counts, 0)
+    expected["attention_block"] = n_batches * (cfg.num_hidden_layers - 1)
+    expected["attention_core"] = n_batches
+    log(f"  ({tag}) transfer() to llama0001: {n} rows in {wall:.3f} s; emb_in "
+        f"{new_in.shape}, emb_out {new_out.shape}; launches {launches} (expected {expected}: "
+        f"kernel 4 at {heads} heads of 128 on {cfg.num_hidden_layers - 1} of "
+        f"{cfg.num_hidden_layers} layers a batch)")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    width = cfg.n_embd
+    if n != 32771 or new_in.shape != (n, width) or new_out.shape != (n, width) \
+            or not (np.isfinite(new_in).all() and np.isfinite(new_out).all()
+                    and np.isfinite(bias).all()) or np.array_equal(new_in, new_out):
+        raise AssertionError("the transfer did not give two finite predicted tables")
+    run, ms, times, n_vocab, shapes = timed_passes(captured, reps)
+    log(f"  ({tag}) on {CARD}: hypernet median of {reps} passes {ms:.3f} ms (min {min(times):.3f}, "
+        f"max {max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
+        f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
+    del run, captured, hypernet
+    gc_free()
+    return dict(launches=launches, wall=wall, ms_per_32k=ms * 32768 / n_vocab,
+                file_gib=nbytes / 2**30, load_s=load_s)
+
+
+def mistral_reference_config():
+    """mistral7b_en_code's hypernet at REF_LAYERS["mistral"] of its 3 layers."""
+    return dataclasses.replace(mistral_hypernet_config("en_code"),
+                               num_hidden_layers=REF_LAYERS["mistral"])
+
+
+def write_reference_inputs():
+    """(a) and (b)'s reference checkpoints (f32 leaves at TinyLlama's
+    hypernet, bf16 at Mistral-7B's), for ``prepare_inputs``."""
+    for tag, cfg, vocab, bf16 in (
+            ("a", tinyllama_reference_config(), TINYLLAMA["vocab_size"], False),
+            ("b", mistral_reference_config(), MISTRAL["vocab_size"], True)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 42 + ord(tag))
+        nbytes, seconds = write_reference_checkpoint(os.path.join(WORK, f"reference_{tag}"), cfg,
+                                                     vocab, gen, bf16=bf16)
+        PREPARED[f"reference_{tag}"] = (nbytes, seconds, "bf16" if bf16 else "f32")
+
+
+def tinyllama_reference_config():
+    """tinyllama_en_code_lw0.5_long.json's hypernet as a reference
+    checkpoint holds it over TinyLlama: n_embd 2048, the untied head (dual
+    heads), the 32000-row source table, REF_LAYERS layers."""
+    from zett_tpu_torch.training.__main__ import load_config_file, load_configs
+
+    _, _, hn = load_configs(load_config_file(TINYLLAMA_RUN))
+    return dataclasses.replace(hn, n_embd=TINYLLAMA["hidden_size"], separate_out_embeddings=True,
+                               original_vocab_size=TINYLLAMA["vocab_size"],
+                               num_hidden_layers=REF_LAYERS["tinyllama"])
+
+
+def xlmr_hypernet_config(**overrides):
+    """configs/zeroshot/xlmr_26l.json's hypernet over XLM-R base (n_embd
+    768, the 250002-row source table, 26 language ids) at VARIANT_LAYERS
+    layers, with ``overrides``."""
+    from zett_tpu_torch.training.__main__ import load_config_file, load_configs
+
+    config = load_config_file(XLMR_RUN)
+    _, _, hn = load_configs(config)
+    with open(os.path.join(REPO, config["langs"])) as f:
+        n_langs = len([line for line in f if line.strip()])
+    return dataclasses.replace(hn, n_embd=XLMR["hidden_size"],
+                               original_vocab_size=XLMR["vocab_size"], n_langs=n_langs,
+                               num_hidden_layers=VARIANT_LAYERS, **overrides)
+
+
+def phase_heads128_block():
+    """(c) kernel 4 at 16 and 32 heads of 128 against its plain version at
+    the transfer's shapes: B 16384, L 8 and 7, a key mask with all-padding
+    rows, with and without the prior key bias; bf16 (L 8 without the bias
+    timed: single call, back to back, the bound, the plain version, F.linear
+    x3 + SDPA + F.linear) and f32 at B 2048; weights at 1/sqrt(H)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    results = {}
+    for name, H, h in (("attention_block_d128", 2048, 16), ("attention_block_d128_h32", 4096, 32)):
+        for L in (8, 7):
+            for with_bias in (False, True):
+                for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 2048)):
+                    timed = dtype == torch.bfloat16 and L == 8 and not with_bias
+                    r = check_kernel4(B, L, dtype, with_bias, gen, timed, H=H, h=h, fan_in=True)
+                    if r is not None and not with_bias:
+                        results[name] = r
+                    gc_free()
+    return results
+
+
+def phase_variants():
+    """(d) the hypernet variants at xlmr_26l's widths (768, 12 heads of 64,
+    26 language ids) at VARIANT_LAYERS layers, each from a checkpoint the
+    port loads: language adapters under gelu_new and under erf-gelu
+    (reference format), concat pooling at one position (a port checkpoint;
+    ROADMAP C.21), relative positions (a port checkpoint: the reference
+    format cannot say it) and the T5 encoder with gated-gelu (reference
+    format). VARIANT_ROWS rows on the card against the same rows on the
+    CPU, f32, within 1e-4 of the output scale; the launches of kernels 1, 2
+    and 4, none where the JAX module routes none."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.transfer.__main__ import load_hypernet
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    rng = np.random.default_rng(SEED + 41)
+    vocab = XLMR["vocab_size"]
+    src_card = 0.02 * torch.randn((vocab, XLMR["hidden_size"]), generator=gen, device="cuda")
+    src = src_card.cpu()
+    adapters = dict(language_adapter_bottleneck_dim=ADAPTER_DIM)
+    variants = (  # name, config, reference format?, extra config.json keys, launches
+        ("adapters_gelu_new", xlmr_hypernet_config(**adapters, hidden_act="gelu_new"), True,
+         {"hidden_act": "gelu_new"}, {"encoder_layer": 1, "attention_core": 1}),
+        ("adapters_erf_gelu", xlmr_hypernet_config(**adapters, hidden_act="gelu"), True, {},
+         {"attention_block": 1, "attention_core": 1}),
+        ("concat", xlmr_hypernet_config(concat_last_hidden_state=True, hn_surface_maxlen=1,
+                                        embed_lang_id=False), False, {},
+         {"encoder_layer": VARIANT_LAYERS}),
+        ("relative", xlmr_hypernet_config(position_embedding_type="relative"), False, {}, {}),
+        ("t5_gated_gelu", xlmr_hypernet_config(encoder_type="t5", hidden_act="gated-gelu",
+                                               layer_norm_eps=1e-6, embed_lang_id=False),
+         True, {}, {}),
+    )
+    launched = {}
+    for name, cfg, reference, extra, want in variants:
+        path = os.path.join(WORK, f"variant_{name}")
+        t0 = time.perf_counter()
+        if reference:
+            write_reference_checkpoint(path, cfg, vocab, gen, **extra)
+            card, _, _ = load_reference_on(path, "cuda", torch.float32)
+            cpu, _, _ = load_reference_on(path, "cpu", torch.float32)
+        else:
+            os.makedirs(path)
+            with open(os.path.join(path, "hn_config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f)
+            np.savez(os.path.join(path, "params.npz"), **flax_layout(meta_hypernet(cfg), gen))
+            card, cpu = load_hypernet(path, torch.device("cuda")), load_hypernet(path, "cpu")
+        shutil.rmtree(path, ignore_errors=True)
+        sf = torch.from_numpy(hypernet_inputs(rng, VARIANT_ROWS, vocab, cfg.hn_surface_maxlen,
+                                              cfg.n_extra_tokens))
+        priors = torch.from_numpy(hypernet_priors(rng, VARIANT_ROWS))
+        lang = 3 if cfg.embed_lang_id or cfg.language_adapter_bottleneck_dim else 0
+        expected = {k: want.get(k, 0) for k in ("encoder_layer", "attention_block",
+                                                "attention_core")}
+        before = dict(_build.launch_counts)
+        with torch.inference_mode():
+            got = card(sf.cuda(), priors.cuda(), src_card, lang)
+            torch.cuda.synchronize()
+            counts = {k: _build.launch_counts[k] - before[k] for k in expected}
+            ref = cpu(sf, priors, src, lang)
+        log(f"  (d) {name} ({'reference format' if reference else 'port checkpoint'}, "
+            f"{time.perf_counter() - t0:.3f} s with the CPU's side): launches {counts} "
+            f"(expected {expected})")
+        if counts != expected:
+            raise AssertionError(f"{name} launched {counts}, expected {expected}")
+        for what, g, r in zip(("emb_in", "emb_out", "bias"), got, ref):
+            if r is None:
+                continue
+            g, r = g.float().cpu().numpy(), r.float().numpy()
+            err, scale = float(np.abs(g - r).max()), max(float(np.abs(r).max()), 1.0)
+            log(f"  (d) {name} {what}: max abs {err:.3g} at scale {scale:.3g} (tol 1e-4 x scale)")
+            if not np.isfinite(g).all() or err > 1e-4 * scale:
+                raise AssertionError(f"{name}'s {what} differs on the card: {err}")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+        del card, cpu, got, ref
+        gc_free()
+    return launched
+
+
+def phase_reference():
+    """Phase 19: (a) a TinyLlama-shaped reference checkpoint at full width
+    and depth through transfer(); (b) Mistral-7B's hypernet widths the same
+    way; (c) kernel 4 at 16 and 32 heads of 128; (d) the hypernet variants."""
+    t_phase = time.perf_counter()
+    step("(a) a TinyLlama reference checkpoint (erf-gelu, 16 heads of 128) through transfer()")
+    tinyllama = reference_transfer("a", tinyllama_reference_config(),
+                                   os.path.join(WORK, "tinyllama"), 16, 3)
+    step("(b) Mistral-7B's hypernet widths (32 heads of 128) through transfer()")
+    mistral = reference_transfer("b", mistral_reference_config(), os.path.join(WORK, "mistral"),
+                                 32, 2)
+    step("(c) kernel 4 at 16 and 32 heads of 128 against its plain version")
+    kernels = phase_heads128_block()
+    step("(d) the hypernet variants at xlmr_26l's widths, card vs CPU")
+    variants = phase_variants()
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 19: {wall:.3f} s wall")
+    return kernels, tinyllama, mistral, variants, wall
+
+
 PREPARED = {}  # prepare_inputs' entries, each taken by its phase
 
 
@@ -4410,7 +4923,8 @@ def prepare_inputs():
     checkpoints, phase 12's synthetic pretokens, phase 14's
     TinyLlama and its 2-layer cut, phase 15's Mistral and its seeded
     en_code hypernet checkpoint, phase 18's XLM-R and its 250002-id
-    tokenizer. Each PREPARED entry holds its seconds."""
+    tokenizer, phase 19's two reference checkpoints. Each PREPARED entry
+    holds its seconds."""
     from zett_tpu_torch.tokenization.convert import convert_to_byte_level
     from zett_tpu_torch.tokenization.core import Tokenizer
 
@@ -4442,6 +4956,7 @@ def prepare_inputs():
     del flat
     t0 = time.perf_counter()
     PREPARED["xlmr"] = (*write_xlmr(os.path.join(WORK, "xlmr")), time.perf_counter() - t0)
+    write_reference_inputs()
 
 
 def main():
@@ -4479,16 +4994,22 @@ def main():
             prepare_inputs()
             prepared_s = time.perf_counter() - t0
             build_s, host_s = built.result(), host_built.result()
+        # what is alive now (the modules, the prepared inputs) lives to the
+        # end: the later full collections, gc_free's among them, skip it
+        gc.collect()
+        gc.freeze()
         phase(f"phase 1: built {list(_build.SOURCES)} in {build_s:.2f} s; the native host "
               f"library (g++) beside it in {host_s:.2f} s; later phases' inputs written "
               f"meanwhile in {prepared_s:.2f} s")
-        check_build()
+        sass_report = check_build()
         phase("phase 2: kernels against their plain versions")
         kernels = phase_kernels()
         phase("phase 3: hypernet at gpt2_en widths, card vs CPU (f32)")
         phase_hypernet()
         phase("phase 4: transfer through the CLI on its default device")
         transfer_launches, wall, hn_ms, _ = phase_transfer()
+        step("phase 1's SASS check, read meanwhile")
+        sass_report()
         phase("phase 5: kernels 2 and 3 against their plain versions at the training shapes")
         kernels.update(phase_train_kernels())
         phase("phase 6: the hypernet's training route at gpt2_en widths, card vs CPU (f32)")
@@ -4538,6 +5059,10 @@ def main():
         phase("phase 18: XLM-R base (random weights at its published config) through MLM "
               "training at xlmr_26l, transfer to roberta0001 and mlm_probe")
         xlmr = phase_xlmr()
+        phase("phase 19: reference-format hypernet checkpoints through transfer(), kernel 4 at "
+              "head width 128, the hypernet variants")
+        kernels_ref, ref_tinyllama, ref_mistral, ref_variants, ref_wall = phase_reference()
+        kernels.update(kernels_ref)
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -4566,6 +5091,12 @@ def main():
     for name in ("encoder_layer", "attention_core", "attention_core_bwd"):
         sources[f"{name}_d128"] = sources[name]
         sources[f"{name}_h32"] = sources[name]
+    # kernel 4 at head width 128 (phase 19's reference checkpoints: 16
+    # heads over TinyLlama, 32 at Mistral-7B's widths)
+    sources["attention_block_d128"] = sources["attention_block_d128_h32"] = \
+        sources["attention_block"]
+    reference_runs = {"attention_block_d128": ref_tinyllama["launches"],
+                      "attention_block_d128_h32": ref_mistral["launches"]}
     llama_runs = (llama_train["launches"], llama_transfer["launches"], ml_launches)
     off_path = OFF_PATH + ("attention_core_bwd_h32",)
     rows = []
@@ -4574,7 +5105,9 @@ def main():
         # 18(d)), training (phases 7, 11, 13 and 18(c)) and the prior
         # pipeline (phase 12) at head width 64; TinyLlama's training and
         # transfer (phase 14) at 128
-        if name.endswith("_d128"):
+        if name in reference_runs:
+            n = reference_runs[name].get("attention_block", 0)
+        elif name.endswith("_d128"):
             n = sum(run.get(name[:-len("_d128")], 0) for run in llama_runs)
         elif name.endswith("_h32"):
             n = mistral_launches.get(name[:-len("_h32")], 0)
@@ -4611,7 +5144,12 @@ def main():
         f"{xlmr['train']['peak_gb']:.2f} xlmr_masked_share {xlmr['train']['share']:.4f} "
         f"xlmr_transfer_wall_s {xlmr['transfer']['wall']:.3f} xlmr_hypernet_ms_per_32k "
         f"{xlmr['transfer']['ms_per_32k']:.3f} xlmr_mlm_loss "
-        f"{xlmr['probe']['full']['mlm_loss']:.4f} phase18_wall_s {xlmr['wall']:.3f}")
+        f"{xlmr['probe']['full']['mlm_loss']:.4f} phase18_wall_s {xlmr['wall']:.3f} "
+        f"reference_tinyllama_hypernet_ms_per_32k {ref_tinyllama['ms_per_32k']:.3f} "
+        f"reference_tinyllama_load_s {ref_tinyllama['load_s']:.3f} "
+        f"reference_mistral_hypernet_ms_per_32k {ref_mistral['ms_per_32k']:.3f} "
+        f"reference_mistral_load_s {ref_mistral['load_s']:.3f} variant_launches "
+        f"{ref_variants} phase19_wall_s {ref_wall:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ from zett_tpu_torch.ops.device_viterbi import viterbi_spans_dp, viterbi_spans_dp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "regex", "safetensors",
-             "tokenizers", "transformers", "datasets", "zett_tpu")
+             "tokenizers", "transformers", "datasets", "zett_tpu", "msgpack", "ml_dtypes")
 
 
 def _port_files():
@@ -61,9 +61,10 @@ def test_port_imports_nothing_forbidden(path):
                                     "zett_tpu_torch.transfer.baselines_cli"])
 def test_cli_import_leaves_jax_out(module):
     code = (f"import sys, {module}, zett_tpu_torch.data, zett_tpu_torch.training.engine, "
-            "zett_tpu_torch.evaluation.loop, zett_tpu_torch.transfer.baselines; "
+            "zett_tpu_torch.evaluation.loop, zett_tpu_torch.transfer.baselines, "
+            "zett_tpu_torch.models.reference_io, zett_tpu_torch.models.hypernet_t5; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets', "
+            "('jax', 'flax', 'optax', 'zett_tpu', 'regex', 'safetensors', 'datasets', 'msgpack', "
             "'tokenizers', 'transformers')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -236,13 +236,115 @@ def test_hypernet_at_head128_matches_jax(dtype_name):
             assert err.mean() <= 0.003 * scale, (name, err.mean(), scale)
 
 
-@pytest.mark.parametrize("override", [{"add_inter_token_attention": True},
+@pytest.mark.parametrize("override", [{"add_inter_token_attention": True, "n_inter_token_blocks": 4,
+                                       "embed_target_priors": True,
+                                       "inter_token_attention_bias_by_priors": True},
                                       {"hidden_act": "gelu"}])
 def test_head128_layers_that_take_kernel4_raise(override):
     """At head width 128 the layers that take kernel 4 (inter-token
-    attention, erf-gelu) wait for kernel 4 at d = 128 (ROADMAP A.10)."""
-    with pytest.raises(NotImplementedError, match="A.10"):
-        Hypernet(HypernetConfig(**{**HN, **override}))
+    attention, erf-gelu) run now: the inference route (kernel 4's plain
+    version at d = 128 on every layer with inter-token attention, on the
+    non-CLS layers with erf-gelu) against the JAX Hypernet. f32: max abs
+    within 1e-5 of the output scale; bf16: C.6's bound, max abs within 2%
+    of the output scale, mean within 0.3%, the bias within 0.03."""
+    from zett_tpu_torch.models import hypernet as hn
+
+    cfg = {**HN, **override}
+    sf, src = _hn_inputs()
+    priors = np.random.default_rng(5).normal(size=len(sf)).astype(np.float32) * 2.0 - 9.0
+    calls = []
+    orig = hn.attention_block_fused
+    for dtype_name, (jdt, tdt) in DTYPES.items():
+        jax_model = JaxHypernet(JaxConfig(**cfg), dtype=jdt)
+        p = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0), jnp.asarray(sf[:4]),
+                           jnp.zeros(4), jnp.asarray(src), 0)
+        flat = traverse_util.flatten_dict(p["params"], sep="/")
+        rng = np.random.default_rng(1)
+        for k, v in flat.items():
+            if k.endswith("kernel"):
+                x = rng.normal(size=v.shape) / np.sqrt(v.shape[0])
+            elif k.endswith("scale") or k.endswith("/w"):
+                x = 1.0 + 0.1 * rng.normal(size=v.shape)
+            else:
+                x = 0.05 * rng.normal(size=v.shape)
+            flat[k] = jnp.asarray(x.astype(np.float32), v.dtype)
+        refs = jax.jit(jax_model.apply)({"params": traverse_util.unflatten_dict(flat, sep="/")},
+                                        jnp.asarray(sf), jnp.asarray(priors), jnp.asarray(src), 0)
+        model = Hypernet(HypernetConfig(**cfg), dtype=tdt)
+        model.load_state_dict(flax_to_torch({k: np.asarray(v) for k, v in flat.items()}))
+        calls.clear()
+        hn.attention_block_fused = lambda *a, **k: (calls.append(a[0].shape), orig(*a, **k))[1]
+        try:
+            with torch.inference_mode():
+                gots = model(torch.from_numpy(sf).long(), torch.from_numpy(priors),
+                             torch.from_numpy(src))
+        finally:
+            hn.attention_block_fused = orig
+        n_block = HN["num_hidden_layers"] - (0 if "add_inter_token_attention" in override else 1)
+        assert len(calls) == n_block, calls
+        for name, got, ref in zip(("in", "out", "bias"), gots, refs):
+            got, ref = _f32(got), _f32(ref)
+            assert got.shape == ref.shape and np.isfinite(got).all(), name
+            err = np.abs(got - ref)
+            scale = max(float(np.abs(ref).max()), 1.0)
+            if dtype_name == "float32":
+                assert err.max() <= 1e-5 * scale, (name, err.max(), scale)
+            elif name == "bias":
+                assert err.max() <= 0.03, err.max()
+            else:
+                assert err.max() <= 0.02 * scale, (name, err.max(), scale)
+                assert err.mean() <= 0.003 * scale, (name, err.mean(), scale)
+
+
+@pytest.mark.parametrize("override", [{"add_inter_token_attention": True, "n_inter_token_blocks": 4,
+                                       "embed_target_priors": True,
+                                       "inter_token_attention_bias_by_priors": True},
+                                      {"hidden_act": "gelu"}])
+def test_head128_kernel4_layers_training_route_matches_jax(override):
+    """The same configurations on the training route (inference=False, rate
+    0, f32): JAX's loss and every parameter gradient, within 1e-5 of the
+    loss and of each leaf's largest gradient (or of 1% of the model's
+    largest, for leaves whose exact gradient is 0)."""
+    from zett_tpu_torch.models.convert import flax_paths
+
+    cfg = {**HN, **override}
+    sf, src = _hn_inputs()
+    priors = np.random.default_rng(5).normal(size=len(sf)).astype(np.float32) * 2.0 - 9.0
+    jax_model = JaxHypernet(JaxConfig(**cfg))
+    p = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0), jnp.asarray(sf[:4]),
+                       jnp.zeros(4), jnp.asarray(src), 0)
+    flat = traverse_util.flatten_dict(p["params"], sep="/")
+    rng = np.random.default_rng(1)
+    for k, v in flat.items():
+        scale = 1.0 / np.sqrt(v.shape[0]) if k.endswith("kernel") else 0.05
+        x = scale * rng.normal(size=v.shape)
+        flat[k] = (1.0 + x if k.endswith("scale") or k.endswith("/w") else x).astype(np.float32)
+    w = np.random.default_rng(3).normal(size=(len(sf), 64)).astype(np.float32)
+
+    def jloss(params):
+        e, o, b = jax_model.apply({"params": params}, jnp.asarray(sf), jnp.asarray(priors),
+                                  jnp.asarray(src), 0, deterministic=True, inference=False)
+        return (e * w).sum() + (o * w).sum() + b.sum()
+
+    want, jgrads = jax.jit(jax.value_and_grad(jloss))(traverse_util.unflatten_dict(flat, sep="/"))
+    jgrads = traverse_util.flatten_dict(jgrads, sep="/")
+    model = Hypernet(HypernetConfig(**cfg))
+    model.load_state_dict(flax_to_torch(flat))
+    e, o, b = model(torch.from_numpy(sf).long(), torch.from_numpy(priors), torch.from_numpy(src),
+                    0, deterministic=True, inference=False)
+    wt = torch.from_numpy(w)
+    got = (e * wt).sum() + (o * wt).sum() + b.sum()
+    got.backward()
+    got = float(got.detach())
+    assert abs(got - float(want)) <= 1e-5 * abs(float(want)), (got, float(want))
+    floor = 1e-2 * max(float(np.abs(np.asarray(g)).max()) for g in jgrads.values())
+    params = dict(model.named_parameters())
+    for pname, (path, transpose) in flax_paths(model).items():
+        g = params[pname].grad
+        g = (g.t() if transpose else g).numpy()
+        want_g = np.asarray(jgrads["/".join(path)])
+        tol = 1e-5 * max(float(np.abs(want_g).max()), floor)
+        assert np.abs(g - want_g).max() <= tol, (pname, np.abs(g - want_g).max(), tol)
 
 
 def test_remat_glue_same_gradients_fewer_saved_bytes():

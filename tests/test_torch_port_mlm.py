@@ -669,7 +669,8 @@ def test_c20_special_past_the_target_vocab(xlmr_like_json):
             return jnp.ones((sf.shape[0], 8)), None, jnp.zeros(sf.shape[0])
 
     class Stub(torch.nn.Module):
-        config = SimpleNamespace(hn_surface_maxlen=4, pad_token_id=0)
+        config = SimpleNamespace(hn_surface_maxlen=4, pad_token_id=0,
+                                 concat_last_hidden_state=False)
         dtype = torch.float32
 
         def __init__(self):

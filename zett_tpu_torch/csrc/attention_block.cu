@@ -6,7 +6,9 @@
 // attention_block_pallas (:530, :611). On the inference route it runs every
 // encoder layer's self-attention that cannot take kernel 1's whole layer:
 // every layer of a configuration with inter-token attention, and every
-// non-CLS layer of an erf-gelu one.
+// non-CLS layer of an erf-gelu one (a reference-format checkpoint's). Head
+// widths 64 and 128 (the core of attention.cuh at either, up to 32 heads in
+// bf16: two heads a warp past 16).
 //
 // Inputs: x (B, L, H) in T (f32 or bf16), mask (B, L) f32 (null: every key
 // valid), kbias (B, L) in T (null: no bias), wqkv_t = [wq | wk | wv]^T
@@ -63,7 +65,7 @@ cudaError_t attention_block(const T* x, const float* mask, const T* kbias, int B
   a.m_sl = a.kb_sl = 1;
   a.m_sh = a.kb_sh = 0;
   a.kbias = kbias;
-  err = launch_attention<T>(a, s);
+  err = launch_attention_d<T>(a, H / nh, s);  // head width 64 or 128
   if (err != cudaSuccess) return err;
   return gemm<T>(ctx, wo_t, bo, out, M, H, H, 0, s);
 }
@@ -71,7 +73,7 @@ cudaError_t attention_block(const T* x, const float* mask, const T* kbias, int B
 }  // namespace zt
 
 // dtype: 0 = float32, 1 = bfloat16. wqkv_t = [wq | wk | wv]^T (3H, H) and
-// wo_t = wo^T (H, H), row-major; H % 8 == 0. qkv (B*L, 3H) and ctx
+// wo_t = wo^T (H, H), row-major; H % 8 == 0; H / nh is 64 or 128. qkv (B*L, 3H) and ctx
 // (B*L, H) are scratch buffers of the caller's. Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_block(int dtype, const void* x, const float* mask, const void* kbias,
                                   int B, int L, int H, int nh, const void* wqkv_t,

@@ -7,7 +7,9 @@ Dense kernels (in, out) become ``nn.Linear`` weights (out, in); embedding
 tables and LayerNorm scales become ``weight``; ``layers_N`` of an
 ``nn.Sequential`` becomes ``N`` and the encoder's ``layer_N`` becomes
 ``layers.N``. Values keep their dtype; bfloat16 leaves (numpy arrays of the
-``bfloat16`` extension dtype) become torch bfloat16.
+``bfloat16`` extension dtype, or ``torch.bfloat16`` tensors as
+``msgpack_io`` reads them) become torch bfloat16. ``flax_to_torch`` also
+takes a nested tree (``reference_io.load_reference_hypernet``'s).
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import numpy as np
 import torch
 
 
-def _to_tensor(v: np.ndarray) -> torch.Tensor:
+def _to_tensor(v) -> torch.Tensor:
     """A contiguous tensor of its own with ``v``'s values. A transposed
     kernel is laid out by torch's blocked copy, many times faster than
     numpy's at a (4096, 8192) kernel."""
+    if isinstance(v, torch.Tensor):
+        return v.contiguous() if not v.is_contiguous() else v.clone()
     if v.dtype.name == "bfloat16":
         return torch.from_numpy(np.asarray(v, dtype=np.float32)).to(torch.bfloat16)
     if not v.flags.writeable:
@@ -31,10 +35,33 @@ def _to_tensor(v: np.ndarray) -> torch.Tensor:
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
 
+def flatten(tree, prefix=()) -> dict:
+    """A nested dict's leaves by their paths, tuples of str keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """``flatten``'s inverse."""
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = v
+    return tree
+
+
 def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """"/"-joined Flax paths (or a nested tree) -> the port's state dict."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, value in flat.items():
-        parts = path.split("/")
+    for path, value in flatten(flat).items():
+        parts = "/".join(path).split("/")
         mods = []
         for p in parts[:-1]:
             m = re.fullmatch(r"(layers?)_(\d+)", p)
@@ -45,7 +72,8 @@ def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             else:
                 mods.append(m.group(2))
         leaf = parts[-1]
-        value = np.asarray(value)
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
         if leaf == "kernel":
             leaf, value = "weight", value.T
         elif leaf in ("embedding", "scale"):

@@ -5,10 +5,13 @@ encoder runs over each target token's surface form, pools the first
 position and projects to the frozen LM's embeddings (+ an lm-head bias).
 
 Kept features: source-embedding input with the fallback table (or the hn
-vocab's own embedding table), absolute positions, the target-prior token,
-the language-id token (``embed_lang_id``), inter-token attention (with the
-prior bias and the residual LayerNorms), tanh- and erf-gelu, affine
-rescalers, single/dual heads, the bias head and CLS pooling. Two routes,
+vocab's own embedding table), absolute or relative (T5-bucketed, per-head
+bias) positions, the target-prior token, the language-id token
+(``embed_lang_id``), inter-token attention (with the prior bias and the
+residual LayerNorms), per-language bottleneck adapters after each layer,
+tanh- and erf-gelu, affine rescalers, single/dual heads, the bias head,
+CLS or concat pooling, and the T5-compat encoder (``encoder_type="t5"``,
+``hypernet_t5.py``) that holds reference T5 checkpoints. Two routes,
 chosen as the JAX module chooses them (``inference``, defaulting to
 ``deterministic``):
 
@@ -29,14 +32,19 @@ chosen as the JAX module chooses them (``inference``, defaulting to
 
 The inter-token exchange (cross-attention between the batch's rows and a
 few learned blocks) takes the JAX module's plain attention (``_attention``)
-on both routes, as the JAX package leaves it to XLA.
+on both routes, as the JAX package leaves it to XLA; so do the
+self-attention of every layer with relative positions (the per-head bias
+excludes the fused paths, hypernet.py:398, :485), of rows wider than
+``MERGED_ATTENTION_MAX`` merged positions and of head widths that are not a
+multiple of 64, and the whole T5-compat encoder. The language adapters run
+after kernel 1's layer as after the unfused one (hypernet.py:526, :582).
 
-Head widths 64 and 128 run (kernels 1, 2 and 3 are instantiated for both);
-at 128, the layers that would take kernel 4 (inter-token attention,
-erf-gelu) are not ported yet. Configurations that leave these routes
-(language adapters, relative positions, the t5 encoder, concat pooling,
-other head widths) raise ``NotImplementedError``, naming ROADMAP A.10 where
-that item holds them.
+Head widths 64 and 128 run on the kernels (1 to 4 are instantiated for
+both); a multiple of 64 past 128, where the JAX module would fuse the layer
+or the block, raises ``NotImplementedError`` naming ROADMAP A.10.
+Concat pooling runs where the JAX module's runs: its output heads'
+residual block is (rows, H) wide, so a pooled row longer than one position
+fails there (ROADMAP C.21) and raises ``ValueError`` here.
 
 ``PassthroughHypernet`` is the n-shot baseline's stand-in with the same
 call: plain tables read at each row's first surface-form id.
@@ -126,23 +134,16 @@ class HypernetConfig:
 
 
 def _check_supported(cfg: HypernetConfig) -> None:
+    """Refuse what the port cannot run: a head width that is a multiple of
+    64 past 128 on the roberta encoder with layers the JAX module would fuse
+    (kernels 1 and 4 exist at 64 and 128 only). Other widths run the plain
+    route, as in JAX (hypernet.py:403, :489)."""
     h = cfg.num_attention_heads
     width = cfg.hidden_size // h if cfg.hidden_size % h == 0 else None
-    unsupported = {
-        "language_adapter_bottleneck_dim": cfg.language_adapter_bottleneck_dim > 0,
-        "position_embedding_type=relative": cfg.position_embedding_type != "absolute",
-        "encoder_type=t5": cfg.encoder_type != "roberta",
-        "hidden_act other than gelu_new/gelu": cfg.hidden_act not in ("gelu_new", "gelu"),
-        f"head width other than {HEAD_WIDTHS} (ROADMAP A.10)": width not in HEAD_WIDTHS,
-        # these layers take kernel 4, which runs head width 64 only
-        "head width 128 with inter-token attention or erf-gelu (kernel 4 at d = 128, "
-        "ROADMAP A.10)": width == 128 and (cfg.add_inter_token_attention
-                                           or cfg.hidden_act == "gelu"),
-        "concat_last_hidden_state": cfg.concat_last_hidden_state,
-    }
-    missing = [name for name, on in unsupported.items() if on]
-    if missing:
-        raise NotImplementedError(f"hypernet features not ported: {', '.join(missing)}")
+    if (cfg.encoder_type != "t5" and cfg.position_embedding_type != "relative"
+            and width is not None and width % 64 == 0 and width not in HEAD_WIDTHS):
+        raise NotImplementedError(f"hypernet head width {width}: kernels 1 and 4 run head "
+                                  f"widths {HEAD_WIDTHS} (other widths: ROADMAP A.10)")
 
 
 # Inside ``remat_glue()`` the f32 glue of the training route (each LayerNorm
@@ -177,13 +178,36 @@ def embed_take(table, ids):
     table is broadcast to the ids' shape plus its width; otherwise
     ``jnp.take``'s, negative ids counted from the end and an id past either
     end a row of NaN."""
+    if table.shape[0] == 1:
+        return table.expand(*ids.shape, table.shape[1])
+    return take_rows(table, ids)
+
+
+def take_rows(table, index):
+    """``jnp.take(table, index, axis=0)`` for a float table: negative
+    indices counted from the end, an index past either end a row of NaN."""
     n = table.shape[0]
-    idx = ids.long()
-    if n == 1:
-        return table.expand(*idx.shape, table.shape[1])
+    idx = torch.as_tensor(index, device=table.device).long()
     inside = (idx >= -n) & (idx < n)
     rows = table[torch.where(inside, idx % n, 0)]
-    return torch.where(inside[..., None], rows, float("nan"))
+    return torch.where(inside.reshape(inside.shape + (1,) * (table.dim() - 1)), rows,
+                       float("nan"))
+
+
+def relative_position_bucket(relative_position, num_buckets=32, max_distance=128, eps=1e-6):
+    """T5 bidirectional relative-position bucketing: int64 buckets of int64
+    offsets. ``eps`` inside the log is the JAX roberta encoder's
+    (hypernet.py:616-631); HF T5's has none (``eps=0``,
+    hypernet_t5.py:54-67)."""
+    num_buckets //= 2
+    ret = (relative_position > 0).long() * num_buckets
+    n = relative_position.abs()
+    max_exact = num_buckets // 2
+    large = max_exact + (torch.log(n.float() / max_exact + eps)
+                         / math.log(max_distance / max_exact)
+                         * (num_buckets - max_exact)).nan_to_num(neginf=0.0).long()
+    large = torch.clamp(large, max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, large)
 
 
 def gelu_exact(x):
@@ -216,10 +240,10 @@ def dropout(x, rate: float, generator: torch.Generator):
 
 class Dense(nn.Linear):
     """flax nn.Dense: f32 parameters promoted to the compute dtype, the
-    product in that dtype, then the bias added in it."""
+    product in that dtype, then the bias (if any) added in it."""
 
-    def __init__(self, in_features: int, out_features: int, dtype):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, dtype, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
 
     def kernel(self):
@@ -227,7 +251,8 @@ class Dense(nn.Linear):
         return self.weight.to(self.dtype).t()
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel() + self.bias.to(self.dtype)
+        y = x.to(self.dtype) @ self.kernel()
+        return y + self.bias.to(self.dtype) if self.bias is not None else y
 
 
 class LayerNorm(nn.Module):
@@ -275,14 +300,16 @@ class ProjectorBlock(nn.Module):
 
 
 def _attention(q, k, v, key_bias, key_mask, num_heads: int, rate: float = 0.0,
-               generator=None):
+               generator=None, head_bias=None):
     """The JAX module's plain attention core (hypernet.py:158-287 without
     the Pallas branches), on (B, L, H) projections: the merged-head form
     when both merged widths fit ``MERGED_ATTENTION_MAX``, else per head.
-    key_bias (B', Lk) additive, key_mask (B, Lk) bool, either None. Scores
-    accumulate wide and are cast, divided by sqrt(d) in the compute dtype,
-    biased, masked with one select to finfo.min; softmax wide, weights cast,
-    dropped at ``rate`` with masks from ``generator``."""
+    key_bias (B', Lk) additive, key_mask (B, Lk) bool, head_bias (B', h, Lq,
+    Lk) additive per head (relative positions; in the merged form scattered
+    onto the block diagonal), each None or not. Scores accumulate wide and
+    are cast, divided by sqrt(d) in the compute dtype, biased, masked with
+    one select to finfo.min; softmax wide, weights cast, dropped at
+    ``rate`` with masks from ``generator``."""
     B, Lq, H = q.shape
     Lk = k.shape[1]
     h = num_heads
@@ -291,8 +318,15 @@ def _attention(q, k, v, key_bias, key_mask, num_heads: int, rate: float = 0.0,
     if Lq * h <= MERGED_ATTENTION_MAX and Lk * h <= MERGED_ATTENTION_MAX:
         kmask = key_mask.repeat_interleave(h, dim=-1) if key_mask is not None else None
         kb = key_bias.repeat_interleave(h, dim=-1) if key_bias is not None else None
+        plane = None
+        if head_bias is not None:
+            # [q*h + i, k*h + j] = head_bias[i, q, k] where i == j, else 0
+            hb = head_bias.to(dtype).expand(head_bias.shape[0], h, Lq, Lk).permute(0, 2, 1, 3)
+            eye = torch.eye(h, dtype=dtype, device=q.device)
+            plane = (hb[..., None] * eye[None, None, :, None, :]).reshape(
+                head_bias.shape[0], Lq * h, Lk * h)
         weights, _ = softmax_weights(q.reshape(B, Lq * h, d), k.reshape(B, Lk * h, d), kmask,
-                                     h, kb)
+                                     h, kb, plane)
         vs, pv = v.reshape(B, Lk * h, d), "bqk,bkd->bqd"
     else:
         vs, pv = v.reshape(B, Lk, h, d), "bhqk,bkhd->bqhd"
@@ -301,6 +335,8 @@ def _attention(q, k, v, key_bias, key_mask, num_heads: int, rate: float = 0.0,
         scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=q.device)
         if key_bias is not None:
             scores = scores + key_bias.to(dtype)[:, None, None, :]
+        if head_bias is not None:
+            scores = scores + head_bias.to(dtype)
         if key_mask is not None:
             scores = torch.where(key_mask[:, None, None, :], scores, torch.finfo(dtype).min)
         weights = torch.softmax(scores.float(), dim=-1).to(dtype)
@@ -333,9 +369,10 @@ class Attention(nn.Module):
                      for t in (m.kernel(), m.bias.to(dt)))
 
     def forward(self, hidden, mask=None, key_value_states=None, attention_bias=None,
-                deterministic: bool = True, generator=None):
+                deterministic: bool = True, generator=None, head_bias=None):
         """The plain route (``_attention``): cross-attention over
-        ``key_value_states`` and wide rows. A mask (B, Lk) wins over
+        ``key_value_states``, wide rows, relative positions (``head_bias``)
+        and head widths without a kernel. A mask (B, Lk) wins over
         ``attention_bias`` (B', Lk), as in the JAX module. Attention and
         hidden dropout apply when not ``deterministic``."""
         cfg = self.cfg
@@ -344,7 +381,7 @@ class Attention(nn.Module):
         key_bias = attention_bias if mask is None else None
         rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
         ctx = _attention(self.query(hidden), self.key(kv), self.value(kv), key_bias, key_mask,
-                         self.num_heads, rate, generator)
+                         self.num_heads, rate, generator, head_bias)
         out = self.out(ctx)
         if not deterministic and cfg.hidden_dropout_prob > 0.0:
             out = dropout(out, cfg.hidden_dropout_prob, generator)
@@ -407,10 +444,19 @@ class EncoderLayer(nn.Module):
         self.output = Dense(cfg.intermediate_size, H, dtype)
         self.output_ln = LayerNorm(H, eps, dtype)
         self.act = activation(cfg)
+        n, d = cfg.n_langs, cfg.language_adapter_bottleneck_dim
+        if d > 0:
+            # per-language bottleneck adapters: the weights in the compute
+            # dtype, the biases f32, as the JAX module declares them
+            self.lang_adapter_down_weights = nn.Parameter(torch.zeros(n, H, d, dtype=dtype))
+            self.lang_adapter_down_bias = nn.Parameter(torch.zeros(n, d))
+            self.lang_adapter_up_weights = nn.Parameter(torch.zeros(n, d, H, dtype=dtype))
+            self.lang_adapter_up_bias = nn.Parameter(torch.zeros(n, H))
+            self.adapter_ln = LayerNorm(H, eps, dtype)
 
     def forward(self, hidden, mask, target_priors=None, inter_token_blocks=None,
                 cls_only: bool = False, inference: bool = True, deterministic: bool = True,
-                generator=None):
+                generator=None, lang_index=None, position_bias=None):
         """hypernet.py:454-582. On the inference route a layer takes kernel 1
         exactly where the JAX module fuses the whole layer (``fused_layer``,
         :480-492); else its self-attention takes kernel 4 where the JAX
@@ -418,19 +464,25 @@ class EncoderLayer(nn.Module):
         CLS-only, and the plain route otherwise. Rows whose merged width
         L*h is over ``MERGED_ATTENTION_MAX`` take the plain per-head route
         on every path, as ``_attention`` does in the JAX module (there an
-        all-padding row averages its own head's values, not every head's)."""
+        all-padding row averages its own head's values, not every head's);
+        so do relative positions (``position_bias`` (1, h, L, L)) and head
+        widths without a kernel. The language adapters follow either route."""
         cfg = self.cfg
         wide = hidden.shape[1] * cfg.num_attention_heads > MERGED_ATTENTION_MAX
-        if inference and not cls_only and not wide and not cfg.add_inter_token_attention \
+        plain = (wide or position_bias is not None
+                 or cfg.hidden_size // cfg.num_attention_heads not in HEAD_WIDTHS)
+        if inference and not cls_only and not plain and not cfg.add_inter_token_attention \
                 and cfg.hidden_act != "gelu":
-            return self._fused_layer(hidden, mask)
+            return self._adapter_tail(self._fused_layer(hidden, mask), lang_index)
         hidden_drop = not deterministic and cfg.hidden_dropout_prob > 0.0
-        if wide:
+        if plain:
             # the attention module's own route, queries at position 0 only
             # when CLS-only; hidden dropout inside it
+            if cls_only and position_bias is not None:
+                position_bias = position_bias[:, :, :1, :]
             attn = self.attention(hidden[:, :1] if cls_only else hidden, mask,
                                   key_value_states=hidden, deterministic=deterministic,
-                                  generator=generator)
+                                  generator=generator, head_bias=position_bias)
         elif not inference:
             rate = 0.0 if deterministic else float(cfg.attention_dropout_prob)
             attn = self.attention.forward_train(hidden, mask, cls_only, rate, generator)
@@ -448,7 +500,23 @@ class EncoderLayer(nn.Module):
         h = self.output(_glue(self.act, self.intermediate(attn)))
         if hidden_drop:
             h = dropout(h, cfg.hidden_dropout_prob, generator)
-        return self.output_ln(h + attn)
+        return self._adapter_tail(self.output_ln(h + attn), lang_index)
+
+    def _adapter_tail(self, h, lang_index):
+        """Per-language bottleneck adapters (hypernet.py:584-613): the
+        language's down and up weights (``jnp.take`` at ``lang_index``), the
+        activation between them, the residual and ``adapter_ln``. As in
+        JAX, the down product rounds to the compute dtype and adding the f32
+        bias promotes the rest to f32 until the LayerNorm; no dropout."""
+        if self.cfg.language_adapter_bottleneck_dim <= 0:
+            return h
+        dw = take_rows(self.lang_adapter_down_weights, lang_index)
+        db = take_rows(self.lang_adapter_down_bias, lang_index)
+        uw = take_rows(self.lang_adapter_up_weights, lang_index)
+        ub = take_rows(self.lang_adapter_up_bias, lang_index)
+        mid = _glue(self.act, (h.float() @ dw.float()).to(h.dtype) + db)
+        adapted = mid @ uw.to(mid.dtype) + ub
+        return self.adapter_ln(adapted + h)
 
     def _fused_layer(self, hidden, mask):
         cfg = self.cfg
@@ -497,9 +565,10 @@ class HypernetEncoder(nn.Module):
         H = cfg.hidden_size
         if not cfg.embed_using_source_embeddings:
             self.word_embeddings = nn.Embedding(cfg.vocab_size, H)
-        self.position_embeddings = nn.Parameter(
-            torch.zeros(cfg.max_position_embeddings, H, dtype=dtype)
-        )
+        if cfg.position_embedding_type == "absolute":
+            self.position_embeddings = nn.Parameter(
+                torch.zeros(cfg.max_position_embeddings, H, dtype=dtype)
+            )
         if cfg.embed_target_priors:
             self.prior_projection = Dense(1, H, dtype)
         if cfg.embed_lang_id:
@@ -509,9 +578,24 @@ class HypernetEncoder(nn.Module):
             self.inter_token_blocks = nn.Parameter(
                 torch.zeros(cfg.n_inter_token_blocks, H, dtype=dtype)
             )
+        if cfg.position_embedding_type == "relative":
+            # t5-style bucketed relative attention bias, shared by all layers
+            self.relative_attention_bias = nn.Parameter(
+                torch.zeros(cfg.relative_attention_num_buckets, cfg.num_attention_heads,
+                            dtype=dtype))
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)
         )
+
+    def position_bias(self, L: int):
+        """(1, h, L, L) per-head bias of relative positions (key minus query
+        offset, bucketed on the CPU), hypernet.py:707-722."""
+        cfg = self.cfg
+        offsets = torch.arange(L)[None, :] - torch.arange(L)[:, None]
+        buckets = relative_position_bucket(offsets, cfg.relative_attention_num_buckets,
+                                           cfg.relative_attention_max_distance)
+        table = self.relative_attention_bias
+        return table[buckets.to(table.device)].permute(2, 0, 1)[None]
 
     def lang_token(self, lang_index):
         """The language id's row of ``lang_embedding`` in the compute
@@ -531,7 +615,10 @@ class HypernetEncoder(nn.Module):
         if inputs_embeds is None:
             inputs_embeds = F.embedding(input_ids, self.word_embeddings.weight.to(self.dtype))
         L = inputs_embeds.shape[1]
-        hidden = inputs_embeds + self.position_embeddings[:L]
+        if cfg.position_embedding_type == "absolute":
+            hidden = inputs_embeds + self.position_embeddings[:L]
+        else:
+            hidden = inputs_embeds
         if cfg.embed_target_priors:
             # one more position, always attended (hypernet.py:669-677)
             prior_tok = self.prior_projection(target_priors[..., None])
@@ -550,16 +637,21 @@ class HypernetEncoder(nn.Module):
         if not deterministic and cfg.hidden_dropout_prob > 0.0:
             hidden = dropout(hidden, cfg.hidden_dropout_prob, generator)
         blocks = self.inter_token_blocks if cfg.add_inter_token_attention else None
+        position_bias = None
+        if cfg.position_embedding_type == "relative":
+            position_bias = self.position_bias(hidden.shape[1])
         # the last layer's non-CLS outputs are dead when the caller pools
-        # hidden[:, 0]: it computes position 0 only (exact), unless the
-        # inter-token exchange reads every position (hypernet.py:726-728)
-        cls_only_last = not cfg.add_inter_token_attention
+        # hidden[:, 0]: it computes position 0 only (exact), unless concat
+        # pooling or the inter-token exchange reads every position
+        # (hypernet.py:726-728)
+        cls_only_last = not (cfg.concat_last_hidden_state or cfg.add_inter_token_attention)
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             hidden = layer(hidden, attention_mask, target_priors=target_priors,
                            inter_token_blocks=blocks, cls_only=cls_only_last and i == n - 1,
                            inference=inference, deterministic=deterministic,
-                           generator=generator)
+                           generator=generator, lang_index=lang_index,
+                           position_bias=position_bias)
         return hidden
 
 
@@ -574,7 +666,12 @@ class Hypernet(nn.Module):
         self.config = cfg
         self.dtype = dtype
         H, I = cfg.hidden_size, cfg.intermediate_size
-        self.encoder = HypernetEncoder(cfg, dtype)
+        if cfg.encoder_type == "t5":
+            from .hypernet_t5 import T5CompatEncoder
+
+            self.encoder = T5CompatEncoder(cfg, dtype)
+        else:
+            self.encoder = HypernetEncoder(cfg, dtype)
         self.fallback_embeddings = nn.Embedding(max(cfg.n_extra_tokens, 1), cfg.n_in_embd)
         if cfg.embed_using_source_embeddings:
             self.input_projection = nn.Sequential(
@@ -645,7 +742,17 @@ class Hypernet(nn.Module):
                               target_priors=target_priors, lang_index=lang_index,
                               inference=inference,
                               deterministic=deterministic, generator=generator)
-        pooled = hidden[:, 0]
+        if cfg.concat_last_hidden_state:
+            pooled = hidden.reshape(sf.shape[0], -1)
+            if pooled.shape[1] != cfg.hidden_size:
+                # the JAX module's output heads add a (rows, H) residual to
+                # this input and fail on any other width (ROADMAP C.21)
+                raise ValueError(
+                    f"concat_last_hidden_state pools {hidden.shape[1]} positions into a row of "
+                    f"{pooled.shape[1]}; the output heads' residual block takes "
+                    f"{cfg.hidden_size} (one position), as in the JAX package (ROADMAP C.21)")
+        else:
+            pooled = hidden[:, 0]
 
         predicted = self.output_projection(pooled)
         if cfg.single_head:
@@ -685,30 +792,41 @@ class Hypernet(nn.Module):
         """Draw every parameter from ``generator`` with flax's initializers
         (hypernet.py): lecun_normal Dense kernels (truncated normal, std
         sqrt(1/fan_in) / 0.8796), zero biases, normal(initializer_range)
-        embedding tables, position embeddings and inter-token blocks,
-        LayerNorm ones/zeros,
-        rescalers ones/zeros. The values differ from a JAX init (another
+        embedding tables, position embeddings, inter-token blocks and the
+        relative-position table, LayerNorm ones/zeros, rescalers ones/zeros,
+        lecun_normal language adapters with zero biases. The values differ from a JAX init (another
         random stream); the distributions are the same."""
+        from .hypernet_t5 import T5LayerNorm
+
         std = self.config.initializer_range
+        lecun = 0.87962566103423978  # the std of N(0, 1) cut at +-2
         with torch.no_grad():
             for name, mod in self.named_modules():
                 if isinstance(mod, Dense):
-                    s = (1.0 / mod.in_features) ** 0.5 / 0.87962566103423978
+                    s = (1.0 / mod.in_features) ** 0.5 / lecun
                     mod.weight.copy_(self._truncated_normal(mod.weight.shape, s, generator))
-                    mod.bias.zero_()
-                elif isinstance(mod, LayerNorm):
+                    if mod.bias is not None:
+                        mod.bias.zero_()
+                elif isinstance(mod, (LayerNorm, T5LayerNorm)):
                     mod.weight.fill_(1.0)
-                    mod.bias.zero_()
+                    if getattr(mod, "bias", None) is not None:
+                        mod.bias.zero_()
                 elif isinstance(mod, nn.Embedding):
                     mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
                 elif isinstance(mod, Rescaler):
                     mod.w.fill_(1.0)
                     mod.b.zero_()
-            pos = self.encoder.position_embeddings
-            pos.copy_(torch.randn(pos.shape, generator=generator) * std)
-            if self.config.add_inter_token_attention:
-                blocks = self.encoder.inter_token_blocks
-                blocks.copy_(torch.randn(blocks.shape, generator=generator) * std)
+                elif isinstance(mod, EncoderLayer) and hasattr(mod, "lang_adapter_down_weights"):
+                    # lecun_normal of an (n_langs, in, out) table: fan_in n_langs * in
+                    for w in (mod.lang_adapter_down_weights, mod.lang_adapter_up_weights):
+                        s = (1.0 / (w.shape[0] * w.shape[1])) ** 0.5 / lecun
+                        w.copy_(self._truncated_normal(w.shape, s, generator))
+                    mod.lang_adapter_down_bias.zero_()
+                    mod.lang_adapter_up_bias.zero_()
+            for name in ("position_embeddings", "inter_token_blocks", "relative_attention_bias"):
+                p = getattr(self.encoder, name, None)
+                if p is not None:
+                    p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
 class PassthroughHypernet(nn.Module):

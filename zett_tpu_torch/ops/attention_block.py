@@ -10,6 +10,8 @@ shapes) and the design.
 
 ``attention_block`` keeps the JAX function's signature: x (B, L, H), mask
 (B, L) bool or None, kbias (B, L) or None, (H, H)/(H,) weights in x's dtype.
+The kernel runs head widths 64 and 128 (the JAX kernel any multiple of 64;
+other widths raise, naming ROADMAP A.10), up to 32 heads in bf16.
 On CPU tensors it runs ``attention_block_reference``; on any other device
 it launches the kernel or raises. The TPU kernel pads L to a multiple of 8
 with masked positions, so on a row with no valid key it averages over the
@@ -32,8 +34,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_core import (attention_core, attention_core_bwd, check_heads, check_row_fits,
-                             merged_attention_reference)
+from .attention_core import (attention_core, attention_core_bwd, check_head_width, check_heads,
+                             check_row_fits, merged_attention_reference)
 from .encoder_layer import check_gemm_widths, dense_exact, pack_weights
 
 _NAME = "attention_block"
@@ -136,12 +138,11 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
     if dtype not in _DTYPES:
         raise TypeError(f"attention_block: unsupported dtype {dtype}")
     B, L, H = x.shape
-    if H != num_heads * 64:
-        raise ValueError(f"attention_block: head width must be 64 (H={H}, h={num_heads})")
+    d = check_head_width("attention_block", H, num_heads)
     if not 1 <= L <= 32:
         raise ValueError(f"attention_block: sequence length {L} outside 1..32")
     check_heads("attention_block", dtype, num_heads, L)
-    check_row_fits("attention_block", dtype, L, L, num_heads, 64)
+    check_row_fits("attention_block", dtype, L, L, num_heads, d)
     check_gemm_widths("attention_block", dtype, (3 * H, H), (H,))
     if not x.is_cuda:
         raise ValueError(f"attention_block: no kernel for device {x.device}")

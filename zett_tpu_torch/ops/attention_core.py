@@ -109,13 +109,14 @@ def _acc_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def softmax_weights(qm, km, kmaskf, num_heads: int, kbias=None):
+def softmax_weights(qm, km, kmaskf, num_heads: int, kbias=None, plane_bias=None):
     """The forward's softmax weights (B, Lq*h, Lk*h) in the compute dtype and
     the valid-entry plane: scores accumulated wide, cast, divided by sqrt(d)
-    in the compute dtype, the key bias (B, Lk*h) added in it, one select to
-    finfo.min over other heads' and masked keys (kmaskf (B, Lk*h), > 0 where
-    valid; None: all valid), softmax wide, cast (pallas_attention.py:95-110,
-    224-237)."""
+    in the compute dtype, the key bias (B, Lk*h) added in it, then the
+    plane bias (B', Lq*h, Lk*h; the hypernet's relative positions,
+    hypernet.py:220-228) in it, one select to finfo.min over other heads'
+    and masked keys (kmaskf (B, Lk*h), > 0 where valid; None: all valid),
+    softmax wide, cast (pallas_attention.py:95-110, 224-237)."""
     dtype = qm.dtype
     acc = _acc_dtype(dtype)
     d = qm.shape[-1]
@@ -125,6 +126,8 @@ def softmax_weights(qm, km, kmaskf, num_heads: int, kbias=None):
     scores = scores / torch.tensor(math.sqrt(d), dtype=dtype, device=dev)
     if kbias is not None:
         scores = scores + kbias.to(dtype)[:, None, :]
+    if plane_bias is not None:
+        scores = scores + plane_bias.to(dtype)
     valid = ((torch.arange(qm.shape[1], device=dev) % h)[:, None]
              == (torch.arange(km.shape[1], device=dev) % h)[None, :])[None]
     if kmaskf is not None:

@@ -44,8 +44,14 @@ BYTE_LEVEL_PRETOKENIZER = {
 }
 
 
-def is_byte_level(tokenizer_data: dict) -> bool:
-    pretok = tokenizer_data.get("pre_tokenizer") or {}
+def is_byte_level(tokenizer) -> bool:
+    """Whether a tokenizer, or its JSON, pre-tokenizes byte-level. A
+    ``Tokenizer`` is read through its pre-tokenizer's JSON alone: its whole
+    JSON holds the vocab (250k pieces at XLM-R's)."""
+    if isinstance(tokenizer, Tokenizer):
+        pretok = tokenizer.pre_tokenizer
+        tokenizer = {"pre_tokenizer": pretok.to_json() if pretok else None}
+    pretok = tokenizer.get("pre_tokenizer") or {}
     if pretok.get("type") == "ByteLevel":
         return True
     return pretok.get("type") == "Sequence" and any(

@@ -11,6 +11,7 @@ its optional C++ fast path).
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import List, Sequence
 
@@ -38,7 +39,21 @@ def serde_f64(s) -> float:
     """Parse a JSON number the way serde_json's default f64 path does.
     Accepts a decimal string or a number (uses its shortest float repr)."""
     if isinstance(s, (int, float)):
-        s = repr(float(s))
+        x = float(s)
+        # a cache keys 0.0 and -0.0 as one
+        return x if x == 0 else _serde_f64_float(x)
+    return _serde_f64_str(s)
+
+
+# a tokenizer's scores are parsed again at every load, copy and conversion
+# of it: 250k of them at XLM-R's vocab
+@functools.lru_cache(maxsize=1 << 18)
+def _serde_f64_float(x: float) -> float:
+    return _serde_f64_str(repr(x))
+
+
+@functools.lru_cache(maxsize=1 << 18)
+def _serde_f64_str(s: str) -> float:
     s = s.strip()
     neg = s.startswith("-")
     if neg:

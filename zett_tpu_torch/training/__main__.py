@@ -204,7 +204,7 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     bb_state = load_hf_state_dict(model_dir)
 
     reference = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
-    if not is_byte_level(reference.to_json()):
+    if not is_byte_level(reference):
         reference, _ = convert_to_byte_level(reference)
     hn_tokenizer = reference.copy()
 

@@ -152,7 +152,11 @@ class Trainer:
             # special-token splice, no lexical loss, no identity step
             self.source_embeddings = None
         else:
-            self.hypernet = Hypernet(hn_config, dtype=self.dtype)
+            # built on the meta device: init_weights or the given parameters
+            # write every value that a default init would draw first
+            with torch.device("meta"):
+                self.hypernet = Hypernet(hn_config, dtype=self.dtype)
+            self.hypernet.to_empty(device="cpu")
         if hn_params is not None:
             self.hypernet.load_state_dict(flax_to_torch(hn_params), strict=True)
         elif not use_passthrough_hypernet:
@@ -235,7 +239,9 @@ class Trainer:
             print(f"passthrough tables: {rows} rows for the fixed tokenizer's ids, past the "
                   f"source's {source.shape[0]}: the rows past the source start at zero, where "
                   f"the reference reads NaN and its loss is NaN (ROADMAP C.14)", flush=True)
-        tables = PassthroughHypernet(hn_cfg, vocab_size=rows, dtype=self.dtype).to(self.dtype)
+        with torch.device("meta"):  # every value is written below
+            tables = PassthroughHypernet(hn_cfg, vocab_size=rows, dtype=self.dtype)
+        tables = tables.to_empty(device="cpu").to(self.dtype)
         n, n_embd = source.shape[0], hn_cfg.n_embd
         with torch.no_grad():
             for p in tables.parameters():

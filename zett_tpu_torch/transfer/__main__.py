@@ -101,7 +101,7 @@ def main(argv=None):
     hypernet = load_hypernet(args.checkpoint, device)
 
     hn_tokenizer = Tokenizer.from_file(_tokenizer_path(args.hn_tokenizer or args.checkpoint))
-    if not is_byte_level(hn_tokenizer.to_json()):
+    if not is_byte_level(hn_tokenizer):
         hn_tokenizer, _ = convert_to_byte_level(hn_tokenizer)
 
     with open(os.path.join(args.model, "config.json")) as f:
@@ -111,7 +111,7 @@ def main(argv=None):
     state_dict = load_hf_state_dict(args.model)
 
     source_tokenizer = Tokenizer.from_file(_tokenizer_path(args.model))
-    if not is_byte_level(source_tokenizer.to_json()):
+    if not is_byte_level(source_tokenizer):
         source_tokenizer, _ = convert_to_byte_level(source_tokenizer)
 
     emb_in = state_dict[IN_EMBEDDING_KEYS[model_type]].float().numpy()

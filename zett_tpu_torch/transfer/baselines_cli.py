@@ -97,7 +97,7 @@ def main(argv=None):
     state_dict = load_hf_state_dict(args.model)
 
     source_tokenizer = Tokenizer.from_file(_tokenizer_path(args.model))
-    if not is_byte_level(source_tokenizer.to_json()):
+    if not is_byte_level(source_tokenizer):
         source_tokenizer, _ = convert_to_byte_level(source_tokenizer)
     target_tokenizer, _ = convert_to_byte_level(
         Tokenizer.from_file(_tokenizer_path(args.target_tokenizer)),

@@ -204,7 +204,9 @@ def transfer(
         do_batch_sampling=do_batch_sampling,
         min_k=min_k,
         rng=rng,
-        bucket_multiple=4,
+        # trailing-pad trimming is exact with CLS pooling; concat pooling
+        # reads every position, so it keeps the full width
+        bucket_multiple=0 if cfg.concat_last_hidden_state else 4,
         pad_id=cfg.pad_token_id,
     )
 
