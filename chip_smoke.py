@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the kernels from
      zett_tpu_torch/csrc (one nvcc per source, in parallel) and the native
-     host library (g++) beside them, while the inputs of phases 12, 14 and
-     15 that no kernel makes are written (``prepare_inputs``); print
+     host library (g++) beside them, while the inputs of phases 4, 10, 12,
+     14, 15, 18, 19 and 20 that no kernel makes are written
+     (``prepare_inputs``); print
      ptxas's registers, shared memory and spills
      of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
      HMMA (kernels 1 to 5: the attention core's mma.sync; in kernel 1 within
@@ -232,7 +233,26 @@ Phases (any failure exits non-zero and prints no result):
      erf-gelu, concat pooling (one position: ROADMAP C.21), relative
      positions and the T5 encoder with gated-gelu, each from a
      reference-format or port checkpoint, 4096 rows card vs CPU (f32,
-     within 1e-4 of the scale) with their launches of kernels 1, 2 and 4.
+     within 1e-4 of the scale) with their launches of kernels 1, 2 and 4;
+ 20. Llama-3-8B (meta-llama/Meta-Llama-3-8B's published config.json:
+     vocab 128256, rope_theta 500000, 8 KV heads under 32, an untied head;
+     every width kept, cut to LLAMA3_LAYERS layers, random bf16 weights
+     from a seed; a 128256-id tokenizer with Llama-3's structure, its
+     pieces grown from Markdown and Python that predate the port (the
+     survey and paper notes, docs/, the JAX package) split by the port's
+     matcher, written while nvcc builds): (a) the model directory; (b) the
+     own-tokenizer encode of 0.25 MB of that text on the host through the
+     general pipeline and patterns.py's matcher: MB/s, decode(encode)
+     equal to the text; Llama-3's split alone, and with each set's ranges
+     above U+FFFF in the set itself, MB/s; (c) the logits at 2 layers (a
+     seeded second layer), card vs CPU, f32, (2, 64) ids with a padded
+     row; (d) the transfer CLI at llama3_8b_en_code_lw0.5_long from phase
+     15's en_code parameters (Mistral-7B's hypernet shape; phase 15 takes
+     its language table out again) to llama0001: exact launches of kernels 1 and 2, both tables'
+     rows, the hypernet per 32k vocab over the transfer's own batches, idle
+     share, peak memory, wall; (e) the perplexity CLI on (a)'s model under
+     its own tokenizer: loss, n_tokens, bits per char, host encode MB/s,
+     tokens a second.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2651,11 +2671,12 @@ def write_tinyllama(path):
     return write_llama(path, TINYLLAMA, SEED + 14)
 
 
-def write_llama(path, hf_config, seed):
+def write_llama(path, hf_config, seed, tokenizer=None):
     """A Llama-family directory: ``hf_config`` as config.json, seeded
     random bf16 weights drawn on the card (projections and tables N(0,
-    0.02), the RMSNorm weights 1) written as model.safetensors, and the
-    metaspace tokenizer.json. Returns (the config, the state dict)."""
+    0.02), the RMSNorm weights 1) written as model.safetensors, and
+    ``tokenizer`` (a tokenizer.json dict; by default the metaspace one) as
+    tokenizer.json. Returns (the config, the state dict)."""
     from zett_tpu_torch.models.backbones.hf_io import save_safetensors
     from zett_tpu_torch.models.backbones.llama import LlamaConfig, weight_keys
 
@@ -2679,7 +2700,7 @@ def write_llama(path, hf_config, seed):
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_config, f, indent=2)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
-        json.dump(metaspace_tokenizer_json(V), f, ensure_ascii=False)
+        json.dump(tokenizer or metaspace_tokenizer_json(V), f, ensure_ascii=False)
     return cfg, sd
 
 
@@ -3017,19 +3038,26 @@ PADDING_ROWS = 18991  # a train batch's all-padding surface forms of 32896 (phas
 ML_TRAIN_CUT = 2
 
 
-def mistral_hypernet_config(name):
-    """The hypernet of configs/zeroshot/mistral7b_<name>_lw0.5_long.json as
-    the training CLI builds it over Mistral-7B: n_embd 4096, an untied head
-    (dual heads), the 32000-row source table, one language id a language."""
+def hypernet_config(run, hf_config):
+    """The hypernet of the run config at ``run`` as the training CLI builds
+    it over an untied Llama-family model with config.json ``hf_config``:
+    n_embd its width, dual heads, its source table, one language id a
+    language."""
     from zett_tpu_torch.training.__main__ import load_config_file, load_configs
 
-    config = load_config_file(MISTRAL_RUNS[name])
+    config = load_config_file(run)
     _, _, hn = load_configs(config)
     langs = config["langs"]
     return dataclasses.replace(
-        hn, n_embd=MISTRAL["hidden_size"], separate_out_embeddings=True,
-        original_vocab_size=MISTRAL["vocab_size"],
+        hn, n_embd=hf_config["hidden_size"], separate_out_embeddings=True,
+        original_vocab_size=hf_config["vocab_size"],
         n_langs=len(langs) if isinstance(langs, list) else 1)
+
+
+def mistral_hypernet_config(name):
+    """The hypernet of configs/zeroshot/mistral7b_<name>_lw0.5_long.json
+    over Mistral-7B: n_embd 4096, the 32000-row source table."""
+    return hypernet_config(MISTRAL_RUNS[name], MISTRAL)
 
 
 def phase_heads32_kernels():
@@ -3171,15 +3199,32 @@ def add_language_table(path, name, rng):
     """mistral7b_<name>'s checkpoint made from en_code's at ``path`` in
     place: its config, and a seeded language table appended to params.npz
     (np.savez's zip layout), rather than a second 2.5 GB file, to keep the
-    run's disk writes small."""
+    run's disk writes small. Returns (the config, a function that takes the
+    table out again: phase 20 reuses en_code's parameters)."""
     cfg = mistral_hypernet_config(name)
     with open(os.path.join(path, "hn_config.json"), "w") as f:
         json.dump({**cfg.to_dict(), "dtype": "bfloat16"}, f)
     table = 0.02 * rng.standard_normal((cfg.n_langs, cfg.hidden_size), dtype=np.float32)
-    with zipfile.ZipFile(os.path.join(path, "params.npz"), "a") as z, \
+    params = os.path.join(path, "params.npz")
+    with zipfile.ZipFile(params) as z:
+        names, start = z.namelist(), z.start_dir
+    with open(params, "rb") as f:
+        f.seek(start)
+        directory = f.read()  # the central directory the append overwrites
+    with zipfile.ZipFile(params, "a") as z, \
             z.open("encoder/lang_embedding/embedding.npy", "w") as f:
         np.lib.format.write_array(f, table)
-    return cfg
+
+    def take_out():
+        with open(params, "r+b") as f:
+            f.seek(start)
+            f.write(directory)
+            f.truncate()
+        with zipfile.ZipFile(params) as z:
+            if z.namelist() != names:
+                raise AssertionError("params.npz was not restored")
+
+    return cfg, take_out
 
 
 def phase_mistral_transfer(model_dir):
@@ -3208,7 +3253,7 @@ def phase_mistral_transfer(model_dir):
     for name, index in (("en_code", 0), ("multilingual", 5)):
         t0 = time.perf_counter()
         if name == "multilingual":
-            cfg = add_language_table(ckpt, name, rng)
+            cfg, take_out = add_language_table(ckpt, name, rng)
             written_s = time.perf_counter() - t0
         log(f"  (d) wrote a seeded {name} checkpoint (params.npz "
             f"{os.path.getsize(os.path.join(ckpt, 'params.npz')) / 2**30:.3f} GiB, f32) in "
@@ -3270,7 +3315,8 @@ def phase_mistral_transfer(model_dir):
                           idle=None if busy is None else 1 - busy / pass_wall)
         del run, captured
         gc_free()
-    shutil.rmtree(ckpt, ignore_errors=True)
+    take_out()
+    PREPARED["mistral_params"] = ckpt  # en_code's parameters, phase 20's checkpoint
     return launches, rows
 
 
@@ -4913,6 +4959,345 @@ def phase_reference():
     return kernels, tinyllama, mistral, variants, wall
 
 
+# meta-llama/Meta-Llama-3-8B's published config.json
+LLAMA3 = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], hidden_act="silu",
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, vocab_size=128256, max_position_embeddings=8192,
+    rope_theta=500000.0, rms_norm_eps=1e-5, tie_word_embeddings=False, rope_scaling=None,
+    attention_bias=False, attention_dropout=0.0, mlp_bias=False, initializer_range=0.02,
+    pretraining_tp=1, bos_token_id=128000, eos_token_id=128001, torch_dtype="bfloat16",
+)
+LLAMA3_LAYERS = 1  # the depth written (every width kept), as phase 15 cuts Mistral
+LLAMA3_CUT = 2  # layers of (c)'s card-vs-CPU comparison
+LLAMA3_RUN = os.path.join(REPO, "configs", "zeroshot", "llama3_8b_en_code_lw0.5_long.json")
+# Meta-Llama-3-8B's tokenizer.json: its pre-tokenizer's Split pattern and its
+# 256 special tokens from id 128000 (the rest are reserved)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+                   7: "<|end_header_id|>", 9: "<|eot_id|>"}
+LLAMA3_ENCODE_MB = 0.25  # (b)'s sample of en_code_texts()
+
+
+def en_code_texts():
+    """The texts of Markdown (en) and Python (code) files that no change to
+    the port edits, so that phase 20's workload stays fixed: the survey and
+    paper notes, docs/ and the JAX package."""
+    import glob
+
+    paths = [os.path.join(REPO, f) for f in TRAIN_TEXT_SOURCES]
+    for pattern in ("docs/*.md", "zett_tpu/**/*.py"):
+        paths += sorted(glob.glob(os.path.join(REPO, pattern), recursive=True))
+    texts = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            texts.append(f.read())
+    return texts
+
+
+def llama3_tokenizer_json(n_pieces=128000, seed=SEED + 40):
+    """A tokenizer.json with Meta-Llama-3-8B's structure: a byte-level BPE
+    of ``n_pieces`` pieces (ignore_merges, no byte fallback, no unk) under
+    Sequence[Split(Llama-3's pattern, Isolated), ByteLevel(no prefix space,
+    no regex)], the post-processor Sequence[ByteLevel, TemplateProcessing]
+    with <|begin_of_text|>, a ByteLevel decoder, and 256 specials after the
+    pieces (Llama-3's names at their offsets, the rest reserved). The pieces:
+    the 256 byte characters, then, round by round, each pretoken's prefix
+    one byte character longer (the pretokens of ``en_code_texts()`` split
+    by the port's matcher, most frequent first; a merge of the
+    shorter prefix and the byte), then seeded extensions of random pieces by
+    a byte where the prefixes run out. Every merge's parts and result are in
+    the vocab. Standard library, numpy and the port only."""
+    from collections import Counter
+
+    from zett_tpu_torch.tokenization.bytemaps import BYTES_TO_CHARS, bytes_to_byte_chars
+    from zett_tpu_torch.tokenization.patterns import compile_pattern
+
+    split = compile_pattern(LLAMA3_SPLIT, "Split pre-tokenizer")
+    counts = Counter()
+    for text in en_code_texts():
+        counts.update(text[s:e] for s, e in split.spans(text))
+    words = [bytes_to_byte_chars(w.encode("utf-8"))
+             for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+    printable = [b for b in range(256) if BYTES_TO_CHARS[b] == chr(b)]
+    alphabet = [BYTES_TO_CHARS[b] for b in printable + [b for b in range(256)
+                                                        if b not in printable]]
+    vocab = {c: i for i, c in enumerate(alphabet)}
+    merges = []
+
+    def add(a, b):
+        if a + b not in vocab:
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+
+    k = 2
+    while len(vocab) < n_pieces and any(len(w) >= k for w in words):
+        for w in words:
+            if len(w) >= k:
+                add(w[:k - 1], w[k - 1])
+                if len(vocab) == n_pieces:
+                    break
+        words = [w for w in words if len(w) > k]
+        k += 1
+    rng = np.random.default_rng(seed)
+    pieces = list(vocab)
+    while len(vocab) < n_pieces:
+        a = pieces[int(rng.integers(len(pieces)))]
+        b = alphabet[int(rng.integers(256))]
+        if a + b not in vocab:
+            add(a, b)
+            pieces.append(a + b)
+    if len(vocab) != n_pieces or any(a not in vocab or b not in vocab for a, b in merges):
+        raise AssertionError("the Llama-3 pieces do not hold their merges")
+    specials = [LLAMA3_SPECIALS.get(i) for i in range(256)]
+    reserved = iter(range(256))
+    specials = [s or f"<|reserved_special_token_{next(reserved)}|>" for s in specials]
+    added = [{"id": n_pieces + i, "content": s, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, s in enumerate(specials)]
+    bos = specials[0]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [n_pieces], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def write_llama3(path):
+    """The Llama-3-8B directory (``write_llama`` at LLAMA3 cut to
+    LLAMA3_LAYERS layers, under ``llama3_tokenizer_json()``). Returns (the
+    config, the parameter count, the tokenizer's merges)."""
+    tokenizer = llama3_tokenizer_json(LLAMA3["vocab_size"] - 256)
+    cfg, sd = write_llama(path, dict(LLAMA3, num_hidden_layers=LLAMA3_LAYERS), SEED + 41,
+                          tokenizer=tokenizer)
+    return cfg, sum(t.numel() for t in sd.values()), len(tokenizer["model"]["merges"])
+
+
+def written_gib():
+    """The bytes this process has passed to write calls so far
+    (``/proc/self/io`` wchar: files, deleted or not, and its pipes), in
+    GiB; None where the file is not there."""
+    try:
+        with open("/proc/self/io") as f:
+            fields = dict(line.split(": ") for line in f.read().splitlines())
+        return int(fields["wchar"]) / 2**30
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def phase_llama3():
+    """Llama-3-8B (meta-llama/Meta-Llama-3-8B's published config.json, every
+    width kept, cut to LLAMA3_LAYERS layers, random bf16 weights from a seed,
+    a 128256-id tokenizer with Llama-3's structure from a seed): (a) the
+    model directory; (b) the own-tokenizer encode on the host through the
+    general pipeline and the matcher of patterns.py: MB/s, decode(encode)
+    equal to the text; Llama-3's split alone, and with each set's ranges
+    above U+FFFF in the set itself (no alternative of their own), MB/s; (c)
+    the backbone's logits at LLAMA3_CUT layers, card vs CPU, f32; (d) the
+    transfer CLI at llama3_8b_en_code_lw0.5_long from phase 15's en_code
+    parameters (Mistral-7B's hypernet shape) to llama0001: exact launches
+    of kernels 1 and 2, both tables' rows, the hypernet per 32k vocab over
+    the transfer's own batches, idle share, peak memory, wall; (e) the
+    perplexity CLI on (a)'s model under its own tokenizer."""
+    import re
+    import unittest.mock
+
+    from zett_tpu_torch.evaluation.__main__ import main as ppl_main
+    from zett_tpu_torch.models.backbones.hf_io import load_hf_state_dict
+    from zett_tpu_torch.models.backbones.llama import LlamaConfig, LlamaForCausalLM
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization import patterns
+    from zett_tpu_torch.tokenization.convert import convert_to_byte_level
+    from zett_tpu_torch.tokenization.core import Tokenizer
+    from zett_tpu_torch.tokenization.fast_encode import fast_encoder_or_none
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(WORK, "llama3")
+    cfg, n_params, n_merges, written_s = PREPARED.pop("llama3")
+    tok = Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    log(f"  (a) wrote Llama-3-8B's published config cut to {LLAMA3_LAYERS} of "
+        f"{LLAMA3['num_hidden_layers']} layers, every width kept ({n_params} parameters, bf16, "
+        f"{os.path.getsize(os.path.join(model_dir, 'model.safetensors')) / 2**30:.3f} GiB), "
+        f"rope_theta {cfg.rope_theta}, {cfg.kv_heads} KV heads under "
+        f"{cfg.num_attention_heads}, and a {len(tok)}-id tokenizer ({n_merges} merges, "
+        f"{len(tok.all_special_ids)} specials) in {written_s:.3f} s, while the kernels built")
+    if len(tok) != LLAMA3["vocab_size"] or tok.token_to_id("<|begin_of_text|>") != 128000 \
+            or tok.token_to_id("<|eot_id|>") != 128009 or cfg.rope_theta != 500000.0 \
+            or cfg.tie_word_embeddings or cfg.kv_heads != LLAMA3["num_key_value_heads"]:
+        raise AssertionError("the Llama-3 directory does not hold the published layout")
+
+    step("(b) the own-tokenizer encode on the host")
+    if fast_encoder_or_none(tok) is not None:
+        raise AssertionError("(b) must take the general encode pipeline")
+    split = tok.pre_tokenizer.pretokenizers[0]._matcher
+    if not isinstance(split, patterns.StdlibRegex):
+        raise AssertionError(f"Llama-3's split runs on {type(split).__name__}")
+    sample = "\n".join(en_code_texts())
+    sample = sample.encode("utf-8")[:int(LLAMA3_ENCODE_MB * 1e6)].decode("utf-8", "ignore")
+    mb = len(sample.encode("utf-8")) / 1e6
+    # the split alone; and the same translation with each set's ranges above
+    # U+FFFF in the set itself, which re tests one by one after the bitmap
+    # (patterns._set puts them in an alternative of their own)
+    with unittest.mock.patch.object(patterns, "_set", lambda literals, low, high, negated:
+                                    f"[{'^' if negated else ''}{literals}{low}{high}]"):
+        one_set = re.compile(patterns.translate(LLAMA3_SPLIT)[0])
+    runs = {"split": lambda: split.spans(sample),
+            "one_set": lambda: [m.span() for m in one_set.finditer(sample)]}
+    if runs["split"]() != runs["one_set"]():
+        raise AssertionError("(b) the two translations split the sample differently")
+    split_mb_s = {}
+    for name, run in runs.items():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        split_mb_s[name] = mb / float(np.median(times))
+    log(f"  (b) on {CARD}'s host: Llama-3's split alone {split_mb_s['split']:.4f} MB/s (median "
+        f"of 3), {split_mb_s['one_set']:.4f} MB/s with each set's ranges above U+FFFF in the "
+        f"set itself")
+    t0 = time.perf_counter()
+    enc = tok.encode(sample, add_special_tokens=False)
+    encode_s = time.perf_counter() - t0
+    round_trip = tok.decode(enc.ids) == sample
+    with_bos = tok.encode(sample[:200]).ids
+    log(f"  (b) {mb:.4f} MB of pre-port Markdown and Python in {encode_s:.3f} s "
+        f"({mb / encode_s:.4f} MB/s on the host), {len(enc.ids)} tokens "
+        f"({len(sample) / len(enc.ids):.4f} chars a token); decode(encode(text)) == text: "
+        f"{round_trip}; with special tokens it starts with {with_bos[0]}")
+    if not round_trip or with_bos[0] != 128000 or max(enc.ids) >= 128000:
+        raise AssertionError("the Llama-3 tokenizer does not round-trip its text")
+
+    step(f"(c) the backbone card vs CPU at {LLAMA3_CUT} layers, f32")
+    sd = load_hf_state_dict(model_dir)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    for key in [k for k in sd if k.startswith("model.layers.0.")]:
+        w = sd[key]
+        sd[key.replace("layers.0.", "layers.1.")] = w.clone() if key.endswith("norm.weight") \
+            else (0.02 * torch.randn(w.shape, generator=gen, device="cuda")).to(w.dtype).cpu()
+    cut = LlamaConfig.from_hf(dict(LLAMA3, num_hidden_layers=LLAMA3_CUT))
+    rng = np.random.default_rng(SEED + 43)
+    ids = torch.from_numpy(rng.integers(0, LLAMA3["vocab_size"], size=(2, 64)))
+    mask = torch.ones(2, 64, dtype=torch.long)
+    mask[1, 40:] = 0
+    tables = (sd["model.embed_tokens.weight"], sd["lm_head.weight"])
+    with torch.no_grad():
+        ref = LlamaForCausalLM(cut, sd, torch.float32)(ids, mask, *tables)
+        card = LlamaForCausalLM(cut, sd, torch.float32).cuda()
+        got = card(ids.cuda(), mask.cuda(), *(t.cuda() for t in tables)).cpu()
+        del card
+    del sd, tables
+    gc_free()
+    valid = mask.bool()
+    err = float((got - ref).abs()[valid].max())
+    scale = float(ref.abs()[valid].max())
+    # f32 (no TF32): sums in another order than the CPU's
+    log(f"  (c) logits {tuple(got.shape)} at {LLAMA3_CUT} layers (rope_theta "
+        f"{cut.rope_theta}, {cut.kv_heads} KV heads, untied head), card vs CPU, f32: max abs "
+        f"{err:.3g} at logit scale {scale:.3g} (tol 1e-4 x scale)")
+    if not bool(torch.isfinite(got).all()) or err > 1e-4 * scale:
+        raise AssertionError(f"the Llama-3 backbone differs on the card: {err}")
+    del got, ref
+
+    step("(d) the transfer CLI at llama3_8b_en_code")
+    t0 = time.perf_counter()
+    ckpt = PREPARED.pop("mistral_params")
+    # mistral7b_en_code's hypernet (its base) over the 128256-row table
+    hn_cfg = hypernet_config(LLAMA3_RUN, LLAMA3)
+    with open(os.path.join(ckpt, "hn_config.json"), "w") as f:
+        json.dump({**hn_cfg.to_dict(), "dtype": "bfloat16"}, f)
+    convert_to_byte_level(tok)[0].save(os.path.join(ckpt, "tokenizer.json"))
+    log(f"  (d) the checkpoint: phase 15's en_code parameters (params.npz "
+        f"{os.path.getsize(os.path.join(ckpt, 'params.npz')) / 2**30:.3f} GiB, f32) under "
+        f"llama3_8b_en_code's config (original_vocab_size {hn_cfg.original_vocab_size}) and "
+        f"Llama-3's byte-level hn tokenizer, in {time.perf_counter() - t0:.3f} s")
+    target_path = os.path.join(REPO, "artifacts", "tokenizers", "llama0001", "tokenizer.json")
+    batch = 16384
+    out = os.path.join(WORK, "llama3_llama0001")
+    _build.reset_launch_counts()
+    gc_free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with captured_transfer() as captured:
+        transfer_main(["--checkpoint", ckpt, "--model", model_dir,
+                       "--target-tokenizer", target_path, "--output", out,
+                       "--batch-size", str(batch), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_build.launch_counts)
+    # llama0001's 32768 pieces and its specials matched to the source's 256
+    n_target = captured["n"]
+    n_batches = -(-n_target // batch)
+    expected = dict.fromkeys(_build.launch_counts, 0)
+    expected["encoder_layer"] = n_batches * (hn_cfg.num_hidden_layers - 1)
+    expected["attention_core"] = n_batches
+    sd = load_hf_state_dict(out)
+    emb, head = sd["model.embed_tokens.weight"], sd["lm_head.weight"]
+    log(f"  (d) {wall:.3f} s wall, peak memory {peak:.2f} GiB; {n_target} target tokens; "
+        f"embed_tokens {tuple(emb.shape)}, lm_head {tuple(head.shape)}; launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    width = LLAMA3["hidden_size"]
+    if emb.shape != (n_target, width) or head.shape != (n_target, width) \
+            or torch.equal(emb, head) or not bool(torch.isfinite(emb).all()) \
+            or not bool(torch.isfinite(head).all()):
+        raise AssertionError("the transferred Llama-3 does not hold two finite tables")
+    del sd, emb, head
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run, ms, times, n_vocab, shapes = timed_passes(captured, 2)
+    log(f"  (d) on {CARD}: hypernet median of 2 passes {ms:.3f} ms (min {min(times):.3f}, max "
+        f"{max(times):.3f}) for the {n_vocab}-token vocab in batches {shapes} "
+        f"({ms * 32768 / n_vocab:.3f} ms per 32k vocab)")
+    busy, pass_wall, _ = device_breakdown(run, top=6)
+    result = dict(launches=launches, wall=wall, peak=peak, ms_per_32k=ms * 32768 / n_vocab,
+                  idle=None if busy is None else 1 - busy / pass_wall,
+                  split_mb_s=split_mb_s["split"])
+    del run, captured
+    gc_free()
+
+    step("(e) the perplexity CLI on Llama-3-8B under its own tokenizer")
+    text_dir = os.path.join(WORK, "llama3_text")
+    n_par, n_chars = write_training_text(text_dir)
+    metrics, stages = timed_eval_cli(ppl_main, [
+        "--model", model_dir, "--data", os.path.join(text_dir, "en.txt"), "--block-size",
+        str(EVAL_BLOCK), "--batch-size", str(EVAL_BATCH)])
+    log(f"  (e) the repo's Markdown: {n_par} paragraphs, {n_chars} characters")
+    eval_report("e", metrics, stages)
+    result["eval"] = dict(metrics, **stages)
+    shutil.rmtree(model_dir, ignore_errors=True)
+    written = written_gib()
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {result['wall_s']:.3f} s wall; this process has passed "
+        f"{'not measured' if written is None else f'{written:.2f} GiB'} to write calls so far")
+    return result
+
+
 PREPARED = {}  # prepare_inputs' entries, each taken by its phase
 
 
@@ -4923,8 +5308,8 @@ def prepare_inputs():
     checkpoints, phase 12's synthetic pretokens, phase 14's
     TinyLlama and its 2-layer cut, phase 15's Mistral and its seeded
     en_code hypernet checkpoint, phase 18's XLM-R and its 250002-id
-    tokenizer, phase 19's two reference checkpoints. Each PREPARED entry
-    holds its seconds."""
+    tokenizer, phase 19's two reference checkpoints, phase 20's Llama-3-8B
+    and its 128256-id tokenizer. Each PREPARED entry holds its seconds."""
     from zett_tpu_torch.tokenization.convert import convert_to_byte_level
     from zett_tpu_torch.tokenization.core import Tokenizer
 
@@ -4957,6 +5342,8 @@ def prepare_inputs():
     t0 = time.perf_counter()
     PREPARED["xlmr"] = (*write_xlmr(os.path.join(WORK, "xlmr")), time.perf_counter() - t0)
     write_reference_inputs()
+    t0 = time.perf_counter()
+    PREPARED["llama3"] = (*write_llama3(os.path.join(WORK, "llama3")), time.perf_counter() - t0)
 
 
 def main():
@@ -5063,6 +5450,10 @@ def main():
               "head width 128, the hypernet variants")
         kernels_ref, ref_tinyllama, ref_mistral, ref_variants, ref_wall = phase_reference()
         kernels.update(kernels_ref)
+        phase("phase 20: Llama-3-8B (random weights at its published config, cut in depth) "
+              "under its own tokenizer: the encode, the backbone, transfer and the perplexity "
+              "CLI")
+        llama3 = phase_llama3()
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -5110,7 +5501,9 @@ def main():
         elif name.endswith("_d128"):
             n = sum(run.get(name[:-len("_d128")], 0) for run in llama_runs)
         elif name.endswith("_h32"):
-            n = mistral_launches.get(name[:-len("_h32")], 0)
+            # Mistral-7B's transfers (phase 15) and Llama-3-8B's (phase 20)
+            n = sum(run.get(name[:-len("_h32")], 0)
+                    for run in (mistral_launches, llama3["launches"]))
         else:
             n = sum(run.get(name, 0) for run in (transfer_launches, train_launches,
                                                   pita_launches, eval_launches, lever_launches,
@@ -5149,7 +5542,14 @@ def main():
         f"reference_tinyllama_load_s {ref_tinyllama['load_s']:.3f} "
         f"reference_mistral_hypernet_ms_per_32k {ref_mistral['ms_per_32k']:.3f} "
         f"reference_mistral_load_s {ref_mistral['load_s']:.3f} variant_launches "
-        f"{ref_variants} phase19_wall_s {ref_wall:.3f}")
+        f"{ref_variants} phase19_wall_s {ref_wall:.3f} "
+        f"llama3_transfer_wall_s {llama3['wall']:.3f} llama3_hypernet_ms_per_32k "
+        f"{llama3['ms_per_32k']:.3f} llama3_eval_tokens_per_s "
+        f"{llama3['eval']['n_tokens'] / llama3['eval']['eval_s']:.1f} "
+        f"llama3_encode_mb_per_s "
+        f"{llama3['eval']['encode_mb'] / llama3['eval']['encode_s']:.4f} "
+        f"llama3_split_mb_per_s {llama3['split_mb_s']:.4f} "
+        f"phase20_wall_s {llama3['wall_s']:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

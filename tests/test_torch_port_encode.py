@@ -4,8 +4,9 @@ held against the JAX package field for field: ids, tokens, offsets,
 type_ids, attention_mask and special_tokens_mask, with and without special
 tokens, for pairs, under truncation and padding, and decode, on every
 tokenizer fixture and the repo's ten artifact tokenizers, on CORPUS. Also
-the Regex rule (the stdlib ``re`` where it reads a pattern as ``regex``
-does, the native GPT-2 split, else NotImplementedError) and an encode with
+the Regex rule (the native GPT-2 split; the stdlib ``re`` on the pattern
+as ``patterns.translate`` rewrites it, Unicode classes as code-point
+ranges; else NotImplementedError naming ROADMAP A.16) and an encode with
 ``regex``, ``tokenizers`` and ``jax`` unimportable."""
 
 import json
@@ -151,13 +152,13 @@ def test_added_tokens_match_jax(name, added):
 # ---------------------------------------------------------------- the Regex rule
 
 STDLIB_PATTERNS = [" {2,}", r"\.\.\.", r"[0-9]+", "[a-z]+|[^a-z ]+", "(?:ab|cd)+", r"x(?=y)",
-                   "(?i)the", r"[\]\-]", "é|ü+"]
+                   "(?i)the", r"[\]\-]", "é|ü+", LLAMA3_SPLIT, r"\w+", r"\s+", r"\bthe"]
 REFUSED = {
-    LLAMA3_SPLIT: r"\\p",
-    r"\w+": r"\\w",
-    r"\s+": r"\\s",
+    r"\p{Zs}+": "Unicode property",
+    r"(?i)\s+": "ignore-case",
+    r"(?i:[h-j]+)": "ignore-case",
+    r"[\w-z]": "range",
     r"\d": r"\\d",
-    r"\bthe": r"\\b",
     "a++": "possessive",
     "(?>ab)": "atomic",
     "[[:alpha:]]+": "POSIX",
@@ -170,8 +171,9 @@ REFUSED = {
 
 @pytest.mark.parametrize("pattern", STDLIB_PATTERNS)
 def test_stdlib_patterns_split_as_regex_does(pattern):
-    """A pattern with none of the syntax where re and regex differ runs on
-    re and splits CORPUS exactly as the JAX package's regex does."""
+    """A pattern the matcher takes (none of the syntax where re and regex
+    differ, or Unicode classes and word boundaries that it translates) runs
+    on re and splits CORPUS exactly as the JAX package's regex does."""
     from zett_tpu.tokenization.pretokenizers import Split as JaxSplit
     from zett_tpu_torch.tokenization.pretokenizers import Split
 
@@ -185,15 +187,15 @@ def test_stdlib_patterns_split_as_regex_does(pattern):
 
 @pytest.mark.parametrize("pattern", sorted(REFUSED))
 def test_refused_patterns_raise_when_used(pattern):
-    """A pattern with syntax that reads differently under re raises
-    NotImplementedError naming it and ROADMAP A.5 when it is used, not when
-    the tokenizer loads."""
+    """A pattern with syntax that reads differently under re and that the
+    matcher does not translate raises NotImplementedError naming it and
+    ROADMAP A.16 when it is used, not when the tokenizer loads."""
     from zett_tpu_torch.tokenization.normalizers import Replace
     from zett_tpu_torch.tokenization.pretokenizers import Split
 
     assert regex.search(REFUSED[pattern], patterns.unsupported_syntax(pattern))
     split, replace = Split(pattern), Replace({"Regex": pattern}, " ")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.5") as e:
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.16") as e:
         split.pre_tokenize_str("some text")
     assert repr(pattern) in str(e.value)
     with pytest.raises(NotImplementedError, match=r"Replace normalizer"):
@@ -201,18 +203,22 @@ def test_refused_patterns_raise_when_used(pattern):
 
 
 def test_llama3_split_loads_and_raises_on_encode():
-    """A tokenizer.json with Llama-3's Split pre-tokenizer loads, writes
-    back the same text as JAX, and raises NotImplementedError on encode."""
+    """A tokenizer.json with Llama-3's Split pre-tokenizer loads and writes
+    back the same text as JAX. It used to raise on encode; since the matcher
+    translates its Unicode classes, it encodes CORPUS as JAX does, field
+    for field, with and without special tokens."""
     data = json.loads(_json_text("gpt2_raw"))
     data["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
         {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
          "invert": False},
         {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
          "use_regex": False}]}
-    tok = Tokenizer.from_json(data)
-    assert tok.to_str() == JaxTokenizer.from_json(data).to_str()
-    with pytest.raises(NotImplementedError, match=r"\\p\{L\}.*ROADMAP A\.5"):
-        tok.encode("Hello world")
+    tok, jtok = Tokenizer.from_json(data), JaxTokenizer.from_json(data)
+    assert tok.to_str() == jtok.to_str()
+    for text in CORPUS:
+        for special in (True, False):
+            _assert_same(jtok.encode(text, add_special_tokens=special),
+                         tok.encode(text, add_special_tokens=special), text)
 
 
 def test_xlmr_regex_normalizer_encodes():
@@ -224,13 +230,16 @@ def test_xlmr_regex_normalizer_encodes():
 
 @pytest.mark.parametrize("what", ["word", "space", "number", "escape"])
 def test_character_classes_match_regex(what):
-    """The hand-written classes equal regex's \\w, \\s, \\p{N} and
-    regex.escape on every code point that Python's unicodedata assigns."""
+    """The hand-written classes (and the matcher's translation of
+    \\p{N}) equal regex's \\w, \\s, \\p{N} and regex.escape on every code
+    point that Python's unicodedata assigns."""
+    import re
     import unicodedata
 
+    number = re.compile(patterns.translate(r"\p{N}")[0])
     test = {"word": (patterns.is_word, regex.compile(r"\w")),
             "space": (patterns.is_space, regex.compile(r"\s")),
-            "number": (patterns.is_number, regex.compile(r"\p{N}"))}
+            "number": (lambda c: bool(number.fullmatch(c)), regex.compile(r"\p{N}"))}
     chars = [chr(cp) for cp in range(0x110000)
              if not 0xD800 <= cp <= 0xDFFF and unicodedata.category(chr(cp)) != "Cn"]
     if what == "escape":

@@ -6,6 +6,7 @@ run its products on the tensor cores: every plane the plain version
 multiplies is a bf16 value. The kernels themselves run only on the card
 (``chip_smoke.py`` phases 1, 2, 5 and 8)."""
 
+import contextlib
 import importlib
 
 import jax.numpy as jnp
@@ -199,6 +200,17 @@ def _ragged_inputs(B, L, H, I, dtype, seed):
     return x, mask, ws, bs, ffn, ln
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's intra-op threads pinned to one inside the block."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("H,nh,I", [(640, 10, 1600), (896, 14, 1600)])
 def test_plain_versions_at_ragged_widths_match_jax(dtype, H, nh, I):
@@ -208,7 +220,9 @@ def test_plain_versions_at_ragged_widths_match_jax(dtype, H, nh, I):
     attention_block_reference on the same numpy inputs, all rows. The widths
     pass check_gemm_widths. Tolerances: f32 1e-5 of the output scale (sums in
     another order); bf16 one ulp at the output scale (XLA rounds
-    intermediate bf16 ops where the port rounds once)."""
+    intermediate bf16 ops where the port rounds once). The plain versions run
+    on one CPU thread, so that torch's f32 sums keep one order whatever the
+    machine's load (ROADMAP C.22)."""
     B, L, eps = 3, 5, 1e-5
     x, mask, ws, bs, ffn, ln = _ragged_inputs(B, L, H, I, dtype, seed=H)
     check_gemm_widths("encoder_layer", dtype, (3 * H, H, I), (H, I))
@@ -225,15 +239,17 @@ def test_plain_versions_at_ragged_widths_match_jax(dtype, H, nh, I):
     tmask, jmask = torch.from_numpy(mask), jnp.asarray(mask)
     scale = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
 
-    got = attention_block(t(x), tmask, None, *wb_t, num_heads=nh).float().numpy()
+    with _one_thread():
+        got = attention_block(t(x), tmask, None, *wb_t, num_heads=nh).float().numpy()
     want = np.asarray(jax_block_reference(j(x), jmask, None, *wb_j, nh).astype(jnp.float32))
     top = max(float(np.abs(want).max()), 1.0)
     assert np.isfinite(got).all() and np.abs(got - want).max() <= scale * top
 
     lns_t = [torch.from_numpy(v) for v in ln]
     lns_j = [jnp.asarray(v) for v in ln]
-    got = encoder_layer(t(x), tmask, *wb_t, *lns_t, t(ffn[0]), t(ffn[1]), t(ffn[2]), t(ffn[3]),
-                        *lns_t, num_heads=nh, eps=eps).float().numpy()
+    with _one_thread():
+        got = encoder_layer(t(x), tmask, *wb_t, *lns_t, t(ffn[0]), t(ffn[1]), t(ffn[2]),
+                            t(ffn[3]), *lns_t, num_heads=nh, eps=eps).float().numpy()
     want = np.asarray(jax_layer_reference(
         j(x), jmask, *wb_j, *lns_j, j(ffn[0]), j(ffn[1]), j(ffn[2]), j(ffn[3]), *lns_j,
         nh, eps, True).astype(jnp.float32))

@@ -147,16 +147,17 @@ def test_device_path_refuses_bpe_by_naming_the_host_flag(texts, tmp_path):
 def test_non_canonical_tokenizer_raises(texts):
     """A tokenizer outside the canonical byte-level structure runs its own
     normalizer and pre-tokenizer (held against JAX in
-    ``test_torch_port_eval_cli.py``); one whose Split pattern reads
-    differently under re than under regex raises, naming ROADMAP A.5."""
+    ``test_torch_port_eval_cli.py``); one whose Split pattern the matcher
+    does not translate (a Unicode property other than L, N and M) raises,
+    naming ROADMAP A.16."""
     from zett_tpu_torch.tokenization.pretokenizers import PreTokenizer
 
     tok = Tokenizer.from_file(TOK.format("en_raw"))
-    tok.pre_tokenizer = PreTokenizer.from_json({"type": "Split", "pattern": {"Regex": r"\p{L}+"},
+    tok.pre_tokenizer = PreTokenizer.from_json({"type": "Split", "pattern": {"Regex": r"\p{Lu}+"},
                                                 "behavior": "Isolated", "invert": False})
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(NotImplementedError, match=r"A\.16"):
         priors.get_pretoken_counts(tok, texts)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(NotImplementedError, match=r"A\.16"):
         priors.compute_substring_prior(tok, texts=texts)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(NotImplementedError, match=r"A\.16"):
         chunked_tokenize(tok, texts, 32)

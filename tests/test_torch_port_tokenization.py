@@ -57,14 +57,15 @@ def test_load_save_round_trip_matches_jax(name, tmp_path):
 
 def test_non_byte_level_conversion_raises():
     """A non-byte-level tokenizer whose probe meets a Regex pattern that
-    reads differently under re than under regex raises (the port does not
-    use the regex module; ``patterns.py``); a Metaspace one converts
+    reads differently under re than under regex and that the matcher does
+    not translate (``patterns.py``; the port does not use the regex module)
+    raises naming ROADMAP A.16; a Metaspace one converts
     (``test_torch_port_llama.py``)."""
     data = Tokenizer.from_file(TOK.format("bert0001")).to_json()
     data["pre_tokenizer"] = {"type": "Metaspace", "replacement": "\u2581",
                              "prepend_scheme": "always", "split": True}
-    data["normalizer"] = {"type": "Replace", "pattern": {"Regex": r"\s{2,}"}, "content": " "}
-    with pytest.raises(NotImplementedError, match="Regex pattern"):
+    data["normalizer"] = {"type": "Replace", "pattern": {"Regex": r"\p{Zs}{2,}"}, "content": " "}
+    with pytest.raises(NotImplementedError, match=r"Regex pattern.*ROADMAP A\.16"):
         convert_to_byte_level(Tokenizer.from_json(data))
 
 

@@ -9,8 +9,8 @@ normalizer and pre-tokenizer, ``normalizers.py``/``pretokenizers.py``), the
 byte-fallback collapse, whitespace canonicalization, special-token alignment
 to a reference tokenizer with post-processor id fixup, the Unigram score
 transplant and BPE merge re-derivation. A normalizer or pre-tokenizer with
-a ``Regex`` pattern that the port refuses (``patterns.py``) in the probe's
-way raises ``NotImplementedError``.
+a ``Regex`` pattern that the port's matcher refuses (``patterns.py``) in the
+probe's way raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

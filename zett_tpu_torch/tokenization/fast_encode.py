@@ -2,9 +2,10 @@
 native host library (counterpart of ``zett_tpu/tokenization/fast_encode.py``).
 
 Valid only for the canonical sampled/converted pipeline: a Prepend(" ")
-normalizer (optional), Split(SPLIT_REGEX, invert) + ByteLevel (or a plain
-ByteLevel with use_regex) pre-tokenization, and a byte-complete model. Any
-other tokenizer gets None from ``fast_encoder_or_none`` and its callers
+normalizer (optional), Split(SPLIT_REGEX or SPLIT_REGEX_NO_MARKS, every
+match kept) + ByteLevel (or a plain ByteLevel with use_regex)
+pre-tokenization, and a byte-complete model. Any other tokenizer (Llama-3's
+Split among them) gets None from ``fast_encoder_or_none`` and its callers
 encode with the general pipeline (``Tokenizer.encode_batch``).
 """
 
@@ -14,6 +15,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..constants import SPLIT_REGEX, SPLIT_REGEX_NO_MARKS
 from ..csrc import host_lib
 from .bytemaps import CHARS_TO_BYTES
 from .core import Tokenizer
@@ -63,6 +65,10 @@ def _build_native_bpe(model: BPE, trans) -> Optional[host_lib.NativeBPE]:
 
 
 def _canonical_structure(tok: Tokenizer) -> bool:
+    """Whether the native split is the tokenizer's own: a Split on one of
+    the two GPT-2 patterns that keeps every match (the JAX package takes
+    any Split before a ByteLevel and runs the GPT-2 split on Llama-3's
+    pattern too: ROADMAP C.24), or a plain ByteLevel with use_regex."""
     if isinstance(tok.model, BPE):
         m = tok.model
         if m.continuing_subword_prefix or m.end_of_word_suffix:
@@ -73,7 +79,9 @@ def _canonical_structure(tok: Tokenizer) -> bool:
     if (isinstance(pt, Sequence) and len(pt.pretokenizers) == 2
             and isinstance(pt.pretokenizers[0], Split)
             and isinstance(pt.pretokenizers[1], ByteLevel)):
-        return True
+        split = pt.pretokenizers[0]
+        return split.pattern in (SPLIT_REGEX, SPLIT_REGEX_NO_MARKS) and (
+            split.invert or split.behavior.lower() == "isolated")
     return isinstance(pt, ByteLevel) and pt.use_regex
 
 

@@ -4,9 +4,9 @@
 ``String`` or a ``Regex`` pattern, ``Strip`` and ``BertNormalizer``.
 
 Standard library only. A ``Regex`` pattern runs as ``patterns.py`` says:
-the stdlib ``re`` where it reads the same as under ``regex``, else it raises
-``NotImplementedError`` when first used. Any other unknown type raises
-``ValueError``.
+the stdlib ``re`` on its translation (Unicode classes as code-point
+ranges), else it raises ``NotImplementedError`` naming ROADMAP A.16 when
+first used. Any other unknown type raises ``ValueError``.
 """
 
 from __future__ import annotations

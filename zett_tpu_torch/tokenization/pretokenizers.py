@@ -8,11 +8,12 @@ Each returns ``(pretoken, (start, end))`` in characters of its input, as
 JAX's ``pre_tokenize_str`` does.
 
 Standard library only: the patterns run as ``patterns.py`` says (the GPT-2
-split on the native scanner, other ``Regex`` patterns on ``re`` where it
-reads them as ``regex`` does, else ``NotImplementedError`` when used).
-``Whitespace``'s ``\\w+|[^\\w\\s]+``, ``WhitespaceSplit``'s ``\\S+``,
-``Punctuation``'s ``\\p{P}`` and ``Digits``' ``\\p{N}`` are scanners over
-``regex``'s character classes.
+split on the native scanner, other ``Regex`` patterns on ``re`` as
+``patterns.translate`` rewrites them, Unicode classes as code-point ranges,
+else ``NotImplementedError`` naming ROADMAP A.16 when used), JAX's
+``Whitespace``, ``WhitespaceSplit`` and ``Digits`` patterns among them.
+``Punctuation``'s ``\\p{P}`` and ``BertPreTokenizer`` are scanners over
+``unicodedata``'s categories and ``regex``'s ``\\s``.
 """
 
 from __future__ import annotations
@@ -21,38 +22,11 @@ from typing import List, Optional, Tuple
 
 from ..constants import SPLIT_REGEX_NO_MARKS
 from .bytemaps import bytes_to_byte_chars
-from .patterns import (
-    CharRuns,
-    Gpt2Split,
-    Matcher,
-    compile_pattern,
-    is_number,
-    is_punctuation,
-    is_space,
-    is_word,
-    regex_escape,
-)
+from .patterns import (CharRuns, Gpt2Split, Matcher, compile_pattern, is_punctuation, is_space,
+                       regex_escape)
 
 # (pretoken, (char_start, char_end)) relative to the normalized text
 Pretoken = Tuple[str, Tuple[int, int]]
-
-
-class _WordsAndSymbols(Matcher):
-    """``\\w+|[^\\w\\s]+``: runs of word characters, runs of the others
-    that are not whitespace."""
-
-    def spans(self, text: str):
-        out = []
-        start, kind = None, None
-        for i, c in enumerate(text):
-            k = 0 if is_word(c) else (None if is_space(c) else 1)
-            if k != kind:
-                if kind is not None:
-                    out.append((start, i))
-                start, kind = i, k
-        if kind is not None:
-            out.append((start, len(text)))
-        return out
 
 
 class PreTokenizer:
@@ -80,11 +54,9 @@ class PreTokenizer:
                 trim_offsets=data.get("trim_offsets", True),
             )
         if t == "Whitespace":
-            return Split(r"\w+|[^\w\s]+", behavior="Removed", invert=True,
-                         matcher=_WordsAndSymbols())
+            return Split(r"\w+|[^\w\s]+", behavior="Removed", invert=True)
         if t == "WhitespaceSplit":
-            return Split(r"\S+", behavior="Removed", invert=True,
-                         matcher=CharRuns(lambda c: not is_space(c), runs=True))
+            return Split(r"\S+", behavior="Removed", invert=True)
         if t == "Metaspace":
             return Metaspace(
                 replacement=data.get("replacement", "▁"),
@@ -284,7 +256,8 @@ class BertPreTokenizer(PreTokenizer):
 class Digits(PreTokenizer):
     def __init__(self, individual_digits: bool = False):
         self.individual_digits = individual_digits
-        self._matcher = CharRuns(is_number, runs=not individual_digits)
+        self._matcher = compile_pattern(r"\p{N}" if individual_digits else r"\p{N}+",
+                                        "Digits pre-tokenizer")
 
     def pre_tokenize_str(self, text: str) -> List[Pretoken]:
         return _split(self._matcher.spans(text), text, "Isolated", False)
