@@ -38,8 +38,11 @@ Phases (any failure exits non-zero and prints no result):
      against their plain versions at the training shapes (B = 32896 full and
      CLS-only layers, B = 16384 at L = 1, a ragged batch, all-padding rows,
      and Lq, Lk of 16, 9 and 20, 32),
-     bf16 and f32, dropout rate 0 and 0.1; the kept fraction of kernel 2's
-     own mask, and seed determinism; times beside bounds, plain versions and
+     bf16 and f32, dropout rate 0 and 0.1, the comparisons at a rank's
+     first row (ROW_OFFSET: the mask is keyed by the row within the whole
+     batch); the kept fraction of kernel 2's own mask, seed determinism,
+     and both kernels on a batch's last half at its row offset bitwise
+     equal to the whole batch's; times beside bounds, plain versions and
      SDPA; kernel 3 at rates 0 and 0.1 with a train batch's share of
      all-padding rows;
   6. the hypernet's training route at gpt2_en's widths on 512 rows, card
@@ -252,7 +255,23 @@ Phases (any failure exits non-zero and prints no result):
      rows, the hypernet per 32k vocab over the transfer's own batches, idle
      share, peak memory, wall; (e) the perplexity CLI on (a)'s model under
      its own tokenizer: loss, n_tokens, bits per char, host encode MB/s,
-     tokens a second.
+     tokens a second;
+ 21. the distributed layer (``zett_tpu_torch.parallel``) at world size 1,
+     one NCCL rank joined through the CLIs' ``--distributed-*`` flags,
+     against the same work without a process group: (a) the training CLI
+     at mistral7b_en_code_lw0.5_long over phase 15's Mistral-7B (the
+     hypernet at its published widths, 4096, 32 heads of 128, I 8192,
+     dropout 0.1; cut: 8192 vocab rows a step, about one rank's share of
+     32896 at four ranks, since the whole batch's activations do not fit
+     one card; 16 LM rows; 1 identity and 2 train steps; 64 initial texts
+     a language; no eval; final/ without optimizer state): the backbone
+     under FSDP2, losses equal within DIST_TOL (printed first), kernels 2
+     and 3 exactly 3 launches a step at 32 heads of 128, step ms, peak
+     memory; (b) the transfer CLI from (a)'s final/ to mistral0001 under
+     the group: kernels 1 and 2 exactly 2 and 1 a batch, the tables equal
+     to ``transfer()``'s without the group; (c) compute_prior --device on
+     the repo's Markdown under the group: the priors equal; the phase's
+     seconds and bytes written.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -312,6 +331,10 @@ HYPERNET_ROWS = 512
 # paths run kernel 6's DP fused with its span scores (viterbi_spans_dp);
 # their rows report 0 launches
 OFF_PATH = ("merged_attention", "viterbi_dp")
+# the first row kernels 2 and 3 and their plain versions are checked at (a
+# rank's share of a batch: rank 1 of 2 at 32896 rows); the dropout mask is
+# keyed by the row within the whole batch
+ROW_OFFSET = 16448
 
 
 def log(*args):
@@ -649,11 +672,11 @@ def check_kernel2(B, Lk, dtype, gen, timed, h=12, d=64):
     mask[1::97] = False
     kmaskf = mask.repeat_interleave(h, dim=-1).float().cuda()
     before = _build.launch_counts["attention_core"]
-    got = attention_core(qm, km, vm, kmaskf, h)
+    got = attention_core(qm, km, vm, kmaskf, h, row_offset=ROW_OFFSET)
     torch.cuda.synchronize()
     if _build.launch_counts["attention_core"] != before + 1:
         raise AssertionError("attention_core did not count its launch")
-    ref = attention_core_reference(qm, km, vm, kmaskf, h)
+    ref = attention_core_reference(qm, km, vm, kmaskf, h, row_offset=ROW_OFFSET)
     tag = f"kernel 2 B={B} Lk*h={Lk * h} {str(dtype)[6:]}" + ("" if h == 12 else f" h={h} d={d}")
     err = compare(got, ref, dtype, tag)
     if not timed:
@@ -760,15 +783,16 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     if padding_rows:
         tag += f" ({int((~mask).all(1).sum())} all-padding rows)"
     before = dict(_build.launch_counts)
-    out = attention_core(qm, km, vm, kmaskf, h, rate, seed)
-    grads = attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed)
+    r0 = ROW_OFFSET  # the comparison at a rank's first row
+    out = attention_core(qm, km, vm, kmaskf, h, rate, seed, r0)
+    grads = attention_core_bwd(qm, km, vm, kmaskf, dout, h, rate, seed, r0)
     torch.cuda.synchronize()
     for name in ("attention_core", "attention_core_bwd"):
         if _build.launch_counts[name] != before[name] + 1:
             raise AssertionError(f"{name} did not count its launch")
-    err_f = compare(out, attention_core_reference(qm, km, vm, kmaskf, h, rate, seed), dtype,
-                    f"kernel 2 {tag}")
-    refs = attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed)
+    err_f = compare(out, attention_core_reference(qm, km, vm, kmaskf, h, rate, seed, r0), dtype,
+                    f"kernel 2 {tag} row offset {r0}")
+    refs = attention_core_bwd_reference(qm, km, vm, kmaskf, dout, h, rate, seed, r0)
     err_b = max(compare(g, r, dtype, f"kernel 3 {tag} {n}")
                 for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
     del out, grads, refs
@@ -845,6 +869,28 @@ def check_dropout(gen, rate=0.1):
     if torch.equal(keep_a, keep_c):
         raise AssertionError("another seed gave the same mask")
     log("  dropout: same seed bitwise equal, another seed another mask")
+    check_row_offset(gen, rate)
+
+
+def check_row_offset(gen, rate, B=4096, L=7):
+    """The rows a rank runs drop what one process drops there: kernels 2
+    and 3 on the last half of a batch at row offset B/2 equal, bitwise, the
+    whole batch's last half at offset 0 (bf16, rate ``rate``)."""
+    from zett_tpu_torch.ops.attention_core import attention_core, attention_core_bwd
+
+    qm, km, vm, dout, kmaskf, _ = core_inputs(B, L, L, torch.bfloat16, gen)
+    half = B // 2
+    whole = [attention_core(qm, km, vm, kmaskf, 12, rate, 7)]
+    whole += attention_core_bwd(qm, km, vm, kmaskf, dout, 12, rate, 7)
+    part = [attention_core(qm[half:], km[half:], vm[half:], kmaskf[half:], 12, rate, 7, half)]
+    part += attention_core_bwd(qm[half:], km[half:], vm[half:], kmaskf[half:], dout[half:], 12,
+                               rate, 7, half)
+    torch.cuda.synchronize()
+    same = [torch.equal(w[half:], p) for w, p in zip(whole, part)]
+    log(f"  dropout: rows {half}..{B} at row offset {half} against the whole batch's: "
+        f"out, dq, dk, dv bitwise equal {same}")
+    if not all(same):
+        raise AssertionError("the row offset does not key the dropout mask by the whole batch")
 
 
 def phase_train_kernels():
@@ -5298,6 +5344,284 @@ def phase_llama3():
     return result
 
 
+# -------------------------------------------------------------------- phase 21
+# the vocab rows of (a)'s steps on one card: about what one rank of four
+# holds of the config's 32896 (32768 sampled + 128 of padding; the sample
+# is a multiple of 128). The whole batch's
+# hypernet activations at 4096 wide (7 positions, 3 layers, dropout masks)
+# are about 72 GB beside 10.5 GB of f32 parameters, gradients and AdamW
+# moments: more than one card holds, which is what the ranks split
+DIST_VOCAB_SAMPLE = 8064  # + pad_to_multiple_of 128: 8192 rows, a quarter of 32768
+DIST_BATCH = 16  # LM rows a step (the config's 128, cut for time)
+DIST_STEPS, DIST_IDENTITY = 3, 1
+DIST_INITIAL_TEXTS = 64  # texts a language the first tokenizer sample reads (256, cut for time)
+DIST_TOL = 1e-6  # relative, the one-rank group's losses against the run without one
+DIST_TARGET = os.path.join(REPO, "artifacts", "tokenizers", "mistral0001")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def write_markdown(path):
+    """The repo's Markdown files, one paragraph per line."""
+    paragraphs = []
+    for d, dirs, files in os.walk(REPO):
+        dirs[:] = sorted(x for x in dirs
+                         if not x.startswith(".") and x not in ("build", "__pycache__"))
+        for name in sorted(files):
+            if name.endswith(".md"):
+                with open(os.path.join(d, name), errors="replace") as f:
+                    for block in f.read().split("\n\n"):
+                        line = " ".join(p.strip() for p in block.splitlines() if p.strip())
+                        if line:
+                            paragraphs.append(line)
+    with open(path, "w") as f:
+        f.write("\n".join(paragraphs) + "\n")
+    return len(paragraphs), sum(map(len, paragraphs))
+
+
+def dist_config():
+    """configs/zeroshot/mistral7b_en_code_lw0.5_long.json over phase 15's
+    Mistral-7B (1 of 32 layers, every width kept), its cuts: DIST_VOCAB_SAMPLE,
+    DIST_BATCH, DIST_STEPS (DIST_IDENTITY identity steps, the identity step's
+    rows cut as the vocab rows), DIST_INITIAL_TEXTS, no eval, final/ without
+    the optimizer state; the hypernet's widths (4096, 32 heads of 128, I 8192), dropout
+    0.1 and ``remat_hypernet_glue`` kept (no ``remat_hypernet``: it would run
+    kernel 2 twice a layer)."""
+    from zett_tpu_torch.training.__main__ import load_config_file, load_language_list
+
+    config = load_config_file(MISTRAL_RUNS["en_code"])
+    langs, _ = load_language_list(os.path.join(REPO, config["langs"]))
+    train_dir, valid_dir = os.path.join(WORK, "dist_train"), os.path.join(WORK, "dist_valid")
+    for d in (train_dir, valid_dir):
+        os.makedirs(d, exist_ok=True)
+    n_en, _ = write_training_text(train_dir)
+    n_code, _ = write_code_text(train_dir, valid_dir, [l for l in langs if l != "en"])
+    rows = DIST_VOCAB_SAMPLE + config["pad_to_multiple_of"]
+    config.update(model_dir=os.path.join(WORK, "mistral"), train_directory=train_dir,
+                  valid_directory=None, langs=os.path.join(REPO, config["langs"]),
+                  steps=DIST_STEPS, identity_steps=DIST_IDENTITY, identity_n_subsample=rows,
+                  warmup_steps=[1, 2], random_warmup_steps=0, logging_steps=1, save_steps=0,
+                  save_state=False, num_workers=0, prefetch_batches=0, eval_steps=0,
+                  eval_at_step_zero=False, extra_valid_tokenizers=[], batch_size=DIST_BATCH,
+                  tokenizer_sample_min=DIST_VOCAB_SAMPLE, tokenizer_sample_max=DIST_VOCAB_SAMPLE,
+                  tokenizer_sample_mean=DIST_VOCAB_SAMPLE, loss_chunk_size=32,
+                  remat_hypernet_glue=True, n_initial_texts=DIST_INITIAL_TEXTS)
+    return config, langs, n_en, n_code
+
+
+def captured_tables():
+    """Wraps ``transfer.core.transfer`` to keep each call's arguments and
+    (emb_in, emb_out, bias); returns (the list, the undo)."""
+    from zett_tpu_torch.transfer import core
+
+    kept, orig = [], core.transfer
+
+    def keep(**kw):
+        out = orig(**kw)
+        kept.append((kw, tuple(None if t is None else np.array(t) for t in out[:3])))
+        return out
+
+    core.transfer = keep
+    return kept, lambda: setattr(core, "transfer", orig)
+
+
+def memoized_init():
+    """Wraps ``Hypernet.init_weights`` so that a second draw from the same
+    seed copies the first one's values instead of drawing them again on the
+    CPU (7.7 s at Mistral-7B's widths; the same values either way); returns
+    the undo."""
+    from zett_tpu_torch.models.hypernet import Hypernet
+
+    orig, drawn = Hypernet.init_weights, {}
+
+    def init(self, generator):
+        key = (generator.initial_seed(), tuple((n, tuple(p.shape))
+                                               for n, p in self.named_parameters()))
+        if key not in drawn:
+            orig(self, generator)
+            drawn[key] = {n: p.detach().clone() for n, p in self.named_parameters()}
+            return
+        with torch.no_grad():
+            for n, p in self.named_parameters():
+                p.copy_(drawn[key][n])
+
+    Hypernet.init_weights = init
+    return lambda: setattr(Hypernet, "init_weights", orig)
+
+
+def phase_distributed():
+    """The distributed layer (``zett_tpu_torch.parallel``) at world size 1:
+    one NCCL rank on this card, joined through the CLIs'
+    ``--distributed-*`` flags, against the same work without a process
+    group. (a) the training CLI at mistral7b_en_code_lw0.5_long over phase
+    15's Mistral-7B (``dist_config``'s cuts), the batch split and the
+    tables gathered through one rank, the backbone under FSDP2: losses
+    equal to the CLI's run without a group within DIST_TOL (printed before
+    the run), kernels 2 and 3 exactly 3 launches a step (3 layers) at 32
+    heads of 128, peak memory, step ms; (b) the transfer CLI from (a)'s
+    final/ to mistral0001: kernels 1 and 2 exactly 2 and 1 a batch, the
+    tables equal to ``transfer()``'s on the same hypernet and tokenizers
+    without a group; (c) compute_prior --device on the repo's Markdown with
+    gpt_neox0001, the histogram through the group's all-reduce: the priors
+    equal to the CLI's without a group. The run without a group writes no
+    final/ and draws the hypernet's initial values once for both runs
+    (``memoized_init``); the phase's disk writes stay under 4 GiB."""
+    import torch.distributed as dist
+
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.tokenization.compute_prior import main as prior_main
+    from zett_tpu_torch.training import engine
+    from zett_tpu_torch.training.__main__ import main as train_main
+    from zett_tpu_torch.transfer import core
+    from zett_tpu_torch.transfer.__main__ import main as transfer_main
+
+    t_phase = time.perf_counter()
+    written0 = written_gib()
+    config, langs, n_en, n_code = dist_config()
+    port = free_port()
+    flags = ["--distributed-coordinator", f"127.0.0.1:{port}",
+             "--distributed-num-processes", "1", "--distributed-process-id", "0"]
+    rows = DIST_VOCAB_SAMPLE + config["pad_to_multiple_of"]
+    log(f"  (a) {os.path.basename(MISTRAL_RUNS['en_code'])} over Mistral-7B at "
+        f"{MISTRAL_LAYERS} layer(s); langs {langs} (en: {n_en} Markdown paragraphs, the others "
+        f"{n_code} Python lines); {rows} vocab rows a step (about one rank's share of 32896 "
+        f"at 4 ranks), {DIST_BATCH} LM rows, {DIST_STEPS} steps ({DIST_IDENTITY} identity), "
+        f"dropout {config.get('hidden_dropout_prob', 0.1)}; the group's losses must equal the "
+        f"run without one within {DIST_TOL:g} relative")
+    md = os.path.join(WORK, "dist_markdown.txt")
+    n_par, n_chars = write_markdown(md)
+
+    def train(grouped):
+        tag = "one-rank group" if grouped else "no group"
+        path = os.path.join(WORK, f"dist_{'group' if grouped else 'plain'}.json")
+        out = os.path.join(WORK, "dist_out" if grouped else "dist_out_plain")
+        with open(path, "w") as f:
+            json.dump(dict(config, output_dir=out), f)
+        gc_free()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        records = []
+        orig_save, orig_fit = engine.Trainer.save_checkpoint, engine.Trainer.fit
+
+        def fit(self, *a, **kw):
+            history = orig_fit(self, *a, **kw)
+            records.extend(self.records)
+            return history
+
+        engine.Trainer.fit = fit
+        if not grouped:  # the comparison run writes no final/
+            engine.Trainer.save_checkpoint = lambda self, *a, **kw: None
+        t0 = time.perf_counter()
+        try:
+            trainer, history = train_main([path] + (flags if grouped else []))
+            torch.cuda.synchronize()
+        finally:
+            engine.Trainer.save_checkpoint, engine.Trainer.fit = orig_save, orig_fit
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launch_counts.items() if v}
+        losses = [r.get("loss", r.get("identity_loss")) for r in history]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_layers = trainer.hn_config.num_hidden_layers
+        sharded = trainer.distributed
+        del trainer
+        gc_free()
+        step_ms = [r["device_ms"] for r in records]
+        expected = {"attention_core": DIST_STEPS * n_layers,
+                    "attention_core_bwd": DIST_STEPS * n_layers}
+        log(f"  (a) {tag}: {DIST_STEPS} steps in {wall:.3f} s wall; losses "
+            f"{[repr(x) for x in losses]}; step ms (CUDA events) "
+            f"{['%.3f' % x for x in step_ms]}; peak memory {peak:.2f} GiB; launches "
+            f"{launches} (expected {expected}); backbone under FSDP: {sharded}")
+        if launches != expected:
+            raise AssertionError(f"kernel launches {launches}, expected {expected}")
+        if sharded != grouped or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bad run: sharded {sharded}, losses {losses}")
+        return dict(losses=losses, launches=launches, wall=wall, peak=peak, step_ms=step_ms)
+
+    def prior(grouped):
+        tag = "one-rank group" if grouped else "no group"
+        _build.reset_launch_counts()
+        out = os.path.join(WORK, f"dist_priors_{int(grouped)}.npy")
+        t0 = time.perf_counter()
+        prior_main(["--tokenizer", NEOX, "--data", md, "--device", "--output", out]
+                   + (flags if grouped else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = _build.launch_counts["viterbi_spans_dp"]
+        log(f"  (c) {tag}: compute_prior --device on {n_par} Markdown paragraphs "
+            f"({n_chars} characters) in {wall:.3f} s wall, {n} fused kernel launch(es)")
+        return np.load(out, allow_pickle=True).item(), n, wall
+
+    kept, undo = captured_tables()
+    undo_init = memoized_init()
+    try:
+        run = train(True)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        transfer_main(["--checkpoint", os.path.join(WORK, "dist_out", "final"),
+                       "--model", config["model_dir"], "--target-tokenizer", DIST_TARGET,
+                       "--output", os.path.join(WORK, "dist_transfer"), "--n-model-parallel",
+                       str(config["n_model_parallel"])] + flags)
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        t_launches = {k: v for k, v in _build.launch_counts.items() if v}
+        kwargs, tables = kept.pop()
+        n_rows = tables[0].shape[0]
+        batches = -(-n_rows // 16384)
+        t_expected = {"encoder_layer": 2 * batches, "attention_core": batches}
+        log(f"  (b) one-rank group: the transfer CLI to mistral0001 ({n_rows} rows, {batches} "
+            f"batches) in {t_wall:.3f} s wall; launches {t_launches} (expected {t_expected})")
+        if t_launches != t_expected:
+            raise AssertionError(f"transfer launches {t_launches}, expected {t_expected}")
+        prior_group = prior(True)
+        dist.destroy_process_group()
+        t0 = time.perf_counter()
+        plain = core.transfer(**kwargs)
+        torch.cuda.synchronize()
+        log(f"  (b) no group: transfer() on the CLI's hypernet and tokenizers in "
+            f"{time.perf_counter() - t0:.3f} s wall")
+        del kwargs
+        gc_free()
+        prior_plain = prior(False)
+        run_plain = train(False)
+    finally:
+        undo()
+        undo_init()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    a, b = run["losses"], run_plain["losses"]
+    rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+    log(f"  (a) losses, one-rank group against no group: largest relative difference "
+        f"{rel:.3e} (tolerance {DIST_TOL:g}); bitwise equal: {a == b}")
+    if len(a) != len(b) or rel > DIST_TOL:
+        raise AssertionError(f"the group's losses {a} differ from {b}")
+    same = all((x is None and y is None) or np.array_equal(x, y)
+               for x, y in zip(tables, plain[:3]))
+    log(f"  (b) the tables, one-rank group against no group: equal {same}")
+    if not same:
+        raise AssertionError("the group's transfer differs from the one without a group")
+    pa, pb = prior_group[0], prior_plain[0]
+    same_prior = all(np.array_equal(pa[k], pb[k]) for k in ("token", "substring"))
+    log(f"  (c) the priors, one-rank group against no group: equal {same_prior}")
+    if not same_prior or prior_group[1] == 0:
+        raise AssertionError("the group's priors differ, or the kernel did not run")
+    for name in ("dist_out", "dist_transfer", "dist_out_plain", "dist_train", "dist_valid"):
+        shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
+    written = written_gib()
+    wall = time.perf_counter() - t_phase
+    moved = None if written is None or written0 is None else written - written0
+    log(f"  phase 21: {wall:.3f} s wall; "
+        f"{'not measured' if moved is None else f'{moved:.2f} GiB'} passed to write calls")
+    return dict(train=run, transfer_launches=t_launches, prior_launches=prior_group[1],
+                wall_s=wall, written_gib=moved)
+
+
 PREPARED = {}  # prepare_inputs' entries, each taken by its phase
 
 
@@ -5454,6 +5778,10 @@ def main():
               "under its own tokenizer: the encode, the backbone, transfer and the perplexity "
               "CLI")
         llama3 = phase_llama3()
+        phase("phase 21: the distributed layer at world size 1 (NCCL): Mistral-7B's en_code "
+              "hypernet through the training CLI under the --distributed-* flags, the transfer "
+              "and compute_prior CLIs under the group, each against the run without one")
+        distributed = phase_distributed()
     except Exception:  # noqa: BLE001 — any failure fails the run
         traceback.print_exc()
         return 1
@@ -5477,8 +5805,8 @@ def main():
     }
     # the head-width-128 instantiations of kernels 1, 2 and 3 (phase 14; the
     # multilingual TinyLlama's training in phase 15(e)) and their 32-head
-    # ones (phase 15; kernel 3 at 32 heads is off the main paths: Mistral
-    # training waits for more than one card)
+    # ones (phases 15, 20 and 21: Mistral-7B's en_code hypernet trains in
+    # phase 21(a))
     for name in ("encoder_layer", "attention_core", "attention_core_bwd"):
         sources[f"{name}_d128"] = sources[name]
         sources[f"{name}_h32"] = sources[name]
@@ -5489,7 +5817,7 @@ def main():
     reference_runs = {"attention_block_d128": ref_tinyllama["launches"],
                       "attention_block_d128_h32": ref_mistral["launches"]}
     llama_runs = (llama_train["launches"], llama_transfer["launches"], ml_launches)
-    off_path = OFF_PATH + ("attention_core_bwd_h32",)
+    off_path = OFF_PATH
     rows = []
     for name, (source, replaces) in sources.items():
         # launches: the main paths' runs, transfer (phases 4, 10 and
@@ -5501,13 +5829,17 @@ def main():
         elif name.endswith("_d128"):
             n = sum(run.get(name[:-len("_d128")], 0) for run in llama_runs)
         elif name.endswith("_h32"):
-            # Mistral-7B's transfers (phase 15) and Llama-3-8B's (phase 20)
+            # Mistral-7B's transfers (phase 15), Llama-3-8B's (phase 20), and
+            # Mistral-7B's training and transfer under the group (phase 21)
             n = sum(run.get(name[:-len("_h32")], 0)
-                    for run in (mistral_launches, llama3["launches"]))
+                    for run in (mistral_launches, llama3["launches"],
+                                distributed["train"]["launches"],
+                                distributed["transfer_launches"]))
         else:
             n = sum(run.get(name, 0) for run in (transfer_launches, train_launches,
                                                   pita_launches, eval_launches, lever_launches,
-                                                  {"viterbi_spans_dp": prior_launches},
+                                                  {"viterbi_spans_dp": prior_launches
+                                                   + distributed["prior_launches"]},
                                                   xlmr["train"]["launches"],
                                                   xlmr["transfer"]["launches"]))
         if n == 0 and name not in off_path:
@@ -5549,7 +5881,10 @@ def main():
         f"llama3_encode_mb_per_s "
         f"{llama3['eval']['encode_mb'] / llama3['eval']['encode_s']:.4f} "
         f"llama3_split_mb_per_s {llama3['split_mb_s']:.4f} "
-        f"phase20_wall_s {llama3['wall_s']:.3f}")
+        f"phase20_wall_s {llama3['wall_s']:.3f} "
+        f"mistral_train_group_step_ms {distributed['train']['step_ms'][-1]:.3f} "
+        f"mistral_train_group_peak_gib {distributed['train']['peak']:.2f} "
+        f"phase21_wall_s {distributed['wall_s']:.3f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -62,9 +62,11 @@
 // Dropout of the softmax weights (kernel 2 on the training route) draws its
 // keep mask from a counter-based generator instead of the TPU kernel's
 // per-tile Mosaic PRNG: Philox4x32-10 keyed by (seed, 0) at the counter
-// (row b, merged query index, merged key index, 0). Each entry of the merged
-// (B, Lq*h, Lk*h) weight plane thus has its own bits, independent of how the
-// batch is tiled, and the backward (kernel 3) regenerates the same mask. An
+// (row_offset + b, merged query index, merged key index, 0), row_offset
+// being the launch's first row within the whole batch (nonzero where a rank
+// runs its share of the batch's rows). Each entry of the merged (B, Lq*h,
+// Lk*h) weight plane thus has its own bits, independent of how the batch is
+// tiled or split, and the backward (kernel 3) regenerates the same mask. An
 // entry is kept when its first output word is below keep_threshold =
 // round((1 - rate) * 2^32); kept weights are divided by 1 - rate in T.
 #pragma once
@@ -125,6 +127,7 @@ struct AttnArgs {
   unsigned int seed = 0;
   unsigned int keep_threshold = 0;
   float keep_div = 1.0f;  // 1 - rate, rounded to T
+  unsigned int row_offset = 0;  // the launch's first row within the whole batch
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), first output word.
@@ -149,9 +152,9 @@ __host__ __device__ inline unsigned int philox_word0(unsigned int c0, unsigned i
 }
 
 // Whether merged weight (b, qi, kj) survives dropout.
-__device__ __forceinline__ bool dropout_keep(unsigned int seed, unsigned int threshold, int b,
-                                             int qi, int kj) {
-  return philox_word0((unsigned int)b, (unsigned int)qi, (unsigned int)kj, 0u, seed, 0u) <
+__device__ __forceinline__ bool dropout_keep(unsigned int seed, unsigned int threshold,
+                                             unsigned int b, int qi, int kj) {
+  return philox_word0(b, (unsigned int)qi, (unsigned int)kj, 0u, seed, 0u) <
          threshold;
 }
 
@@ -243,7 +246,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
           float acc = 0.0f;
           for (int j = 0; j < Lk; ++j)
             for (int hh = 0; hh < a.h; ++hh)
-              if (dropout_keep(a.seed, a.keep_threshold, b, i * a.h + hd, j * a.h + hh))
+              if (dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * a.h + hd,
+                               j * a.h + hh))
                 acc += wd * Num<T>::to_f(vrow[j * a.v_sl + hh * D + dim]);
           ((T*)a.out)[b * a.o_sb + i * a.o_sl + hd * D + dim] = Num<T>::from_f(acc);
         }
@@ -295,7 +299,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_kernel(AttnArgs a) 
       const int i = idx / Lk;
       const int j = idx % Lk;
       float* wij = sp + i * (Lk + 1) + j;
-      *wij = dropout_keep(a.seed, a.keep_threshold, b, i * a.h + hd, j * a.h + hd)
+      *wij = dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * a.h + hd,
+                          j * a.h + hd)
                  ? Num<T>::round(*wij / a.keep_div)
                  : 0.0f;
     }
@@ -482,7 +487,8 @@ __device__ __forceinline__ void attention_head(const AttnArgs& a, int b, int hd,
           const int j = 8 * nt + 2 * q4 + e;
           float w = Num<bf16>::round(sacc[mt][nt][2 * hh + e] / sum);
           if (a.dropout && i < Lq && j < Lk)
-            w = dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, j * h + hd)
+            w = dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * h + hd,
+                             j * h + hd)
                     ? Num<bf16>::round(w / a.keep_div)
                     : 0.0f;
           sacc[mt][nt][2 * hh + e] = w;
@@ -636,7 +642,8 @@ __device__ __forceinline__ void attention_row(const AttnArgs& a, int b, int hd, 
 #pragma unroll
               for (int t = 0; t < 2; ++t)
                 e[t] = (i < Lq && kk + t < Lkh &&
-                        dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, kk + t))
+                        dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * h + hd,
+                                     kk + t))
                            ? wd
                            : 0.0f;
               af[mt][r + 2 * kh] = pack_bf16(e[0], e[1]);

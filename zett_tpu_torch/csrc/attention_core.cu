@@ -37,11 +37,13 @@
 
 // dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. dropout != 0
 // drops weights whose Philox bits are >= keep_threshold and divides the
-// others by keep_div (1 - rate in T). Returns a cudaError_t (0 = success).
+// others by keep_div (1 - rate in T); row_offset is the launch's first row
+// within the whole batch, which keys the mask (attention.cuh). Returns a
+// cudaError_t (0 = success).
 extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, const void* vm,
                                  const float* kmaskf, void* out, int B, int Lq, int Lk, int h,
                                  int d, int dropout, unsigned int seed, unsigned int keep_threshold,
-                                 float keep_div, void* stream) {
+                                 float keep_div, unsigned int row_offset, void* stream) {
   zt::AttnArgs a;
   a.q = qm;
   a.k = km;
@@ -62,6 +64,7 @@ extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, cons
   a.seed = seed;
   a.keep_threshold = keep_threshold;
   a.keep_div = keep_div;
+  a.row_offset = row_offset;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return (int)zt::launch_attention_d<__nv_bfloat16>(a, d, s);
   return (int)zt::launch_attention_d<float>(a, d, s);

@@ -71,6 +71,7 @@ struct AttnBwdArgs {
   unsigned int seed, keep_threshold;
   float keep_scale;    // 1/(1-rate) rounded to T
   float keep_scale32;  // 1/(1-rate) in f32
+  unsigned int row_offset;  // the launch's first row within the whole batch
 };
 
 // All-padding row (no valid key of head hd in row b): uniform weights over
@@ -94,7 +95,8 @@ __device__ void all_padding_bwd(const AttnBwdArgs& a, int b, int hd, int lane) {
       for (int i = 0; i < Lq; ++i)
         for (int hh = 0; hh < h; ++hh)
           if (!a.dropout ||
-              dropout_keep(a.seed, a.keep_threshold, b, i * h + hh, j * h + hd))
+              dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * h + hh,
+                           j * h + hd))
             acc += wd * Num<T>::to_f(grow[i * sl + hh * D + dim]);
       dvb[j * sl + dim] = Num<T>::from_f(acc);
       dkb[j * sl + dim] = Num<T>::from_f(0.0f);
@@ -197,7 +199,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32) attention_bwd_kernel(AttnBwdA
     const float w = sw[i * (Lk + 1) + j];
     float wd = w, dw = dwd;
     if (a.dropout) {
-      const bool kept = dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, j * h + hd);
+      const bool kept =
+          dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * h + hd, j * h + hd);
       wd = kept ? Num<T>::round(w * a.keep_scale) : 0.0f;
       dw = kept ? dwd * a.keep_scale32 : 0.0f;
     }
@@ -467,7 +470,8 @@ attention_bwd_mma_kernel(AttnBwdArgs a) {
           const float wij = j < Lk ? Num<bf16>::round(w[nt][e] / sum) : 0.0f;
           float wdij = wij, dwij = pacc[mt][nt][2 * hh + e];
           if (a.dropout && i < Lq && j < Lk) {
-            const bool kept = dropout_keep(a.seed, a.keep_threshold, b, i * h + hd, j * h + hd);
+            const bool kept =
+          dropout_keep(a.seed, a.keep_threshold, a.row_offset + b, i * h + hd, j * h + hd);
             wdij = kept ? Num<bf16>::round(wij * a.keep_scale) : 0.0f;
             dwij = kept ? dwij * a.keep_scale32 : 0.0f;
           }
@@ -564,12 +568,14 @@ inline cudaError_t launch_attention_bwd(int dtype, const AttnBwdArgs& a, cudaStr
 }  // namespace zt
 
 // dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. bf16 operands
-// 16-byte aligned. Returns a cudaError_t (0 = success).
+// 16-byte aligned. row_offset: the launch's first row within the whole
+// batch, as the forward took it. Returns a cudaError_t (0 = success).
 extern "C" int zt_attention_core_bwd(int dtype, const void* qm, const void* km, const void* vm,
                                      const float* kmaskf, const void* dout, void* dqm,
                                      void* dkm, void* dvm, int B, int Lq, int Lk, int h, int d,
                                      int dropout, unsigned int seed, unsigned int keep_threshold,
-                                     float keep_scale, float keep_scale32, void* stream) {
+                                     float keep_scale, float keep_scale32, unsigned int row_offset,
+                                     void* stream) {
   zt::AttnBwdArgs a;
   a.q = qm;
   a.k = km;
@@ -588,6 +594,7 @@ extern "C" int zt_attention_core_bwd(int dtype, const void* qm, const void* km, 
   a.keep_threshold = keep_threshold;
   a.keep_scale = keep_scale;
   a.keep_scale32 = keep_scale32;
+  a.row_offset = row_offset;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
     case 64: return (int)zt::launch_attention_bwd<64>(dtype, a, s);

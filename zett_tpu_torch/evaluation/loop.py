@@ -4,7 +4,10 @@ Runs a trainer's eval steps over a stream of collated validation batches and
 averages the metrics per tokenizer and per language. With a fixed tokenizer
 the surface forms and priors do not change across batches, so the
 hypernet's vocab forward runs once, on the first batch, and its embeddings
-are reused (``eval_step_cached``).
+are reused (``eval_step_cached``). Under a process group every rank runs
+the loop over the same batches: ``_device_batch`` keeps the rank's LM rows
+and the trainer sums each metric's parts over the ranks, so every rank
+gets one process's rows.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.encoder_layer import gelu, layer_norm_flax_exact
+from .units import BlockModel
 
 
 @dataclass
@@ -74,28 +75,16 @@ def weight_keys(config: GPT2Config):
     return keys
 
 
-class GPT2LMHeadModel(nn.Module):
+class GPT2LMHeadModel(BlockModel):
     def __init__(self, config: GPT2Config, state_dict: Dict[str, torch.Tensor], dtype):
         super().__init__()
         if not config.tie_word_embeddings:
             raise NotImplementedError("untied GPT-2 heads are not ported")
         self.config = config
         self.dtype = dtype
-        # HF names with "." -> "__" (ParameterDict keys cannot hold dots)
-        self.weights = nn.ParameterDict({
-            k.replace(".", "__"): nn.Parameter(state_dict[k].detach().clone())
-            for k in weight_keys(config)
-        })
-
-    def raw(self, key: str) -> torch.Tensor:
-        return self.weights[key.replace(".", "__")]
-
-    def w(self, key: str) -> torch.Tensor:
-        return self.raw(key).to(self.dtype)
-
-    def named_hf_parameters(self):
-        for k, p in self.weights.items():
-            yield k.replace("__", "."), p
+        # the blocks ``transformer.h.N`` in units of their own (units.py)
+        self._hold(weight_keys(config), [_block_keys(i) for i in range(config.n_layer)],
+                   state_dict, self._block)
 
     def _ln(self, x, prefix):
         # flax LayerNorm without a dtype: f32 statistics, the parameters as
@@ -130,6 +119,9 @@ class GPT2LMHeadModel(nn.Module):
         """Final hidden states (after ln_f), (B, L, E): in the compute dtype,
         or f32 where ``ln_f``'s parameters are f32 and the compute dtype is
         not."""
+        return self._hidden_states(input_ids, attention_mask, wte)
+
+    def _hidden_states(self, input_ids, attention_mask, wte):
         cfg = self.config
         B, L = input_ids.shape
         dev = input_ids.device
@@ -139,12 +131,12 @@ class GPT2LMHeadModel(nn.Module):
         mask = causal if attention_mask is None else causal & attention_mask.bool()[:, None, None, :]
         bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
         remat = cfg.remat_blocks and torch.is_grad_enabled()
-        for i in range(cfg.n_layer):
+        for i, block in enumerate(self.blocks):
             p = f"transformer.h.{i}"
             if remat:
-                hidden = checkpoint(self._block, hidden, bias, p, use_reentrant=False)
+                hidden = checkpoint(block, hidden, bias, p, use_reentrant=False)
             else:
-                hidden = self._block(hidden, bias, p)
+                hidden = block(hidden, bias, p)
         return self._ln(hidden, "transformer.ln_f")
 
     def _block(self, hidden, bias, p):
@@ -156,7 +148,7 @@ class GPT2LMHeadModel(nn.Module):
         """Logits (B, L, V): ``hidden @ wte.T`` with the table in the
         compute dtype, both promoted to a common dtype as jnp's matmul does
         (f32 after an f32 ``ln_f``)."""
-        hidden = self.hidden_states(input_ids, attention_mask, wte)
+        hidden = self._hidden_states(input_ids, attention_mask, wte)
         table = wte.to(self.dtype)
         common = torch.promote_types(hidden.dtype, table.dtype)
         return hidden.to(common) @ table.to(common).t()

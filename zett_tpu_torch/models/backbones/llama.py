@@ -45,6 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .units import BlockModel
+
 FAMILY = ("llama", "mistral", "gemma", "qwen2")
 
 
@@ -146,26 +148,15 @@ def gelu_tanh_jax(x):
     return x * cdf
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(BlockModel):
     def __init__(self, config: LlamaConfig, state_dict: Dict[str, torch.Tensor], dtype):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        # HF names with "." -> "__" (ParameterDict keys cannot hold dots)
-        self.weights = nn.ParameterDict({
-            k.replace(".", "__"): nn.Parameter(state_dict[k].detach().clone())
-            for k in weight_keys(config)
-        })
-
-    def raw(self, key: str) -> torch.Tensor:
-        return self.weights[key.replace(".", "__")]
-
-    def w(self, key: str) -> torch.Tensor:
-        return self.raw(key).to(self.dtype)
-
-    def named_hf_parameters(self):
-        for k, p in self.weights.items():
-            yield k.replace("__", "."), p
+        # the layers ``model.layers.N`` in units of their own (units.py)
+        self._hold(weight_keys(config),
+                   [_layer_keys(config, i) for i in range(config.num_hidden_layers)],
+                   state_dict, self._layer)
 
     def _norm(self, x, key):
         cfg = self.config
@@ -218,6 +209,9 @@ class LlamaForCausalLM(nn.Module):
         """Final hidden states (after the last RMSNorm), (B, L, hidden) in the
         compute dtype, with ``embed_tokens`` (V, hidden) as the input
         table."""
+        return self._hidden_states(input_ids, attention_mask, embed_tokens)
+
+    def _hidden_states(self, input_ids, attention_mask, embed_tokens):
         cfg = self.config
         B, L = input_ids.shape
         dev = input_ids.device
@@ -231,20 +225,20 @@ class LlamaForCausalLM(nn.Module):
         mask = causal if attention_mask is None else causal & attention_mask.bool()[:, None, None, :]
         attention_bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
         remat = cfg.remat_blocks and torch.is_grad_enabled()
-        for i in range(cfg.num_hidden_layers):
+        for i, block in enumerate(self.blocks):
             p = f"model.layers.{i}."
             if remat:
-                hidden = checkpoint(self._layer, hidden, attention_bias, sin, cos, p,
+                hidden = checkpoint(block, hidden, attention_bias, sin, cos, p,
                                     use_reentrant=False)
             else:
-                hidden = self._layer(hidden, attention_bias, sin, cos, p)
+                hidden = block(hidden, attention_bias, sin, cos, p)
         return self._norm(hidden, "model.norm.weight")
 
     def forward(self, input_ids, attention_mask, embed_tokens, lm_head=None):
         """Logits (B, L, V) in the compute dtype: ``hidden @ lm_head.T`` when
         the head is untied (``lm_head`` (V, hidden), HF's layout), else
         ``hidden @ embed_tokens.T``."""
-        hidden = self.hidden_states(input_ids, attention_mask, embed_tokens)
+        hidden = self._hidden_states(input_ids, attention_mask, embed_tokens)
         if self.config.tie_word_embeddings:
             return hidden @ embed_tokens.to(self.dtype).t()
         if lm_head is None:

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.encoder_layer import layer_norm_flax_exact
 from ..hypernet import gelu_exact
+from .units import BlockModel
 
 FAMILY = ("roberta", "xlm-roberta")
 WORD_EMBEDDINGS = "roberta.embeddings.word_embeddings.weight"
@@ -78,6 +79,10 @@ _LAYER = ("attention.self.query", "attention.self.key", "attention.self.value",
           "output.dense", "output.LayerNorm")
 
 
+def _layer_keys(i: int):
+    return [f"roberta.encoder.layer.{i}.{m}.{leaf}" for m in _LAYER for leaf in ("weight", "bias")]
+
+
 def weight_keys(config: RobertaConfig):
     """The HF keys the model holds: those ``loader.convert_roberta`` keeps,
     with the tied decoder's weight and bias left out (the word table and
@@ -86,33 +91,21 @@ def weight_keys(config: RobertaConfig):
             "roberta.embeddings.token_type_embeddings.weight",
             "roberta.embeddings.LayerNorm.weight", "roberta.embeddings.LayerNorm.bias"]
     for i in range(config.num_hidden_layers):
-        keys += [f"roberta.encoder.layer.{i}.{m}.{leaf}" for m in _LAYER
-                 for leaf in ("weight", "bias")]
+        keys += _layer_keys(i)
     keys += ["lm_head.dense.weight", "lm_head.dense.bias", "lm_head.layer_norm.weight",
              "lm_head.layer_norm.bias", "lm_head.bias"]
     return keys
 
 
-class RobertaForMaskedLM(nn.Module):
+class RobertaForMaskedLM(BlockModel):
     def __init__(self, config: RobertaConfig, state_dict: Dict[str, torch.Tensor], dtype):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        # HF names with "." -> "__" (ParameterDict keys cannot hold dots)
-        self.weights = nn.ParameterDict({
-            k.replace(".", "__"): nn.Parameter(state_dict[k].detach().clone())
-            for k in weight_keys(config)
-        })
-
-    def raw(self, key: str) -> torch.Tensor:
-        return self.weights[key.replace(".", "__")]
-
-    def w(self, key: str) -> torch.Tensor:
-        return self.raw(key).to(self.dtype)
-
-    def named_hf_parameters(self):
-        for k, p in self.weights.items():
-            yield k.replace("__", "."), p
+        # the layers ``roberta.encoder.layer.N`` in units of their own
+        # (units.py)
+        self._hold(weight_keys(config), [_layer_keys(i) for i in range(config.num_hidden_layers)],
+                   state_dict, self._layer)
 
     def _ln(self, x, prefix):
         # flax LayerNorm without a dtype: f32 statistics, the parameters as
@@ -148,6 +141,9 @@ class RobertaForMaskedLM(nn.Module):
         """The last layer's output (post-LN; no final norm), (B, L, hidden)
         in the compute dtype (f32 where the LayerNorms' parameters are),
         with ``word_embeddings`` (V, hidden) as the input table."""
+        return self._hidden_states(input_ids, attention_mask, word_embeddings)
+
+    def _hidden_states(self, input_ids, attention_mask, word_embeddings):
         cfg = self.config
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -160,12 +156,12 @@ class RobertaForMaskedLM(nn.Module):
         attention_bias = torch.where(attention_mask.bool()[:, None, None, :], 0.0,
                                      torch.finfo(torch.float32).min)
         remat = cfg.remat_blocks and torch.is_grad_enabled()
-        for i in range(cfg.num_hidden_layers):
+        for i, block in enumerate(self.blocks):
             p = f"roberta.encoder.layer.{i}."
             if remat:
-                hidden = checkpoint(self._layer, hidden, attention_bias, p, use_reentrant=False)
+                hidden = checkpoint(block, hidden, attention_bias, p, use_reentrant=False)
             else:
-                hidden = self._layer(hidden, attention_bias, p)
+                hidden = block(hidden, attention_bias, p)
         return hidden
 
     def lm_head_transform(self, hidden):
@@ -178,8 +174,8 @@ class RobertaForMaskedLM(nn.Module):
         """Logits (B, L, V): the head's output times the tied decoder
         ``word_embeddings`` in the compute dtype, both promoted to a common
         dtype as jnp's matmul does, plus ``lm_head_bias`` when given."""
-        t = self.lm_head_transform(self.hidden_states(input_ids, attention_mask,
-                                                      word_embeddings))
+        t = self.lm_head_transform(self._hidden_states(input_ids, attention_mask,
+                                                       word_embeddings))
         table = word_embeddings.to(self.dtype)
         common = torch.promote_types(t.dtype, table.dtype)
         logits = t.to(common) @ table.to(common).t()

@@ -9,30 +9,77 @@ tables and LayerNorm scales become ``weight``; ``layers_N`` of an
 ``layers.N``. Values keep their dtype; bfloat16 leaves (numpy arrays of the
 ``bfloat16`` extension dtype, or ``torch.bfloat16`` tensors as
 ``msgpack_io`` reads them) become torch bfloat16. ``flax_to_torch`` also
-takes a nested tree (``reference_io.load_reference_hypernet``'s).
+takes a nested tree (``reference_io.load_reference_hypernet``'s), and a
+``device`` to build the tensors on (the copy to it first, the kernels'
+transposes there). ``read_npz`` maps an uncompressed ``params.npz`` (what
+``np.savez`` writes) without copying it.
 """
 
 from __future__ import annotations
 
+import io
+import mmap
 import re
+import struct
+import warnings
+import zipfile
 from typing import Dict
 
 import numpy as np
 import torch
 
 
-def _to_tensor(v) -> torch.Tensor:
-    """A contiguous tensor of its own with ``v``'s values. A transposed
-    kernel is laid out by torch's blocked copy, many times faster than
-    numpy's at a (4096, 8192) kernel."""
+def _to_tensor(v, device=None) -> torch.Tensor:
+    """A contiguous tensor of its own with ``v``'s values, on ``device``
+    (default the CPU). A transposed kernel is laid out by torch's blocked
+    copy, many times faster than numpy's at a (4096, 8192) kernel; with a
+    device, by the device after the copy to it."""
     if isinstance(v, torch.Tensor):
-        return v.contiguous() if not v.is_contiguous() else v.clone()
-    if v.dtype.name == "bfloat16":
-        return torch.from_numpy(np.asarray(v, dtype=np.float32)).to(torch.bfloat16)
-    if not v.flags.writeable:
-        v = np.array(v)  # torch holds no read-only memory; the layout is kept
-    t = torch.from_numpy(v)
+        t = v
+    elif v.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.asarray(v, dtype=np.float32)).to(torch.bfloat16)
+    elif device is not None:
+        with warnings.catch_warnings():  # read-only memory (a map): only read here
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(v)
+    else:
+        if not v.flags.writeable:
+            v = np.array(v)  # torch holds no read-only memory; the layout is kept
+        t = torch.from_numpy(v)
+    if device is not None and t.device != torch.device(device):
+        t = t.to(device)
+        return t if t.is_contiguous() else t.contiguous()
     return t.contiguous() if not t.is_contiguous() else t.clone()
+
+
+def read_npz(path: str) -> Dict[str, np.ndarray]:
+    """The arrays of an uncompressed ``.npz`` file (``np.savez``), each a
+    read-only view of one memory map of the file: no copy, where
+    ``np.load`` reads every member through ``zipfile`` (about 0.6 GB/s).
+    A compressed member raises."""
+    out = {}
+    with open(path, "rb") as f:
+        whole = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        with zipfile.ZipFile(f) as zf:
+            infos = zf.infolist()
+    view = memoryview(whole)
+    for info in infos:
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise ValueError(f"{path}: {info.filename} is compressed; read it with np.load")
+        h = info.header_offset
+        name_len, extra_len = struct.unpack("<HH", view[h + 26:h + 30])
+        start = h + 30 + name_len + extra_len
+        member = view[start:start + info.file_size]
+        header = io.BytesIO(member[:4096])
+        version = np.lib.format.read_magic(header)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}[version]
+        shape, fortran, dtype = read(header)
+        count = int(np.prod(shape))
+        a = np.frombuffer(member, dtype=dtype, count=count, offset=header.tell())
+        name = info.filename[:-4] if info.filename.endswith(".npy") else info.filename
+        out[name] = a.reshape(shape, order="F" if fortran else "C")
+    return out
 
 
 def flatten(tree, prefix=()) -> dict:
@@ -57,8 +104,9 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
-def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """"/"-joined Flax paths (or a nested tree) -> the port's state dict."""
+def flax_to_torch(flat: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """"/"-joined Flax paths (or a nested tree) -> the port's state dict,
+    its tensors on ``device`` (default the CPU)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in flatten(flat).items():
         parts = "/".join(path).split("/")
@@ -78,7 +126,7 @@ def flax_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             leaf, value = "weight", value.T
         elif leaf in ("embedding", "scale"):
             leaf = "weight"
-        sd[".".join(mods + [leaf])] = _to_tensor(value)
+        sd[".".join(mods + [leaf])] = _to_tensor(value, device)
     return sd
 
 

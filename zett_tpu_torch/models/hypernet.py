@@ -29,6 +29,9 @@ chosen as the JAX module chooses them (``inference``, defaulting to
   kernel 2 forward and kernel 3 backward with in-kernel dropout; the last
   layer stays CLS-only where the JAX module makes it so. Hidden dropout
   follows flax's ``nn.Dropout`` with masks drawn from an explicit generator.
+  Every dropout mask is keyed by each row's index in the whole batch
+  (``row_offset`` plus the local row), so a rank that runs its share of a
+  batch's rows drops what one process running the whole batch drops there.
 
 The inter-token exchange (cross-attention between the batch's rows and a
 few learned blocks) takes the JAX module's plain attention (``_attention``)
@@ -71,8 +74,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_block import attention_block_fused
-from ..ops.attention_core import (HEAD_WIDTHS, attention_core, merged_attention_train,
-                                  softmax_weights)
+from ..ops.attention_core import (HEAD_WIDTHS, attention_core, keep_threshold,
+                                  merged_attention_train, softmax_weights)
 from ..ops.encoder_layer import encoder_layer, gelu, layer_norm_flax_exact
 
 MERGED_ATTENTION_MAX = 256  # widest merged (L*h) row on the kernel route
@@ -167,6 +170,11 @@ def remat_glue():
         _REMAT_GLUE.reset(token)
 
 
+# the index of the first row of the hypernet's call within the whole batch
+# (``Hypernet.forward``'s ``row_offset``): keys every dropout mask
+_ROW_OFFSET = contextvars.ContextVar("row_offset", default=0)
+
+
 def _glue(fn, *args):
     if _REMAT_GLUE.get() and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
@@ -228,13 +236,49 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
 
+_MASK32 = 0xFFFFFFFF
+_KEEP_ELEMENTS = 1 << 26  # int64 elements of the keep mask hashed at a time
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 (C. Wellons' integer hash), in place on int64 holding
+    32-bit values: both multipliers are under 2^31, so no product leaves
+    int64, on the CPU or the card."""
+    x.bitwise_xor_(x >> 16).mul_(0x21F0AAAD).bitwise_and_(_MASK32)
+    x.bitwise_xor_(x >> 15).mul_(0x735A2D97).bitwise_and_(_MASK32)
+    return x.bitwise_xor_(x >> 15)
+
+
+def dropout_keep(seed: int, shape, rate: float, device, row_offset: int = 0) -> torch.Tensor:
+    """Bool ``shape``: which elements survive dropout at ``rate``. Row r
+    (the first axis) of the whole batch, ``row_offset`` + the local row,
+    gets the key mix32(seed ^ r * 0x9E3779B9) and its element c (the
+    row-major index within the row) the bits mix32(key + c), kept below
+    ``keep_threshold(rate)``: a counter-based draw, so each row's mask is
+    the same whichever rows share the call and on every device."""
+    B = shape[0]
+    n = math.prod(shape[1:])
+    thr = keep_threshold(rate)
+    cols = torch.arange(n, dtype=torch.int64, device=device)[None]
+    step = max(1, _KEEP_ELEMENTS // max(n, 1))
+    out = []
+    for start in range(0, B, step):
+        rows = torch.arange(row_offset + start, row_offset + min(B, start + step),
+                            dtype=torch.int64, device=device)
+        keys = _mix32(((rows * 0x9E3779B9) & _MASK32).bitwise_xor_(int(seed) & _MASK32))
+        out.append(_mix32((keys[:, None] + cols).bitwise_and_(_MASK32)) < thr)
+    if not out:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    return torch.cat(out).reshape(shape)
+
+
 def dropout(x, rate: float, generator: torch.Generator):
     """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
-    divided by 1 - rate. The mask comes from a device generator seeded from
-    ``generator``, so the draw is a pure function of that generator's state."""
-    dev_gen = torch.Generator(device=x.device)
-    dev_gen.manual_seed(draw_seed(generator))
-    keep = torch.rand(x.shape, generator=dev_gen, device=x.device) < 1.0 - rate
+    divided by 1 - rate. The mask (``dropout_keep``) is keyed by a seed
+    drawn from ``generator`` and each row's index in the whole batch, so
+    the draw is a pure function of that generator's state and of the rows
+    (``Hypernet.forward``'s ``row_offset``)."""
+    keep = dropout_keep(draw_seed(generator), x.shape, rate, x.device, _ROW_OFFSET.get())
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -421,7 +465,7 @@ class Attention(nn.Module):
         vm = self.value(hidden).reshape(B, Lk * h, d)
         kmaskf = mask.repeat_interleave(h, dim=-1).float()
         seed = draw_seed(generator) if rate > 0.0 else 0
-        ctx = merged_attention_train(qm, km, vm, kmaskf, seed, h, rate)
+        ctx = merged_attention_train(qm, km, vm, kmaskf, seed, h, rate, _ROW_OFFSET.get())
         return self.out(ctx.reshape(B, Lq, H))
 
 
@@ -694,7 +738,8 @@ class Hypernet(nn.Module):
             self.bias_projection = Dense(H, 1, dtype)
 
     def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
-                lang_index=None, deterministic: bool = True, inference=None, generator=None):
+                lang_index=None, deterministic: bool = True, inference=None, generator=None,
+                row_offset: int = 0):
         """The JAX module's call signature. ``target_priors`` (B,) feed the
         prior token and the inter-token prior bias where the config asks for
         them (the bias only with ``add_inter_token_attention``, the one
@@ -703,7 +748,19 @@ class Hypernet(nn.Module):
         ``embed_lang_id`` asks for it. ``inference`` picks the route
         (default: ``deterministic``);
         ``generator`` (a CPU ``torch.Generator``) draws the dropout masks and
-        seeds when ``deterministic`` is False."""
+        seeds when ``deterministic`` is False.
+        ``row_offset``: the index of the first surface form within the whole
+        batch, which keys every dropout mask (a rank's share of a batch's
+        rows)."""
+        token = _ROW_OFFSET.set(int(row_offset))
+        try:
+            return self._forward(target_surface_forms, target_priors, source_embeddings,
+                                 lang_index, deterministic, inference, generator)
+        finally:
+            _ROW_OFFSET.reset(token)
+
+    def _forward(self, target_surface_forms, target_priors, source_embeddings, lang_index,
+                 deterministic, inference, generator):
         cfg = self.config
         if inference is None:
             inference = deterministic
@@ -857,7 +914,8 @@ class PassthroughHypernet(nn.Module):
             self.bias = table(1)
 
     def forward(self, target_surface_forms, target_priors=None, source_embeddings=None,
-                lang_index=None, deterministic: bool = True, inference=None, generator=None):
+                lang_index=None, deterministic: bool = True, inference=None, generator=None,
+                row_offset: int = 0):
         ids = target_surface_forms[..., 0]
 
         def lookup(mod):

@@ -22,8 +22,10 @@ forward and backward are the plain versions on the CPU. Any other device
 raises.
 
 Dropout draws its keep mask from Philox4x32-10 keyed by (seed, 0) at the
-counter (b, merged query index, merged key index, 0), so every entry of the
-merged weight plane has its own bits whatever the tiling; the plain version
+counter (row_offset + b, merged query index, merged key index, 0), so every
+entry of the merged weight plane has its own bits whatever the tiling, and a
+rank that runs rows r0..r0+B of a batch (``row_offset`` r0) drops what one
+process running the whole batch drops in those rows; the plain version
 computes the same Philox in int64 tensor arithmetic, so kernel and plain
 version drop the same entries. (The TPU kernel seeds the Mosaic PRNG per
 grid tile instead; its stream cannot be reproduced.)
@@ -137,14 +139,14 @@ def softmax_weights(qm, km, kmaskf, num_heads: int, kbias=None, plane_bias=None)
 
 
 def attention_core_reference(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0,
-                             seed: int = 0):
+                             seed: int = 0, row_offset: int = 0):
     """Plain version of kernel 2: ``_core_train_fwd_kernel``'s arithmetic
-    with the Philox keep mask (kept weights divided by 1 - rate in the
-    compute dtype)."""
+    with the Philox keep mask of rows ``row_offset``.. (kept weights divided
+    by 1 - rate in the compute dtype)."""
     dtype = qm.dtype
     w, _ = softmax_weights(qm, km, kmaskf, num_heads)
     if rate > 0.0:
-        keep = keep_mask(seed, *w.shape, rate, qm.device)
+        keep = keep_mask(seed, *w.shape, rate, qm.device, row_offset)
         div = torch.tensor(1.0 - rate, dtype=dtype, device=qm.device)
         w = torch.where(keep, w / div, torch.zeros((), dtype=dtype, device=qm.device))
     acc = _acc_dtype(dtype)
@@ -152,7 +154,7 @@ def attention_core_reference(qm, km, vm, kmaskf, num_heads: int, rate: float = 0
 
 
 def core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0,
-                     seed: int = 0):
+                     seed: int = 0, row_offset: int = 0):
     """The planes of kernel 3's plain version, in the accumulation dtype as
     its output products take them: w (the forward's weights), wd (the
     dropped weights, dV = Wd^T dO) and ds (dQ = dS K, dK = dS^T Q). Each is
@@ -165,7 +167,7 @@ def core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0
     w, valid = softmax_weights(qm, km, kmaskf, num_heads)
     dwd = torch.einsum("bqd,bkd->bqk", dout.to(acc), vm.to(acc))
     if rate > 0.0:
-        keep = keep_mask(seed, *w.shape, rate, dev)
+        keep = keep_mask(seed, *w.shape, rate, dev, row_offset)
         scale = torch.tensor(1.0 / (1.0 - rate), dtype=dtype, device=dev)
         wd = torch.where(keep, w * scale, torch.zeros((), dtype=dtype, device=dev))
         scale32 = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).to(acc).item()
@@ -181,14 +183,14 @@ def core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0
 
 
 def attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads: int,
-                                 rate: float = 0.0, seed: int = 0):
+                                 rate: float = 0.0, seed: int = 0, row_offset: int = 0):
     """Plain version of kernel 3, hand-written after
     ``_core_train_bwd_kernel`` (pallas_attention.py:254-317): (dqm, dkm,
     dvm). ds is zero on masked entries (the gradient of the forward's
     select), which the TPU kernel omits; see ``attention_core_bwd.cu``."""
     dtype = qm.dtype
     acc = _acc_dtype(dtype)
-    _, wd, ds = core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
+    _, wd, ds = core_bwd_weights(qm, km, vm, kmaskf, dout, num_heads, rate, seed, row_offset)
     dvm = torch.einsum("bqk,bqd->bkd", wd, dout.to(acc)).to(dtype)
     dqm = torch.einsum("bqk,bkd->bqd", ds, km.to(acc)).to(dtype)
     dkm = torch.einsum("bqk,bqd->bkd", ds, qm.to(acc)).to(dtype)
@@ -221,23 +223,34 @@ def _check_rate(rate: float) -> None:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
 
 
-def attention_core(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0, seed: int = 0):
+def _check_offset(row_offset: int, B: int) -> None:
+    """The rows' Philox counters are 32-bit."""
+    if row_offset < 0 or row_offset + B > 2**32:
+        raise ValueError(f"row offset {row_offset} of {B} rows outside the 32-bit counter")
+
+
+def attention_core(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0, seed: int = 0,
+                   row_offset: int = 0):
     """Attention core forward. CPU tensors take the plain version; on the
-    card this launches kernel 2."""
+    card this launches kernel 2. ``row_offset``: the first row's index in
+    the whole batch (keys the dropout mask)."""
     _check_rate(rate)
+    _check_offset(row_offset, qm.shape[0])
     if qm.device.type == "cpu":
-        return attention_core_reference(qm, km, vm, kmaskf, num_heads, rate, seed)
-    return _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed)
+        return attention_core_reference(qm, km, vm, kmaskf, num_heads, rate, seed, row_offset)
+    return _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed, row_offset)
 
 
 def attention_core_bwd(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0,
-                       seed: int = 0):
+                       seed: int = 0, row_offset: int = 0):
     """Attention core backward: (dqm, dkm, dvm). CPU tensors take the plain
     version; on the card this launches kernel 3."""
     _check_rate(rate)
+    _check_offset(row_offset, qm.shape[0])
     if qm.device.type == "cpu":
-        return attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
-    return _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed)
+        return attention_core_bwd_reference(qm, km, vm, kmaskf, dout, num_heads, rate, seed,
+                                            row_offset)
+    return _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed, row_offset)
 
 
 class _MergedAttentionTrain(torch.autograd.Function):
@@ -246,24 +259,27 @@ class _MergedAttentionTrain(torch.autograd.Function):
     backward, never kept."""
 
     @staticmethod
-    def forward(ctx, qm, km, vm, kmaskf, seed, num_heads, rate):
+    def forward(ctx, qm, km, vm, kmaskf, seed, num_heads, rate, row_offset):
         ctx.save_for_backward(qm, km, vm, kmaskf)
-        ctx.seed, ctx.num_heads, ctx.rate = seed, num_heads, rate
-        return attention_core(qm, km, vm, kmaskf, num_heads, rate, seed)
+        ctx.seed, ctx.num_heads, ctx.rate, ctx.row_offset = seed, num_heads, rate, row_offset
+        return attention_core(qm, km, vm, kmaskf, num_heads, rate, seed, row_offset)
 
     @staticmethod
     def backward(ctx, dout):
         qm, km, vm, kmaskf = ctx.saved_tensors
         dqm, dkm, dvm = attention_core_bwd(qm, km, vm, kmaskf, dout.contiguous(),
-                                           ctx.num_heads, ctx.rate, ctx.seed)
-        return dqm, dkm, dvm, None, None, None, None
+                                           ctx.num_heads, ctx.rate, ctx.seed, ctx.row_offset)
+        return dqm, dkm, dvm, None, None, None, None, None
 
 
-def merged_attention_train(qm, km, vm, kmaskf, seed: int, num_heads: int, rate: float):
+def merged_attention_train(qm, km, vm, kmaskf, seed: int, num_heads: int, rate: float,
+                           row_offset: int = 0):
     """Differentiable merged-head attention core with in-core dropout
-    (``merged_attention_train``, pallas_attention.py:438). Gradients flow to
-    qm, km and vm only."""
-    return _MergedAttentionTrain.apply(qm, km, vm, kmaskf, int(seed), num_heads, float(rate))
+    (``merged_attention_train``, pallas_attention.py:438), its rows at
+    ``row_offset`` within the whole batch. Gradients flow to qm, km and vm
+    only."""
+    return _MergedAttentionTrain.apply(qm, km, vm, kmaskf, int(seed), num_heads, float(rate),
+                                       int(row_offset))
 
 
 # ------------------------------------------------------------------ launches
@@ -338,7 +354,7 @@ def _dropout_args(rate: float, seed: int, dtype):
     return 1, int(seed) & _MASK32, keep_threshold(rate), div, scale, scale32
 
 
-def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
+def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed, row_offset=0):
     lib = _build.load(_FWD)
     if not qm.is_cuda:
         raise ValueError(f"attention_core: no kernel for device {qm.device}")
@@ -352,17 +368,17 @@ def _launch_fwd(qm, km, vm, kmaskf, num_heads, rate, seed):
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = lib.zt_attention_core
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, u, u, ctypes.c_float, p]
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, u, u, ctypes.c_float, u, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
     err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
              maskf.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads, qm.shape[-1],
-             drop, seed32, thr, div, stream)
+             drop, seed32, thr, div, int(row_offset), stream)
     _build.check(err, "attention_core kernel launch")
     _build.count_launch(_FWD)
     return out
 
 
-def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
+def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed, row_offset=0):
     lib = _build.load(_BWD)
     B, Lq, Lk = _check(qm, km, vm, num_heads, "attention_core_bwd")
     if dout.shape != qm.shape or dout.dtype != qm.dtype:
@@ -379,12 +395,12 @@ def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed):
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.zt_attention_core_bwd
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, u, f, f, p]
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, u, f, f, u, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
     err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
              maskf.data_ptr(), dout.data_ptr(), dqm.data_ptr(), dkm.data_ptr(),
              dvm.data_ptr(), B, Lq, Lk, num_heads, qm.shape[-1], drop, seed32, thr, scale,
-             scale32, stream)
+             scale32, int(row_offset), stream)
     _build.check(err, "attention_core_bwd kernel launch")
     _build.count_launch(_BWD)
     return dqm, dkm, dvm

@@ -22,11 +22,14 @@ arithmetic: the hashes run in int64 masked to 32 bits, with products split
 into 16-bit halves where they would leave int64.
 
 Differences from the JAX module, none of them visible in the results:
-- ``count_tokens_device`` runs on one device; it has no ``mesh`` argument
-  yet. A ``torch.distributed`` all-reduce of the (V,) histogram belongs to
-  the multi-GPU port. It accumulates the histogram in int64 on the device,
-  so the int32 chunking of the JAX version (whose TPU histogram is int32)
-  has no counterpart; rows go through in fixed chunks for memory only.
+- ``count_tokens_device`` splits its pretoken rows over the ranks of a
+  ``torch.distributed`` process group where one is given (``group``; the
+  counterpart of the JAX version's ``mesh`` and its ``shard_map`` psum,
+  ``:438-450``) and all-reduces the (V,) histogram: the counts are
+  integers, so any split gives the same histogram. It accumulates in int64
+  on the device, so the int32 chunking of the JAX version (whose TPU
+  histogram is int32) has no counterpart; rows go through in fixed chunks
+  for memory only.
 - ``DeviceRetokenizer`` runs its width groups as a loop of launches, with
   no batch-size buckets (they existed for jit signatures) and no program
   cache; the reversed ids of all groups are concatenated on the device and
@@ -349,11 +352,15 @@ def count_token_usage(back_k: torch.Tensor, back_id: torch.Tensor, lens: torch.T
 
 def count_tokens_device(pieces: Sequence[bytes], scores: Sequence[float],
                         pretoken_counts: Mapping[bytes, int], max_pretoken_len: int = 64,
-                        K: int = 16, overlong: str = "host", device="cuda") -> np.ndarray:
-    """Corpus token-usage counts (len(pieces),) int64 on one device: the
-    weighted pretokens (weights = multiplicities) are packed into byte rows,
-    Viterbi and chain-following counts run on ``device``, and only the
-    histogram comes back.
+                        K: int = 16, overlong: str = "host", device="cuda",
+                        group=None) -> np.ndarray:
+    """Corpus token-usage counts (len(pieces),) int64: the weighted
+    pretokens (weights = multiplicities) are packed into byte rows, Viterbi
+    and chain-following counts run on ``device``, and only the histogram
+    comes back. With ``group`` (a ``torch.distributed`` process group, every
+    rank calling with the same arguments), each rank runs a contiguous share
+    of the rows on its own device and the histograms are summed over the
+    ranks.
 
     ``overlong``: pretokens longer than ``max_pretoken_len`` are segmented
     exactly by the native encoder on the host and their counts folded in
@@ -385,13 +392,21 @@ def count_tokens_device(pieces: Sequence[bytes], scores: Sequence[float],
     weights = np.fromiter(agg.values(), dtype=np.int64, count=len(agg))
     tab = torch.from_numpy(table.table).to(device)
     counts = torch.zeros(n_pieces, dtype=torch.int64, device=tab.device)
-    for start in range(0, len(rows), _CHUNK_ROWS):
-        sl = slice(start, start + _CHUNK_ROWS)
+    first, last = 0, len(rows)
+    if group is not None:
+        import torch.distributed as dist
+
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        first, last = len(rows) * rank // world, len(rows) * (rank + 1) // world
+    for start in range(first, last, _CHUNK_ROWS):
+        sl = slice(start, min(start + _CHUNK_ROWS, last))
         r = torch.from_numpy(rows[sl]).to(tab.device)
         ln = torch.from_numpy(lens[sl]).to(tab.device)
         _, bk, bi = viterbi_device(r, ln, tab, table.salt, unk_score, K=K)
         counts += count_token_usage(bk, bi, ln, n_pieces,
                                     weights=torch.from_numpy(weights[sl]).to(tab.device))
+    if group is not None:
+        dist.all_reduce(counts, group=group)
     return total + counts.cpu().numpy()
 
 

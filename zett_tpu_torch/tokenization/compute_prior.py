@@ -7,6 +7,9 @@ Usage:
       --tokenizer TOK --data TEXTFILE [--mode reestimate] \\
       [--block-size 128] [--output priors.npy] [--max-texts N] \\
       [--device [{cuda,cpu}] | --host-encode]
+      [--distributed-coordinator HOST:PORT --distributed-num-processes N
+       --distributed-process-id I]
+  torchrun --nproc-per-node N -m zett_tpu_torch.tokenization.compute_prior ...
 
 Writes {"substring": ..., "token": ...} to <tokenizer dir>/priors.npy (or
 --output). In the default mode (reestimate) a Unigram tokenizer's token
@@ -19,7 +22,10 @@ work. ``--host-encode`` takes the host encode path instead
 ``--device``); a tokenizer that the device path cannot take (not Unigram,
 or a vocab piece outside its byte domain) raises a message that names it.
 ``--mode use_tokenizer`` tokenizes on the host in both packages: no kernel
-computes it, so it reads neither --device nor --host-encode.
+computes it, so it reads neither --device nor --host-encode. Under torchrun
+or the ``--distributed-*`` flags (one process a GPU; gloo with ``--device
+cpu``) the device count splits its pretoken rows over the ranks and sums
+the histogram over them (exact: integer counts); rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -52,16 +58,20 @@ def parse_args(argv=None):
         help="count token usage with the host encode (the JAX CLI without --device) instead "
         "of the device Viterbi",
     )
+    from ..parallel import multihost
+
+    multihost.add_flags(p)
     return p.parse_args(argv)
 
 
 HOST_FLAG = "--host-encode"  # what a message tells the caller to pass for the host path
 
 
-def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
-    """Reestimated token prior from counts on ``device``: every vocab piece
-    in the byte domain (specials and empty pieces never match), Laplace
-    smoothing, special ids 0."""
+def device_token_prior(tokenizer, pretoken_counts, device, group=None) -> np.ndarray:
+    """Reestimated token prior from counts on ``device`` (split over the
+    ranks of ``group`` where one is given): every vocab piece in the byte
+    domain (specials and empty pieces never match), Laplace smoothing,
+    special ids 0."""
     from ..ops.device_viterbi import count_tokens_device
     from .bytemaps import CHARS_TO_BYTES
 
@@ -91,7 +101,7 @@ def device_token_prior(tokenizer, pretoken_counts, device) -> np.ndarray:
     # 48-byte rows: pretokens are GPT-2-split words; the longer tail is
     # segmented exactly on the host
     counts = count_tokens_device(pieces, scores, pretoken_counts, max_pretoken_len=48,
-                                 device=device)
+                                 device=device, group=group)
     priors = counts.astype(np.float64) + 1.0  # laplace, as get_prior does
     priors /= priors.sum()
     token_prior = np.log(priors)
@@ -110,6 +120,16 @@ def main(argv=None):
             raise RuntimeError("no CUDA device is available; pass --device cpu to count on "
                                f"the CPU, or {HOST_FLAG} for the host path")
         device = torch.device(args.device)
+    from ..parallel import multihost
+
+    rank, _, rank_device = multihost.join_group(multihost.flags_section(args),
+                                                device.type if device is not None else "cpu")
+    group = None
+    if rank_device is not None:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+        device = rank_device if device is not None else None
 
     from ..evaluation.perplexity import chunked_tokenize
     from .core import Tokenizer
@@ -131,12 +151,14 @@ def main(argv=None):
     substring_prior, pretoken_counts = compute_substring_prior(
         tokenizer, texts=texts, return_pretoken_counts=True)
     if device is not None:
-        token_prior = device_token_prior(tokenizer, pretoken_counts, device)
+        token_prior = device_token_prior(tokenizer, pretoken_counts, device, group)
     else:
         data = chunked_tokenize(tokenizer, texts, args.block_size)
         token_prior = get_prior(args.mode, data["input_ids"], tokenizer)
 
     out = args.output or os.path.join(os.path.dirname(tok_path), "priors.npy")
+    if rank != 0:  # every rank holds the same priors; rank 0 writes them
+        return out
     np.save(out, {"substring": substring_prior, "token": token_prior})
     print(f"wrote priors for {len(tokenizer)} tokens to {out}")
     return out

@@ -2,7 +2,10 @@
 
 Usage:
   python -m zett_tpu_torch.training CONFIG.json [--device {cuda,cpu}]
+      [--distributed-coordinator HOST:PORT --distributed-num-processes N
+       --distributed-process-id I]
   python -m zett_tpu_torch.training --model MODEL_DIR --train-data DIR --output-dir OUT [...]
+  torchrun --nproc-per-node N -m zett_tpu_torch.training CONFIG.json
 
 The same JSON configs as ``python -m zett_tpu.training`` (``_base``
 inheritance included) map onto ``TrainingConfig``, ``DataConfig`` and
@@ -17,9 +20,17 @@ tokenizer that is not byte-level is converted first. ``loss: "mlm"``
 lines); without weights, ``language_metadata_csv`` gives corpus sizes and
 languages are drawn with probability size ** ``language_sampling_alpha``.
 Runs on the card unless ``--device cpu`` is given, and raises when there is
-none. One process on one device: a
-config's ``n_model_parallel`` runs without a mesh, as the JAX CLI does on
-one device. Metrics stream to ``<output_dir>/metrics.jsonl``;
+none. Several GPUs: one process each, joined into a ``torch.distributed``
+group from torchrun's environment, the three ``--distributed-*`` flags
+(as the JAX CLI takes them) or the config's ``distributed`` section
+(``coordinator_address``, ``num_processes``, ``process_id``); each process
+runs on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``, as the CPU
+tests spawn it), the batch rows are split over the ranks and the backbone is
+fully sharded (``zett_tpu_torch.parallel``); rank 0 writes the metrics and
+the checkpoints. A config's ``n_model_parallel`` asks for tensor
+parallelism, which is not ported (ROADMAP A.17): the CLI prints one line
+saying so and every rank holds whole hypernet weights, which changes
+nothing in the math. Metrics stream to ``<output_dir>/metrics.jsonl``;
 the trained hypernet is written to ``<output_dir>/final/`` in the transfer
 CLI's checkpoint format (``hn_config.json``, ``params.npz``,
 ``tokenizer.json``), so ``python -m zett_tpu_torch.transfer --checkpoint
@@ -68,6 +79,7 @@ import numpy as np
 
 from ..data.datasets import (language_probs_from_sizes, language_sizes_from_metadata,
                              load_language_list)
+from ..parallel import multihost
 
 
 def load_config_file(path: str) -> dict:
@@ -99,6 +111,8 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     device_p = argparse.ArgumentParser(add_help=False)
     device_p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    # a launcher passes each process its identity on top of a shared config
+    multihost.add_flags(device_p)
     if argv and argv[0].endswith(".json"):
         args, rest = device_p.parse_known_args(argv[1:])
         if rest:
@@ -123,9 +137,13 @@ def main(argv=None):
             with open(args.config) as f:
                 config = json.load(f)
         for k, v in vars(args).items():
-            if v is not None and k not in ("config", "device"):
+            if v is not None and k not in ("config", "device") \
+                    and not k.startswith("distributed_"):
                 config[k] = v
         run_name = os.path.basename(config.get("output_dir", "run"))
+    section = multihost.flags_section(args)
+    if section is not None:
+        config = {**config, "distributed": section}
     return run_training(config, run_name, device=args.device)
 
 
@@ -178,8 +196,8 @@ def build_eval_fn(config: dict, data_cfg, reference, hn_tokenizer, batch_size: i
 
 
 def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
-    """``zett_tpu/training/__main__.py:102`` without distributed init,
-    trackers, cost analysis and profiling. Returns (trainer, history)."""
+    """``zett_tpu/training/__main__.py:102`` without trackers, cost
+    analysis and profiling. Returns (trainer, history)."""
     from ..data import Collator, TrainDataset
     from ..data.mlm import MLMCollator
     from ..models.backbones.hf_io import load_hf_state_dict
@@ -191,6 +209,9 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     from .engine import Trainer, check_passthrough
 
     dev = resolve_device(device)
+    rank, world, rank_dev = multihost.join_group(config.get("distributed"), dev.type)
+    if rank_dev is not None:
+        dev = rank_dev
     train_cfg, data_cfg, hn_cfg = load_configs(config)
     check_passthrough(hn_cfg, train_cfg, data_cfg.use_passthrough_hypernet)
     os.makedirs(train_cfg.output_dir, exist_ok=True)
@@ -272,10 +293,12 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
                                      fixed_tokenizer=reference.copy(),
                                      lang_code=data_cfg.langs[0], seed=train_cfg.seed)
 
-    # one device: n_model_parallel shards nothing (zett_tpu/training/__main__.py:
-    # 274-278 builds a mesh only across devices)
-    print(f"{model_type} backbone on one device ({dev}); n_model_parallel "
-          f"{train_cfg.n_model_parallel} runs without a mesh", flush=True)
+    # zett_tpu/training/__main__.py:274-278 builds a ("data", "model") mesh;
+    # here the ranks are the data axis only
+    spread = f", fully sharded over {world} ranks that split the batch rows" if world > 1 else ""
+    print(f"{model_type} backbone on {dev}{spread}; n_model_parallel "
+          f"{train_cfg.n_model_parallel}: tensor parallelism is not ported (ROADMAP A.17), "
+          "every rank holds the whole hypernet, which does not change the math", flush=True)
     # the vocab rows of a batch (zett_tpu/training/__main__.py:281-287);
     # the passthrough tables cover them and the hn tokenizer's ids
     if data_cfg.n_token_subsample is not None:
@@ -309,6 +332,8 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     metrics_path = os.path.join(train_cfg.output_dir, "metrics.jsonl")
 
     def on_log(step, metrics):
+        if rank != 0:  # every rank holds the same metrics; rank 0 writes them
+            return
         with open(metrics_path, "a") as f:
             f.write(json.dumps({"run": run_name, **metrics}) + "\n")
         print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
@@ -332,7 +357,9 @@ def run_training(config: dict, run_name: str = "run", device: str = "cuda"):
     if history and history[-1].get("preempted"):
         # preempt_step_<N> holds the resumable state; final/ is for
         # finished runs
-        print("preempted: the state is in the preempt_step checkpoint; no final/", flush=True)
+        if rank == 0:
+            print("preempted: the state is in the preempt_step checkpoint; no final/",
+                  flush=True)
     else:
         trainer.save_checkpoint(os.path.join(train_cfg.output_dir, "final"),
                                 tokenizer=hn_tokenizer, full_state=train_cfg.save_state)

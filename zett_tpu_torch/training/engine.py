@@ -43,8 +43,22 @@ table, so there is no special-token splice, no lexical loss (refused by
 name, ROADMAP C.11) and no identity step; under ``"full"`` the backbone's
 parameters are f32, computed in the compute dtype, and train with the
 tables (the optimizer sees the Llama family's ``(out, in)`` weights in the
-Flax layout), and a full-state checkpoint carries them. Not ported: xglm,
-multi-GPU (and with it the multihost preemption agreement).
+Flax layout), and a full-state checkpoint carries them. Not ported: xglm.
+
+Under a ``torch.distributed`` process group (``parallel``; one process a
+GPU, launched by ``torchrun`` or the CLI's ``--distributed-*`` flags) every
+rank builds the same global batch and runs its share of the rows: the
+hypernet (replicated) predicts the rank's vocab rows (``row_offset`` keys
+their dropout as one process would), the ranks' tables are gathered with
+autograd before the splice, the backbone (fully sharded with FSDP2) runs
+the rank's LM rows, and each loss is the rank's share of the global mean,
+so the gradients, summed over the ranks (the hypernet's by one all-reduce,
+the backbone's by FSDP's reduce-scatter), are one process's. The clip's
+norm covers the sharded gradients too; eval sums its metrics' parts over
+the ranks; preemption is agreed every ``PREEMPT_SYNC_EVERY`` boundaries;
+rank 0 writes the checkpoints (in the one-process format, so a checkpoint
+restores under any number of ranks). The inter-token exchange, which mixes
+a batch's rows, runs on one rank only.
 """
 
 from __future__ import annotations
@@ -67,8 +81,9 @@ from ..models.convert import (backbone_flax_path, backbone_transposed, flax_path
                               flax_to_torch, torch_to_flax)
 from ..models.hypernet import Hypernet, HypernetConfig, PassthroughHypernet, remat_glue
 from ..models.splice import extract_embeddings
+from ..parallel import multihost, sharding
 from .losses import (chunked_clm_eval, chunked_clm_loss, chunked_mlm_eval, chunked_mlm_loss,
-                     lexical_loss, lm_loss, mlm_accuracy)
+                     finish_parts, lexical_loss, lm_eval_parts, lm_loss, token_count)
 from .optimizer import build_optimizer
 from .prefetch import BatchPrefetcher
 from .schedules import create_learning_rate_fn
@@ -118,6 +133,12 @@ class Trainer:
         check_passthrough(hn_config, cfg, use_passthrough_hypernet)
         self.cfg = cfg
         self.device = torch.device(device)
+        # the process group, when one is up: every rank runs its share
+        self.distributed = torch.distributed.is_initialized()
+        self.rank, self.world = multihost.rank_and_world()
+        if self.world > 1 and hn_config.add_inter_token_attention:
+            raise ValueError("add_inter_token_attention mixes the rows of a vocab batch, which "
+                             f"{self.world} ranks split: it trains on one rank (ROADMAP A.17)")
         self.dtype = DTYPES[cfg.dtype]
         self.hn_pad_token_id = hn_pad_token_id
         self.model_type = model_type
@@ -144,6 +165,8 @@ class Trainer:
         backbone_config = dataclasses.replace(backbone_config, remat_blocks=cfg.remat_backbone)
         self.backbone = build_model(model_type, backbone_config, held,
                                     self.dtype).to(self.device)
+        if self.distributed:
+            sharding.shard_backbone(self.backbone, self.device)
         self.headless = headless_model(model_type, self.backbone)
         self.mlm_head = mlm_head(model_type, self.backbone)
         if use_passthrough_hypernet:
@@ -193,7 +216,10 @@ class Trainer:
     def _device_batch(self, batch: Dict[str, Any], pin: bool = False) -> Dict[str, torch.Tensor]:
         """The numeric arrays of a host batch as device tensors; with
         ``pin``, copied from pinned host memory without blocking (the
-        prefetcher's side stream)."""
+        prefetcher's side stream). Under a process group, the rank's share
+        of the LM rows and the whole vocab vectors (``sharding.local_batch``)."""
+        if self.distributed:
+            batch = sharding.local_batch(batch, self.rank, self.world)
         out = {}
         for k, v in batch.items():
             if k == "metrics" or not (hasattr(v, "shape") or isinstance(v, (int, float))):
@@ -259,27 +285,37 @@ class Trainer:
         src_out = None if self.out_tied else self.source_embeddings[:, n_embd:]
         return src_in, src_out
 
+    def _rows(self, n: int) -> slice:
+        """This rank's vocab rows of a batch of ``n`` (all of them on one
+        process)."""
+        return multihost.process_slice(n, self.rank, self.world) if self.distributed \
+            else slice(0, n)
+
     def _hypernet(self, b, deterministic: bool, inference: bool = False, generator=None,
                   remat: bool = False):
-        """The hypernet on a device batch. With ``remat`` and gradients on,
-        under ``checkpoint`` (``engine.py:341-346``): the forward keeps only
-        its inputs and the backward runs it again. ``checkpoint`` restores
-        the default generators for that second run but not the explicit
-        dropout generator, so each run draws from its own generator set to
-        the state the first run started from; afterwards the step's
-        generator takes the state the first run ended at, as without remat."""
+        """The hypernet on a device batch's vocab rows, this rank's share
+        (``_rows``; ``row_offset`` keys the dropout by the global row). With
+        ``remat`` and gradients on, under ``checkpoint``
+        (``engine.py:341-346``): the forward keeps only its inputs and the
+        backward runs it again. ``checkpoint`` restores the default
+        generators for that second run but not the explicit dropout
+        generator, so each run draws from its own generator set to the state
+        the first run started from; afterwards the step's generator takes
+        the state the first run ended at, as without remat."""
         if generator is None and not deterministic:
             generator = self.state.dropout_generator
-        args = (b["target_surface_forms"], b.get("target_priors"), self.source_embeddings,
-                b.get("lang_index"))
+        rows = self._rows(b["target_surface_forms"].shape[0])
+        priors = b.get("target_priors")
+        args = (b["target_surface_forms"][rows], None if priors is None else priors[rows],
+                self.source_embeddings, b.get("lang_index"))
+        kw = dict(deterministic=deterministic, inference=inference, row_offset=rows.start)
 
         def glue():
             return remat_glue() if self.cfg.remat_hypernet_glue else contextlib.nullcontext()
 
         if not (remat and torch.is_grad_enabled()):
             with glue():
-                return self.hypernet(*args, deterministic=deterministic, inference=inference,
-                                     generator=generator)
+                return self.hypernet(*args, generator=generator, **kw)
         start = generator.get_state() if generator is not None else None
         end = []
 
@@ -290,8 +326,7 @@ class Trainer:
                 g.set_state(start)
             # the backward's recompute runs here too
             with glue():
-                out = self.hypernet(*inputs, deterministic=deterministic, inference=inference,
-                                    generator=g)
+                out = self.hypernet(*inputs, generator=g, **kw)
             if g is not None and not end:
                 end.append(g.get_state())
             return out
@@ -304,10 +339,15 @@ class Trainer:
     def _embeddings(self, b, deterministic: bool, inference: bool = False, generator=None):
         """The hypernet's predictions with the source model's special-token
         rows spliced in (``engine.py:348-368``), the hypernet under remat
-        with ``remat_hypernet``."""
+        with ``remat_hypernet``; under a process group the ranks' rows are
+        gathered first (with autograd: each rank's rows get the gradient
+        summed over the ranks)."""
         src_in, src_out = self._split_source()
-        emb_in, emb_out, biases = self._hypernet(b, deterministic, inference, generator,
-                                                 remat=self.cfg.remat_hypernet)
+        out = self._hypernet(b, deterministic, inference, generator,
+                             remat=self.cfg.remat_hypernet)
+        if self.distributed:
+            out = tuple(multihost.gather_rows(t) for t in out)
+        emb_in, emb_out, biases = out
         if src_in is None:  # the passthrough state keeps no source table
             return emb_in, emb_out, biases
         special, special_ref = b["special_indices"].long(), b["special_indices_in_reference"].long()
@@ -351,20 +391,35 @@ class Trainer:
         head_w = emb_out if (not self.out_tied and emb_out is not None) else emb_in
         return hidden, head_w
 
+    def _global(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` summed over the ranks (itself on one process)."""
+        return multihost.reduce_scalar(value) if self.distributed else value
+
     def _train_loss(self, b):
+        """(the rank's loss to differentiate, the step's loss, the lexical
+        loss, the lexical overlap); on one process the first two are one.
+        Under a process group the LM loss is the rank's share of the global
+        mean (its sum over the global token count), and the lexical loss,
+        computed on the gathered tables by every rank, adds a world-th of
+        its weighted value to each share."""
         cfg = self.cfg
         hn_cfg = self.hn_config
         src_in, src_out = self._split_source()
         emb_in, emb_out, biases = self._embeddings(b, not cfg.run_backbone_in_training_mode)
+        count = None
+        if self.distributed:
+            count = self._global(token_count(b["labels"], b["attention_mask"], cfg.loss))
         if self.cfg.loss_chunk_size > 0:
             hidden, head_w = self._headless(b, emb_in, emb_out)
             args = (hidden, head_w, self._logit_offset(b, biases), b["labels"],
                     b["attention_mask"], cfg.loss_chunk_size)
-            loss = (chunked_clm_loss(*args) if cfg.loss == "clm"
-                    else chunked_mlm_loss(*args, head_fn=self.mlm_head))
+            loss = (chunked_clm_loss(*args, count=count) if cfg.loss == "clm"
+                    else chunked_mlm_loss(*args, head_fn=self.mlm_head, count=count))
         else:
             logits = self._logits(b, emb_in, emb_out, biases)
-            loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss)
+            loss = lm_loss(logits.float(), b["labels"], b["attention_mask"], cfg.loss,
+                           count=count)
+        step_loss = self._global(loss.detach())
         if hn_cfg.embed_using_source_embeddings and cfg.lexical_loss_weight > 0:
             sf = b["target_surface_forms"].long()
             target_in = self._source_rows(src_in, sf[:, 0])
@@ -372,8 +427,11 @@ class Trainer:
             overlap = (sf[:, 1:] == self.hn_pad_token_id).all(dim=1)
             lex = lexical_loss(emb_in, emb_out, target_in, target_out, overlap,
                                cfg.lexical_loss_kind)
-            return loss + lex * cfg.lexical_loss_weight, lex, overlap.float().mean()
-        return loss, None, None
+            weighted = lex * cfg.lexical_loss_weight
+            share = weighted / self.world if self.distributed else weighted
+            return (loss + share, step_loss + weighted.detach(), lex,
+                    overlap.float().mean())
+        return loss, step_loss, None, None
 
     def _identity_loss(self, b):
         src_in, src_out = self._split_source()
@@ -384,18 +442,28 @@ class Trainer:
         emb_in, emb_out, _ = self._hypernet(b, deterministic=True)
         # JAX takes the rows with jnp.take, which fills ids past the table
         # with NaN (ROADMAP C.7): the port clamps them as the lexical
-        # loss's gather does
-        ids = b["ids_to_embed"].long()
-        in_loss = torch.square(emb_in - self._source_rows(src_in, ids)).sum(-1).mean()
+        # loss's gather does. The mean is over every rank's ids: a rank's
+        # loss is its rows' share.
+        n = b["ids_to_embed"].shape[0]
+        ids = b["ids_to_embed"][self._rows(n)].long()
+
+        def mean_distance(pred, table):
+            return torch.square(pred - self._source_rows(table, ids)).sum(-1).sum() / n
+
+        in_loss = mean_distance(emb_in, src_in)
         if src_out is not None and emb_out is not None:
-            out_loss = torch.square(emb_out - self._source_rows(src_out, ids)).sum(-1).mean()
-            return (in_loss + out_loss) / 2.0
+            return (in_loss + mean_distance(emb_out, src_out)) / 2.0
         return in_loss
 
     def _apply_gradients(self, loss) -> None:
         for p in self.params.values():
             p.grad = None
         loss.backward()
+        if self.distributed:
+            # the replicated hypernet's gradients summed over the ranks (FSDP
+            # has summed the backbone's)
+            multihost.all_reduce_sum([p.grad for path, p in self.params.items()
+                                      if path[0] == "hypernet" and p.grad is not None])
         self.last_grads = {path: p.grad for path, p in self.params.items()}
         self.optimizer.step(self.last_grads)
         self.state.step += 1
@@ -411,10 +479,10 @@ class Trainer:
 
     def _train_step(self, b: Dict[str, torch.Tensor]) -> Dict[str, float]:
         lr = self._lr_metric()
-        loss, lex, overlap = self._train_loss(b)
+        loss, step_loss, lex, overlap = self._train_loss(b)
         self._apply_gradients(loss)
         return {
-            "loss": float(loss.detach()),
+            "loss": float(step_loss),
             "lexical_loss": float(lex.detach()) if lex is not None else 0.0,
             "mean_lexical_overlap": float(overlap.detach()) if overlap is not None else 0.0,
             "learning_rate": lr,
@@ -424,7 +492,7 @@ class Trainer:
         lr = self._lr_metric()
         loss = self._identity_loss(b)
         self._apply_gradients(loss)
-        return {"identity_loss": float(loss.detach()), "learning_rate": lr}
+        return {"identity_loss": float(self._global(loss.detach())), "learning_rate": lr}
 
     # ------------------------------------------------------------------- eval
     @torch.no_grad()
@@ -440,17 +508,20 @@ class Trainer:
             generator.set_state(self.state.dropout_generator.get_state())
         return self._embeddings(b, deterministic, inference=deterministic, generator=generator)
 
+    def _finish(self, parts) -> Dict[str, torch.Tensor]:
+        """The eval metrics from their (sum, count) parts, summed over the
+        ranks first under a process group."""
+        if self.distributed:
+            parts = {k: (num.clone(), den.clone(), clamp) for k, (num, den, clamp)
+                     in parts.items()}
+            multihost.all_reduce_sum([t for num, den, _ in parts.values() for t in (num, den)])
+        return finish_parts(parts)
+
     def eval_metrics_from_logits(self, logits, b) -> Dict[str, torch.Tensor]:
         """``engine.py:589-597``: the CLM loss and bits-per-byte term, or the
         MLM loss and accuracy."""
-        logits = logits.float()
-        if self.cfg.loss == "clm":
-            loss, bpb = lm_loss(logits, b["labels"], b["attention_mask"], "clm",
-                                byte_lengths=b["byte_lengths"], with_bpb=True)
-            return {"eval_loss": loss, "eval_bpb": bpb}
-        loss = lm_loss(logits, b["labels"], b["attention_mask"], "mlm")
-        return {"eval_loss": loss,
-                "eval_accuracy": mlm_accuracy(logits, b["labels"], b["attention_mask"])}
+        return self._finish(lm_eval_parts(logits.float(), b["labels"], b["attention_mask"],
+                                          self.cfg.loss, b.get("byte_lengths")))
 
     @torch.no_grad()
     def eval_step(self, b) -> Dict[str, torch.Tensor]:
@@ -467,14 +538,12 @@ class Trainer:
             hidden, head_w = self._headless(b, emb_in, emb_out)
             offset = self._logit_offset(b, biases)
             if cfg.loss == "clm":
-                loss, bpb = chunked_clm_eval(hidden, head_w, offset, b["labels"],
-                                             b["attention_mask"], b["byte_lengths"],
-                                             cfg.loss_chunk_size)
-                return {"eval_loss": loss, "eval_bpb": bpb}
-            loss, acc = chunked_mlm_eval(hidden, head_w, offset, b["labels"],
-                                         b["attention_mask"], cfg.loss_chunk_size,
-                                         head_fn=self.mlm_head)
-            return {"eval_loss": loss, "eval_accuracy": acc}
+                return self._finish(chunked_clm_eval(
+                    hidden, head_w, offset, b["labels"], b["attention_mask"],
+                    b["byte_lengths"], cfg.loss_chunk_size, parts=True))
+            return self._finish(chunked_mlm_eval(
+                hidden, head_w, offset, b["labels"], b["attention_mask"], cfg.loss_chunk_size,
+                head_fn=self.mlm_head, parts=True))
         return self.eval_metrics_from_logits(self._logits(b, emb_in, emb_out, biases), b)
 
     # ------------------------------------------------------------------- loop
@@ -483,18 +552,21 @@ class Trainer:
             eval_fn: Optional[Callable[["Trainer"], Dict[str, float]]] = None,
             on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
             resume_step: int = 0, preempt_signal: Optional[int] = None):
-        """``engine.py:653-804`` on one process. Steps before
+        """``engine.py:653-804``. Steps before
         ``resume_step`` pull and drop their batches, so a run restored from
         a checkpoint of step ``resume_step`` sees the data stream where the
         checkpoint left it. With ``prefetch_batches``
         > 0 a thread pulls the next batches and copies them to the device
-        while a step runs. Every ``eval_steps`` steps, ``eval_fn(self)``'s
+        while a step runs, on one rank; more ranks pull in strict lockstep,
+        as JAX does (``engine.py:722-728``). Every ``eval_steps`` steps, ``eval_fn(self)``'s
         metrics join the history and go to ``on_log`` as a row of their
         own. With ``preempt_signal`` (a signal number) the signal sets a
-        flag; at the next step boundary the loop writes a full-state
-        checkpoint to ``<output_dir>/preempt_step_<N>``, appends
-        ``{"step": N, "preempted": 1.0}`` to the history and returns; the
-        previous handler is restored on the way out.
+        flag (``_preempted``); at the next step boundary (on more than one
+        rank, the next ``PREEMPT_SYNC_EVERY``-th, where the ranks agree:
+        ``_agree_preempted``) the loop writes a full-state checkpoint to
+        ``<output_dir>/preempt_step_<N>``, appends ``{"step": N,
+        "preempted": 1.0}`` to the history and returns; the previous handler
+        is restored on the way out.
 
         Records, per micro step, in ``self.records``: ``collate_ms`` (the
         host pull of its batch, on the prefetch thread when there is one),
@@ -528,6 +600,7 @@ class Trainer:
                 yield micro_step, use_identity, (time.perf_counter() - t_collate) * 1e3, batch
 
         self._preempted = False
+        self._preempt_enabled = preempt_signal is not None
         prev_handler = None
         if preempt_signal is not None:
             def on_preempt(signum, frame):
@@ -536,7 +609,7 @@ class Trainer:
             prev_handler = signal.signal(preempt_signal, on_preempt)
         stream = None
         try:
-            if cfg.prefetch_batches > 0:
+            if cfg.prefetch_batches > 0 and self.world == 1:
                 stream = BatchPrefetcher(host_stream(), self._device_batch, self.device,
                                          depth=cfg.prefetch_batches)
             else:
@@ -602,10 +675,7 @@ class Trainer:
                     history.append(evald)
                     if on_log is not None:
                         on_log(step + 1, evald)
-                if is_boundary and self._preempted:
-                    # one process: act on the local flag at every boundary
-                    # (engine.py:813-826); the multihost agreement waits for
-                    # multi-GPU
+                if is_boundary and self._agree_preempted(step):
                     self.save_checkpoint(
                         os.path.join(cfg.output_dir, f"preempt_step_{step + 1}"),
                         full_state=True)
@@ -617,6 +687,25 @@ class Trainer:
             if preempt_signal is not None:
                 signal.signal(preempt_signal, prev_handler)
         return history
+
+    # the ranks' preemption agreement runs every this many step boundaries
+    # (engine.py:806): a blocking all-reduce, not one a step
+    PREEMPT_SYNC_EVERY = 5
+
+    def _agree_preempted(self, step: int) -> bool:
+        """Whether to checkpoint and stop at this step boundary
+        (``engine.py:810-838``). One rank acts on its flag at every boundary;
+        with more, a signal reaches each process at its own time, so at
+        every ``PREEMPT_SYNC_EVERY``-th boundary the flags are all-reduced
+        (max) and every rank stops at the first such boundary at or after
+        any rank saw the signal; between them none acts, so all run the same
+        collectives."""
+        if self.world == 1 or not self._preempt_enabled:
+            return self._preempted
+        if (step + 1) % self.PREEMPT_SYNC_EVERY:
+            return False
+        self._preempted = multihost.agree_flag(self._preempted, self.device)
+        return self._preempted
 
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, path: str, tokenizer=None, full_state: bool = False) -> None:
@@ -630,8 +719,23 @@ class Trainer:
         count), and under full fine-tuning the backbone's parameters under
         "inner/<Flax path>"; full state is taken at a step boundary. The
         parameters written are the hypernet's (the passthrough tables),
-        never the backbone's, as in JAX."""
+        never the backbone's, as in JAX. Under a process group every rank
+        calls it (a sharded state is gathered) and rank 0 writes, in the
+        same format: the checkpoint restores under any number of ranks."""
         scalars = {"step": self.state.step, **self.optimizer.scalars()} if full_state else None
+        arrays = None
+        if full_state:
+            # bf16 state goes to f32, which holds it exactly
+            arrays = {k: t.detach().float().cpu().numpy()
+                      for k, t in self.optimizer.state_arrays().items()}
+            arrays.update(self._inner_arrays())
+            arrays["dropout_generator"] = self.state.dropout_generator.get_state().numpy()
+        if self.rank == 0:
+            self._write_checkpoint(path, tokenizer, scalars, arrays)
+        if self.distributed:
+            torch.distributed.barrier()
+
+    def _write_checkpoint(self, path, tokenizer, scalars, arrays) -> None:
         os.makedirs(path, exist_ok=True)
         np.savez(os.path.join(path, "params.npz"), **torch_to_flax(self.hypernet))
         with open(os.path.join(path, "hn_config.json"), "w") as f:
@@ -640,28 +744,27 @@ class Trainer:
             # compact: a pretty dump of a 250k-piece vocab runs the json
             # module's pure-Python encoder for seconds
             tokenizer.save(os.path.join(path, "tokenizer.json"), pretty=False)
-        if full_state:
+        if arrays is not None:
             resume = os.path.join(path, "resume")
             os.makedirs(resume, exist_ok=True)
-            # bf16 state goes to f32, which holds it exactly
-            arrays = {k: t.detach().float().cpu().numpy()
-                      for k, t in self.optimizer.state_arrays().items()}
-            arrays.update(self._inner_arrays())
-            arrays["dropout_generator"] = self.state.dropout_generator.get_state().numpy()
             np.savez(os.path.join(resume, "state.npz"), **arrays)
             with open(os.path.join(resume, "state.json"), "w") as f:
                 json.dump(scalars, f, indent=2)
 
     def _inner_arrays(self) -> Dict[str, np.ndarray]:
         """Under full fine-tuning, the backbone's parameters under
-        "inner/<Flax path>" in the Flax layout (``engine.py:867-868``);
-        nothing when the backbone is frozen."""
+        "inner/<Flax path>" in the Flax layout (``engine.py:867-868``),
+        gathered from the ranks where sharded; nothing when the backbone is
+        frozen."""
         if self.cfg.backbone_training != "full":
             return {}
         out = {}
         for path, p in self.params.items():
             if path[0] == "inner":
-                t = p.detach().float().cpu()
+                t = p.detach()
+                if sharding.is_sharded(t):
+                    t = sharding.full_tensor(t.to_local(), p)
+                t = t.float().cpu()
                 out["/".join(path)] = (t.t() if path in self.transposed else t).contiguous().numpy()
         return out
 
@@ -679,7 +782,11 @@ class Trainer:
             if key not in inner:
                 raise KeyError(f"full fine-tuning state: {key} missing from the checkpoint")
             t = torch.from_numpy(np.asarray(inner[key]))
-            p.copy_(t.t() if path in self.transposed else t)
+            t = t.t() if path in self.transposed else t
+            if sharding.is_sharded(p):
+                sharding.local_part(p).copy_(sharding.local_chunk(t, p))
+            else:
+                p.copy_(t)
 
     def restore_checkpoint(self, path: str, reset_steps: bool = False) -> int:
         """The hypernet's parameters from ``path`` always; the optimizer

@@ -14,6 +14,14 @@ order of the norm's sum. The update rules see each parameter, its gradient
 and its state in the Flax layout (Dense kernels (in, out)), since
 Adafactor's factored statistics depend on it; the optimizer state is
 keyed by "<slot>/<Flax path>" for checkpoints (``state_arrays``).
+
+Under FSDP (``parallel.sharding.shard_backbone``) a backbone parameter is a
+DTensor sharded on its first axis: the update rules run on each rank's
+local shard (AdamW is elementwise), the clip's global norm adds the
+shards' sums of squares over the ranks (one all-reduce a step), and
+``state_arrays`` gathers the whole tensors. Adafactor's factored
+statistics need whole rows and columns, so a trained sharded parameter
+that Adafactor would factor raises ``ValueError`` (ROADMAP A.18).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import full_tensor, is_sharded, local_chunk, local_part
 
 Path = Tuple[str, ...]
 
@@ -53,12 +63,27 @@ def get_label(path: Path, backbone_training: str = "no") -> str:
     return "train" if path[0] in trainable_roots else "freeze"
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Iterable[torch.Tensor], sharded: Iterable[bool] = ()) -> torch.Tensor:
     """optax.global_norm: sqrt of the left-to-right sum of each leaf's
-    sum of squares, each leaf's sum in its own dtype."""
+    sum of squares, each leaf's sum in its own dtype (its squares in it,
+    accumulated in f32 and rounded once, as a bf16 reduction does). A leaf
+    flagged in ``sharded`` holds a rank's shard: its f32 sums are added over
+    the ranks (one all-reduce for all of them) before that rounding, so a
+    sharded leaf rounds as a whole one does."""
+    grads = list(grads)
+    flags = list(sharded) or [False] * len(grads)
+    sums = [(g * g).sum(dtype=torch.float32) for g in grads]
+    parts = [i for i, f in enumerate(flags) if f]
+    if parts:
+        import torch.distributed as dist
+
+        buf = torch.stack([sums[i] for i in parts])
+        dist.all_reduce(buf)
+        for j, i in enumerate(parts):
+            sums[i] = buf[j]
     total = None
-    for g in grads:
-        s = (g * g).sum()
+    for s, g in zip(sums, grads):
+        s = s.to(g.dtype)
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -71,7 +96,8 @@ class _Optimizer:
     params: Flax path -> parameter, in any order; ``transposed``: the paths
     whose parameter is held transposed against the Flax layout (the
     hypernet's ``nn.Linear`` weights). ``step(grads)`` takes gradients for
-    every path (None counts as zeros) and updates the parameters in place."""
+    every path (None counts as zeros) and updates the parameters in place;
+    a sharded parameter and its gradient are taken as the local shard."""
 
     name = ""
     slots: Tuple[str, ...] = ()
@@ -85,9 +111,13 @@ class _Optimizer:
         self.lr_fn = learning_rate_fn
         self.transposed = frozenset(transposed)
         self.train = [p for p in self.paths if get_label(p, cfg.backbone_training) == "train"]
+        self.sharded = frozenset(p for p in self.paths if is_sharded(params[p]))
+        for p in self.train:
+            if p in self.sharded:
+                self._check_sharded(p, params[p].shape)
         self.state: Dict[str, Dict[Path, torch.Tensor]] = {slot: {} for slot in self.slots}
         for p in self.train:
-            for slot, value in self._init(self.flax_view(p, params[p])).items():
+            for slot, value in self._init(self.local_view(p, params[p])).items():
                 self.state[slot][p] = value
         self.count = 0  # updates made (also the schedule's count)
         self.k = max(int(cfg.gradient_accumulation_steps), 1)
@@ -97,6 +127,14 @@ class _Optimizer:
     def flax_view(self, path: Path, t: torch.Tensor) -> torch.Tensor:
         """``t`` in the Flax layout (a view)."""
         return t.t() if path in self.transposed else t
+
+    def local_view(self, path: Path, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``t`` (all of it unless sharded) in the Flax
+        layout (a view)."""
+        return self.flax_view(path, local_part(t))
+
+    def _check_sharded(self, path: Path, shape) -> None:
+        """Where a rule cannot run on a shard."""
 
     def _init(self, param: torch.Tensor) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -110,8 +148,8 @@ class _Optimizer:
     def step(self, grads: Dict[Path, Optional[torch.Tensor]]) -> None:
         """One micro step: with k-step accumulation the parameters change
         on every k-th call only."""
-        grads = {p: (grads.get(p) if grads.get(p) is not None
-                     else torch.zeros_like(self.params[p])) for p in self.paths}
+        grads = {p: (local_part(grads[p]) if grads.get(p) is not None
+                     else torch.zeros_like(local_part(self.params[p]))) for p in self.paths}
         if self.k > 1:
             n = self.mini_step
             if self.acc is None:
@@ -126,22 +164,30 @@ class _Optimizer:
     def _update(self, grads: Dict[Path, torch.Tensor]) -> None:
         max_norm = self.cfg.max_grad_norm
         if max_norm is not None:
-            g_norm = global_norm(grads[p] for p in self.paths)
+            g_norm = global_norm([grads[p] for p in self.paths],
+                                 [p in self.sharded for p in self.paths])
             if not bool(g_norm < max_norm):
                 grads = {p: (g / g_norm.to(g.dtype)) * max_norm for p, g in grads.items()}
         count = self.count
         lr = self.lr_fn(count)
         self.count += 1
         for p in self.train:
-            param = self.flax_view(p, self.params[p])
+            param = self.local_view(p, self.params[p])
             new = self._apply(p, self.flax_view(p, grads[p]), param, lr, count)
             param.copy_(new.to(param.dtype))
 
     # ------------------------------------------------------------ checkpoints
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        """Every state tensor under "<slot>/<Flax path>" in the Flax layout."""
-        return {f"{slot}/{'/'.join(p)}": t for slot, per in self.state.items()
+        """Every state tensor under "<slot>/<Flax path>" in the Flax layout,
+        whole: a sharded parameter's state is gathered from the ranks (a
+        collective every rank calls)."""
+        return {f"{slot}/{'/'.join(p)}": self._whole(p, t) for slot, per in self.state.items()
                 for p, t in per.items()}
+
+    def _whole(self, path: Path, t: torch.Tensor) -> torch.Tensor:
+        if path not in self.sharded:
+            return t
+        return self.flax_view(path, full_tensor(self.flax_view(path, t), self.params[path]))
 
     def scalars(self) -> Dict[str, object]:
         """The update count and the optimizer's name; the state is taken
@@ -158,12 +204,17 @@ class _Optimizer:
         if scalars["optimizer"] != self.name:
             raise ValueError(f"checkpoint holds {scalars['optimizer']} state; the run "
                              f"uses {self.name}")
-        live = self.state_arrays()
-        missing = sorted(set(live) - set(arrays))
+        live = {f"{slot}/{'/'.join(p)}" for slot, per in self.state.items() for p in per}
+        missing = sorted(live - set(arrays))
         if missing:
             raise KeyError(f"optimizer state missing from the checkpoint: {missing[:5]}")
-        for key, t in live.items():
-            t.copy_(torch.from_numpy(np.asarray(arrays[key])))
+        for slot, per in self.state.items():
+            for p, t in per.items():
+                value = torch.from_numpy(np.asarray(arrays[f"{slot}/{'/'.join(p)}"]))
+                if p in self.sharded:
+                    value = self.flax_view(p, local_chunk(self.flax_view(p, value),
+                                                          self.params[p]))
+                t.copy_(value)
         self.count = int(scalars["count"])
         self.mini_step, self.acc = 0, None
 
@@ -233,6 +284,13 @@ class Adafactor(_Optimizer):
 
     name = "adafactor"
     slots = ("v_row", "v_col", "v")
+
+    def _check_sharded(self, path, shape):
+        if factored_dims(tuple(self.flax_view(path, torch.empty(shape, device="meta")).shape)):
+            raise ValueError(
+                f"Adafactor factors {'/'.join(path)} {tuple(shape)}, which FSDP shards over the "
+                "ranks: its row and column statistics need the whole tensor (ROADMAP A.18); "
+                "use AdamW, or train on one rank")
 
     def _init(self, param):
         dims = factored_dims(param.shape)

@@ -10,7 +10,10 @@ hand its memory to another tensor while the step may still read it. On the
 CPU the thread collates and converts, with no stream.
 
 The thread pulls only the items its source yields, in order, so a run with
-prefetch consumes the same batches as one without. An exception in the
+prefetch consumes the same batches as one without. Under more than one
+rank the trainer does not use it: every rank pulls its batch in lockstep
+with the step, as the JAX trainer does across hosts (``engine.py:722-728``;
+the collective step is the barrier). An exception in the
 thread is raised again in the loop by ``__next__``; nothing falls back to
 an inline pull.
 """

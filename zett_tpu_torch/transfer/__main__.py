@@ -8,7 +8,10 @@ Usage:
       --target-tokenizer TOK        # tokenizer.json (or dir containing it)
       --output OUT_DIR
       [--hn-tokenizer TOK] [--batch-size N] [--do-batch-sampling] [--min-k K]
-      [--lang-index I] [--seed S] [--device {cuda,cpu}]
+      [--lang-index I] [--seed S] [--device {cuda,cpu}] [--n-model-parallel M]
+      [--distributed-coordinator HOST:PORT --distributed-num-processes N
+       --distributed-process-id I]
+  torchrun --nproc-per-node N -m zett_tpu_torch.transfer ...
 
 The checkpoint directory holds ``hn_config.json`` (the HypernetConfig fields,
 plus an optional ``"dtype"``: ``"float32"`` (default) or ``"bfloat16"``, the
@@ -20,7 +23,12 @@ untied head gets the predicted output table; RoBERTa's tied decoder the
 predicted input table and its lm-head bias zeros, as the JAX CLI writes
 them), ``config.json`` (with the new ``vocab_size``), ``tokenizer.json``
 and ``bias.npy``, the predicted bias. Runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. Under torchrun or the ``--distributed-*``
+flags (one process a GPU, ``cuda:LOCAL_RANK``; gloo with ``--device cpu``)
+each batch's rows are split over the ranks and rank 0 writes the model
+(``--batch-size`` must split evenly). ``--n-model-parallel`` is accepted as
+the JAX CLI takes it; tensor parallelism is not ported (ROADMAP A.17) and
+it changes nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ def parse_args(argv=None):
     p.add_argument("--lang-index", type=int, default=0)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--n-model-parallel", type=int, default=1)
+    from ..parallel import multihost
+
+    multihost.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -70,7 +82,7 @@ def load_hypernet(checkpoint: str, device: torch.device):
     device and takes the checkpoint's tensors, cast to each parameter's
     dtype, in place of a default init it would overwrite (0.7 G parameters
     at Mistral-7B's hypernet)."""
-    from ..models.convert import flax_to_torch
+    from ..models.convert import flax_to_torch, read_npz
     from ..models.hypernet import Hypernet, HypernetConfig
 
     with open(os.path.join(checkpoint, "hn_config.json")) as f:
@@ -78,8 +90,8 @@ def load_hypernet(checkpoint: str, device: torch.device):
     dtype = _DTYPES[raw.get("dtype", "float32")]
     with torch.device("meta"):
         hypernet = Hypernet(HypernetConfig.from_dict(raw), dtype=dtype)
-    with np.load(os.path.join(checkpoint, "params.npz")) as params:
-        state = flax_to_torch({k: params[k] for k in params.files})
+    # the file's map goes straight to the device, the kernels transposed there
+    state = flax_to_torch(read_npz(os.path.join(checkpoint, "params.npz")), device=device)
     dtypes = {k: v.dtype for k, v in hypernet.state_dict().items()}
     hypernet.load_state_dict({k: v.to(dtypes.get(k, v.dtype)) for k, v in state.items()},
                              strict=True, assign=True)
@@ -87,8 +99,12 @@ def load_hypernet(checkpoint: str, device: torch.device):
 
 
 def main(argv=None):
+    from ..parallel import multihost
+
     args = parse_args(argv)
     device = resolve_device(args.device)
+    rank, _, rank_device = multihost.join_group(multihost.flags_section(args), device.type)
+    device = rank_device or device
 
     from ..models.backbones.hf_io import load_hf_state_dict, save_hf_model
     from ..models.backbones.registry import (IN_EMBEDDING_KEYS, ROBERTA_FAMILY, check_supported,
@@ -133,6 +149,8 @@ def main(argv=None):
         seed=args.seed,
     )
 
+    if rank != 0:  # every rank holds the same tables; rank 0 writes them
+        return
     spliced = splice_embeddings(
         state_dict, model_type, torch.from_numpy(new_in),
         torch.from_numpy(new_out) if (new_out is not None and out_key is not None) else None,

@@ -5,7 +5,10 @@ Counterpart of ``zett_tpu/transfer/core.py``: byte-level conversion of the
 target tokenizer matched to the source's special tokens, the surface-form
 matrix, priors from Unigram scores, batched inference (length-bucketed, or
 overlapping sampled batches averaged per token), and the special-token
-splice-back from the source embeddings. One device, no mesh.
+splice-back from the source embeddings. Under a ``torch.distributed``
+process group each batch's rows are split over the ranks (``--n-model-
+parallel``'s vocab split over "data", ``core.py:173-176``, :242-243) and the
+predictions gathered, so every rank ends with the whole tables.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..constants import NEGATIVE_INF_FILL_VALUE
 from ..models.hypernet import Hypernet
+from ..parallel import multihost
 from ..tokenization.convert import convert_to_byte_level
 from ..tokenization.core import Tokenizer
 from ..tokenization.models import Unigram
@@ -112,11 +116,20 @@ def batched_inference(
             if e_out is not None:
                 emb_out_acc = np.zeros((n, e_out.shape[1]), dtype=np.float32)
             bias_acc = np.zeros(n, dtype=np.float32)
-        np.add.at(emb_in_acc, batch_idx, e_in)
-        if e_out is not None:
-            np.add.at(emb_out_acc, batch_idx, e_out)
-        np.add.at(bias_acc, batch_idx, b)
-        np.add.at(weights, batch_idx, 1.0)
+        if len(np.unique(batch_idx)) == len(batch_idx):
+            # no token twice in the batch: a fancy-index add is np.add.at's
+            # sum, without its per-element loop (seconds a batch at 4096 wide)
+            emb_in_acc[batch_idx] += e_in
+            if e_out is not None:
+                emb_out_acc[batch_idx] += e_out
+            bias_acc[batch_idx] += b
+            weights[batch_idx] += 1.0
+        else:
+            np.add.at(emb_in_acc, batch_idx, e_in)
+            if e_out is not None:
+                np.add.at(emb_out_acc, batch_idx, e_out)
+            np.add.at(bias_acc, batch_idx, b)
+            np.add.at(weights, batch_idx, 1.0)
 
     # pipelined: batch k+1 is enqueued on the device before the host waits
     # for batch k's results, so the host-side accumulation overlaps compute
@@ -157,10 +170,20 @@ def transfer(
 
     fetch_bf16 (default: when the hypernet computes in bf16) rounds the
     predictions to bf16 on the device before they are fetched, as the JAX
-    package does; accumulation and the splice run in f32 on the host."""
+    package does; accumulation and the splice run in f32 on the host. Under
+    a process group every rank runs its share of each batch's rows (a batch
+    size the ranks divide; not with the inter-token exchange, which mixes a
+    batch's rows) and gathers the rest."""
     cfg = hypernet.config
     rng = np.random.default_rng(seed)
     device = next(hypernet.parameters()).device
+    distributed = torch.distributed.is_initialized()
+    rank, world = multihost.rank_and_world()
+    if distributed:
+        multihost.process_slice(batch_size, rank, world)  # the ranks divide a batch
+        if world > 1 and cfg.add_inter_token_attention:
+            raise ValueError("add_inter_token_attention mixes the rows of a batch, which "
+                             f"{world} ranks split: it transfers on one rank (ROADMAP A.17)")
 
     target, _ = convert_to_byte_level(
         target_tokenizer,
@@ -188,12 +211,17 @@ def transfer(
         fetch_bf16 = hypernet.dtype == torch.bfloat16
 
     def predict_fn(sf, pr):
+        if distributed:
+            rows = multihost.process_slice(len(sf), rank, world)
+            sf, pr = sf[rows], pr[rows]
         sf = torch.from_numpy(sf.astype(np.int64)).to(device)
         pr = torch.from_numpy(pr).to(device)
         with torch.inference_mode():
             out = hypernet(sf, pr, source_dev, lang_index)
         if fetch_bf16:
             out = tuple(o.to(torch.bfloat16) if o is not None else None for o in out)
+        if distributed:
+            out = tuple(multihost.gather_rows(o) for o in out)
         return out
 
     emb_in, emb_out, bias = batched_inference(
