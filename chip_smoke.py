@@ -474,6 +474,14 @@ def check_build():
     # every instantiation that spills, the head-width-128 ones (Li128E) among
     # them, on lines of their own
     log(f"  ptxas spills: {len(spills)} kernels" + "".join(f"\n    {x}" for x in spills))
+    # kernel 3's instantiations are sized so that none spills; ptxas
+    # reports only on a fresh build
+    if "attention_core_bwd" not in _build.reports:
+        log("  kernel 3 spill check skipped: no ptxas report (the library was up to date; "
+            "remove build/zett_tpu_torch/ to run it)")
+    k3_spills = [x for x in spills if x.startswith("attention_core_bwd:")]
+    if k3_spills:
+        raise AssertionError(f"kernel 3 spills: {k3_spills}")
     # each library's SASS, and kernel 1's three kernels in libencoder_layer.so
     # (its core runs in the [q|k|v] GEMM's epilogue: mma.sync there): one
     # cuobjdump process each, all at once
@@ -727,14 +735,26 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------- phase 5
-def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64, padding_rows=0):
+def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64, padding_rows=0, mixed=False):
     """Kernel 2/3 operands at a training shape: merged q/k/v/dout, a ragged
     key mask with all-padding rows (every 97th, or ``padding_rows`` rows
-    drawn at random)."""
+    drawn at random). With ``mixed``, the heads of a row have masks of
+    their own: about 30% of a row's heads have no valid key, every fifth
+    row's first head none, and every 97th row no head one (kernel 3's
+    mixed rows; the returned (B, Lk) mask is then the union of the
+    heads')."""
     def mk(L):
         return torch.randn(B, L * h, d, generator=gen, device=gen.device).to(dtype).cuda()
 
     qm, km, vm, dout = mk(Lq), mk(Lk), mk(Lk), mk(Lq)
+    if mixed:
+        heads = torch.rand(B, Lk, h, generator=gen, device=gen.device) > 0.3
+        heads[:, 0] = True
+        heads &= torch.rand(B, 1, h, generator=gen, device=gen.device) >= 0.3
+        heads[::5, :, 0] = False
+        heads[1::97] = False
+        return (qm, km, vm, dout, heads.reshape(B, Lk * h).float().cuda(),
+                heads.any(-1).cuda())
     mask = torch.rand(B, Lk, generator=gen, device=gen.device) > 0.3
     mask[:, 0] = True
     mask[1::97] = False  # all-padding surface forms
@@ -743,16 +763,22 @@ def core_inputs(B, Lq, Lk, dtype, gen, h=12, d=64, padding_rows=0):
     return qm, km, vm, dout, mask.repeat_interleave(h, dim=-1).float().cuda(), mask.cuda()
 
 
-def core_bound(B, Lq, Lk, dtype, backward, h=12, d=64):
+def core_bound(B, Lq, Lk, dtype, backward, h=12, d=64, pad_pairs=0, rate=0.0):
+    """Kernel 2's or 3's bound on these inputs. ``pad_pairs`` (row, head)
+    pairs have no valid key: their queries weight every merged key of the
+    row alike, so such a pair needs no q or k, and in the backward no v
+    (its dq and dk are zero, its dv the padding queries' share); at rate >
+    0 the share is a product over the row's Lk·h merged keys."""
     size = torch.finfo(dtype).bits // 8
-    n_q, n_k = B * Lq * h * d, B * Lk * h * d
+    valid, q, k = B * h - pad_pairs, Lq * d, Lk * d
     mask_bytes = B * Lk * h * 4
+    shared = 2 * pad_pairs * Lq * Lk * h * d if rate > 0 else 0
     if backward:  # q, k, v, dout in; dq, dk, dv out; five products
-        nbytes = (2 * n_q + 2 * n_k) * size + (n_q + 2 * n_k) * size + mask_bytes
-        flops = 5 * 2 * B * h * Lq * Lk * d
+        nbytes = (valid * (3 * q + 4 * k) + pad_pairs * (2 * q + 2 * k)) * size + mask_bytes
+        flops = 5 * 2 * valid * Lq * Lk * d + shared
     else:  # q, k, v in; out; two products
-        nbytes = (2 * n_q + 2 * n_k) * size + mask_bytes
-        flops = 2 * 2 * B * h * Lq * Lk * d
+        nbytes = (valid * (2 * q + 2 * k) + pad_pairs * (q + k)) * size + mask_bytes
+        flops = 2 * 2 * valid * Lq * Lk * d + shared
     return bound(flops, nbytes, dtype)
 
 
@@ -765,9 +791,10 @@ def sdpa_layout(qm, km, vm, mask, Lq, Lk, h=12, d=64):
 
 
 def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows=0, h=12,
-                     d=64, plain_reps=5, reps=20):
+                     d=64, plain_reps=5, reps=20, mixed=False):
     """Kernels 2 and 3 against their plain versions at one training shape,
-    dtype, head count and width and dropout rate; with ``timed``, their
+    dtype, head count and width and dropout rate (``mixed``: key masks that
+    differ between the heads of a row, untimed); with ``timed``, their
     median times beside the plain versions' (median of ``plain_reps``),
     SDPA's (forward; backward) and the bounds."""
     from zett_tpu_torch.ops import _build
@@ -775,13 +802,20 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
         attention_core, attention_core_bwd, attention_core_bwd_reference,
         attention_core_reference)
 
+    if mixed and timed:
+        raise ValueError("mixed head masks are held, not timed")
     qm, km, vm, dout, kmaskf, mask = core_inputs(B, Lq, Lk, dtype, gen, h=h, d=d,
-                                                 padding_rows=padding_rows)
+                                                 padding_rows=padding_rows, mixed=mixed)
     tag = f"B={B} Lq*h={Lq * h} Lk*h={Lk * h} {str(dtype)[6:]} rate {rate}"
     if (h, d) != (12, 64):
         tag += f" h={h} d={d}"
     if padding_rows:
         tag += f" ({int((~mask).all(1).sum())} all-padding rows)"
+    if mixed:
+        heads_pad = (kmaskf.view(B, Lk, h) <= 0).all(1)
+        tag += (f" (mixed head masks: {int((heads_pad.any(1) & ~heads_pad.all(1)).sum())} rows "
+                f"with heads with and without a valid key, {int(heads_pad.all(1).sum())} with "
+                "none)")
     before = dict(_build.launch_counts)
     r0 = ROW_OFFSET  # the comparison at a rank's first row
     out = attention_core(qm, km, vm, kmaskf, h, rate, seed, r0)
@@ -816,8 +850,9 @@ def check_train_core(B, Lq, Lk, dtype, rate, gen, timed, seed=1234, padding_rows
     g4 = dout.view(B, Lq, h, d).transpose(1, 2)
     lib_b = median_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True))
     del o4
-    bound_f, by_f = core_bound(B, Lq, Lk, dtype, backward=False, h=h, d=d)
-    bound_b, by_b = core_bound(B, Lq, Lk, dtype, backward=True, h=h, d=d)
+    pad_pairs = int((kmaskf.view(B, Lk, h) <= 0).all(1).sum())
+    bound_f, by_f = core_bound(B, Lq, Lk, dtype, False, h, d, pad_pairs, rate)
+    bound_b, by_b = core_bound(B, Lq, Lk, dtype, True, h, d, pad_pairs, rate)
     log(f"  kernel 2 {tag}: {ms_f:.4f} ms (back to back {b2b:.4f} ms), plain {plain_f:.4f} ms, "
         f"SDPA {lib_f:.4f} ms, bound {bound_f:.4f} ms ({by_f})")
     log(f"  kernel 3 {tag}: {ms_b:.4f} ms (back to back {b2b_b:.4f} ms), plain {plain_b:.4f} ms, "
@@ -916,6 +951,11 @@ def phase_train_kernels():
     for rate in (0.0, 0.1):
         check_train_core(32896, 7, 7, torch.bfloat16, rate, gen, timed=True, padding_rows=18991)
     torch.cuda.empty_cache()
+    # key masks that differ between the heads of a row (kernel 3's mixed
+    # rows: the queries of heads without a valid key add to every key's dv)
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, 0.1):
+            check_train_core(2048, 7, 7, dtype, rate, gen, timed=False, mixed=True)
     check_dropout(gen)
     return results
 
@@ -2776,8 +2816,9 @@ def phase_head128_kernels():
     """Kernels 1, 2 and 3 at head width 128 against their plain versions:
     kernel 1 at TinyLlama's hypernet (B 16384, L 7, H 2048, 16 heads, I
     4096), kernels 2 and 3 at a train batch (B 32896, L 7 and CLS-only, 16
-    heads), rates 0 and 0.1, and at a train batch's share of all-padding
-    rows; bf16 timed, f32 at a smaller batch."""
+    heads), rates 0 and 0.1, at a train batch's share of all-padding rows,
+    and kernel 3 on key masks that differ between a row's heads (B 2048);
+    bf16 timed, f32 at a smaller batch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     results = {}
     H, h, I = 2048, 16, 4096
@@ -2800,6 +2841,11 @@ def phase_head128_kernels():
         check_train_core(32896, 7, 7, torch.bfloat16, rate, gen, timed=True, h=h, d=128,
                          padding_rows=18991)
         gc_free()
+    # key masks that differ between the heads of a row
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, 0.1):
+            check_train_core(2048, 7, 7, dtype, rate, gen, timed=False, h=h, d=128, mixed=True)
+    gc_free()
     return results
 
 
@@ -2972,6 +3018,9 @@ def phase_tinyllama_training(model_dir):
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
 
     batch = trainer.last_train_batch
+    sf = batch["target_surface_forms"]
+    log(f"  (d) last train batch: {int((sf == 0).all(1).sum())} all-padding surface forms of "
+        f"{len(sf)}")
     trainer.train_step(batch)  # warm the exact shapes, outside the counted run
     busy, _, _ = device_breakdown(lambda: trainer.train_step(batch), top=12)
     step = float(np.median(train_ms))
@@ -3111,9 +3160,10 @@ def phase_heads32_kernels():
     Mistral-7B's hypernet (B 16384, H 4096, 32 heads of 128, I 8192) at L 7
     and 8, kernel 2 at the transfer's CLS shape (B 16384, Lk 7 and 8),
     kernels 2 and 3 at a train batch (B 32896, L 7) with its all-padding
-    share at rates 0 and 0.1, kernel 1 past the fused route's 16 heads of 64
-    and kernels 4 and 5 at 32 heads of 64; bf16 timed, f32 at a smaller
-    batch."""
+    share at rates 0 and 0.1, kernel 3 on key masks that differ between a
+    row's heads (B 2048) and at the full layer (1 row in 97 all-padding),
+    kernel 1 past the fused route's 16 heads of 64 and kernels 4 and 5 at 32
+    heads of 64; bf16 timed, f32 at a smaller batch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     results = {}
     H, h, I = 4096, 32, 8192
@@ -3134,8 +3184,9 @@ def phase_heads32_kernels():
                 results["attention_core_h32"] = r
         gc_free()
     for rate in (0.0, 0.1):
-        # the plain versions take 2.6 s a call at rate 0.1 and kernel 3 0.4 s
-        # (NVIDIA H100 80GB HBM3, 700 W): fewer timed calls than the earlier phases' 20
+        # the plain versions take 2.6 s a call at rate 0.1 (NVIDIA H100 80GB
+        # HBM3, 700 W): one plain call, fewer timed calls than the earlier
+        # phases' 20
         _, bwd = check_train_core(32896, 7, 7, torch.bfloat16, rate, gen, timed=True, h=h,
                                   d=128, padding_rows=PADDING_ROWS, plain_reps=1, reps=5)
         if rate == 0.0:
@@ -3144,6 +3195,14 @@ def phase_heads32_kernels():
         check_train_core(2048, 7, 7, torch.float32, rate, gen, timed=False, h=h, d=128,
                          padding_rows=1000)
         gc_free()
+        # key masks that differ between the heads of a row
+        for dtype in (torch.bfloat16, torch.float32):
+            check_train_core(2048, 7, 7, dtype, rate, gen, timed=False, h=h, d=128, mixed=True)
+        gc_free()
+    # the full layer (1 row in 97 all-padding): kernel 3's valid heads alone
+    _, results["attention_core_bwd_h32_full"] = check_train_core(
+        32896, 7, 7, torch.bfloat16, 0.0, gen, timed=True, h=h, d=128, plain_reps=1, reps=5)
+    gc_free()
     # 32 heads of 64: kernel 1 past the fused route (the seven launches),
     # kernels 4 and 5 at the transfer's L 8
     for dtype in (torch.bfloat16, torch.float32):
@@ -5529,6 +5588,8 @@ def phase_distributed():
         peak = torch.cuda.max_memory_allocated() / 2**30
         n_layers = trainer.hn_config.num_hidden_layers
         sharded = trainer.distributed
+        sf = trainer.last_train_batch["target_surface_forms"]
+        padding = f"{int((sf == 0).all(1).sum())} all-padding surface forms of {len(sf)}"
         del trainer
         gc_free()
         step_ms = [r["device_ms"] for r in records]
@@ -5537,7 +5598,8 @@ def phase_distributed():
         log(f"  (a) {tag}: {DIST_STEPS} steps in {wall:.3f} s wall; losses "
             f"{[repr(x) for x in losses]}; step ms (CUDA events) "
             f"{['%.3f' % x for x in step_ms]}; peak memory {peak:.2f} GiB; launches "
-            f"{launches} (expected {expected}); backbone under FSDP: {sharded}")
+            f"{launches} (expected {expected}); backbone under FSDP: {sharded}; last train "
+            f"batch: {padding}")
         if launches != expected:
             raise AssertionError(f"kernel launches {launches}, expected {expected}")
         if sharded != grouped or not all(math.isfinite(x) for x in losses):

@@ -28,6 +28,7 @@ from zett_tpu_torch.models.convert import flax_to_torch
 from zett_tpu_torch.ops.attention_core import (
     attention_core_bwd_reference,
     attention_core_reference,
+    keep_mask,
 )
 from zett_tpu_torch.ops.encoder_layer import encoder_layer, layer_plan
 
@@ -150,6 +151,91 @@ def test_attention_core_bwd_plain_at_head128_matches_jax(dtype_name, Lq):
         assert np.abs(g[rows] - p[rows]).max() <= tol, (name, np.abs(g[rows] - p[rows]).max())
     assert not rows.all()
     assert np.abs(_f32(got[0])[~rows]).max() == 0.0
+
+
+H4 = 4  # heads of 128 in the per-head mask cases
+
+
+def _head_masks(kind, seed):
+    """(B, L, 4) key masks, ragged. "mixed": row 0 heads 0 and 2 without a
+    valid key, row 3 head 3, row 5 heads 1 to 3, row 1 no head with one;
+    "all_padding": every head masked alike, rows 1 and 4 without any."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((B, L, H4)) > 0.3
+    m[:, 0, :] = True
+    if kind == "all_padding":
+        m = np.repeat(m[:, :, :1], H4, axis=2)
+        m[[1, 4]] = False
+        return m
+    m[0, :, [0, 2]] = False
+    m[1] = False
+    m[3, :, 3] = False
+    m[5, :, 1:] = False
+    return m
+
+
+def _head_mask_inputs(dtype_name, masks, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(B, L * H4, d)).astype(np.float32) for _ in range(4)]
+    kmaskf = masks.reshape(B, L * H4).astype(np.float32)
+    jdt, tdt = DTYPES[dtype_name]
+    jx = [jnp.asarray(a, jdt) for a in arrs] + [jnp.asarray(kmaskf)]
+    tx = [torch.from_numpy(a).to(tdt) for a in arrs] + [torch.from_numpy(kmaskf)]
+    return jx, tx
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["all_padding", "mixed"])
+def test_attention_core_bwd_plain_head_masks_at_head128_match_jax(kind, dtype_name):
+    """Kernel 3's plain version at 4 heads of 128, rate 0, against jax.vjp
+    of the differentiable fallback on rows whose heads all lack a valid key
+    (there every dv row is w times the row's dout summed over its queries,
+    w = round(1/(L*h)), and dq = dk = 0) and on rows whose heads differ (a
+    head without a valid key has dq = dk = 0, and its queries add to the dv
+    of every merged key, the other heads' included)."""
+    masks = _head_masks(kind, 60)
+    jx, tx = _head_mask_inputs(dtype_name, masks, 61)
+    jq, jk, jv, jg, jm = jx
+    tq, tk, tv, tg, tm = tx
+    got = [_f32(g) for g in attention_core_bwd_reference(tq, tk, tv, tm, tg, H4)]
+    seed = jnp.zeros((), jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: _core_train_fallback(q, k, v, jm, seed, H4, 0.0),
+                     jq, jk, jv)
+    for name, g, f in zip(("dq", "dk", "dv"), got, vjp(jg)):
+        f = _f32(f)
+        assert np.abs(g - f).max() <= _tol(dtype_name, f), (name, np.abs(g - f).max())
+    pad = ~masks.any(axis=1)  # (B, h)
+    merged_pad = np.tile(pad, L)  # (B, L*h), index position*h + head
+    assert not got[0][merged_pad].any() and not got[1][merged_pad].any()
+    rows = pad.all(1)
+    w = float(torch.tensor(1.0 / (L * H4), dtype=tq.dtype))
+    expect = w * _f32(tg).sum(axis=1, keepdims=True)[rows]
+    assert np.abs(got[2][rows] - expect).max() <= _tol(dtype_name, expect)
+    assert (rows.sum(), (pad.any(1) & ~rows).sum()) == ((2, 0) if kind == "all_padding" else (1, 3))
+
+
+@pytest.mark.parametrize("kind", ["all_padding", "mixed"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_core_bwd_plain_head_masks_at_head128_match_autograd(kind, rate):
+    """At 4 heads of 128 in f64, rates 0 and 0.1: the hand-written backward
+    against autograd of the plain forward on the same masks, and the
+    padding heads' share of dv (dv less dv with their queries' dout zeroed)
+    against sum keep * wd * dout over those queries."""
+    masks = _head_masks(kind, 62)
+    _, tx = _head_mask_inputs("float32", masks, 63)
+    q, k, v = (t.double().requires_grad_() for t in tx[:3])
+    g, kmaskf = tx[3].double(), tx[4].double()
+    seed = 21
+    attention_core_reference(q, k, v, kmaskf, H4, rate, seed).backward(g)
+    got = [t.detach() for t in attention_core_bwd_reference(q, k, v, kmaskf, g, H4, rate, seed)]
+    for name, a, b in zip(("dq", "dk", "dv"), got, (q.grad, k.grad, v.grad)):
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max())), name
+    merged_pad = torch.from_numpy(np.tile(~masks.any(axis=1), L))
+    g0 = torch.where(merged_pad[..., None], torch.zeros((), dtype=g.dtype), g)
+    dv0 = attention_core_bwd_reference(q, k, v, kmaskf, g0, H4, rate, seed)[2].detach()
+    keep = keep_mask(seed, B, L * H4, L * H4, rate, "cpu") & merged_pad[:, :, None]
+    share = torch.einsum("bqk,bqd->bkd", keep.double(), g) / (L * H4) / (1.0 - rate)
+    assert float((got[2] - dv0 - share).abs().max()) <= 1e-12
 
 
 def test_layer_plan_at_tinyllama_widths():

@@ -179,3 +179,119 @@ def test_encoder_layer_kernel_raises_under_grad():
     with pytest.raises(RuntimeError, match="requires grad"):
         encoder_layer(x, None, w, b, w, b, w, b, w, b, b, b, w, b, w, b, b, b,
                       num_heads=2, eps=1e-5)
+
+
+def _head_mask_inputs(dtype_name, seed, masks, h=H, d=64, L=7):
+    """Inputs with per-head key masks ``masks`` (B, L, h): kmaskf (B, L*h)
+    position-major, as the merged operands."""
+    rng = np.random.default_rng(seed)
+    B = masks.shape[0]
+    arrs = [rng.normal(size=(B, L * h, d)).astype(np.float32) for _ in range(4)]
+    kmaskf = masks.reshape(B, L * h).astype(np.float32)
+    jdt, tdt = DTYPES[dtype_name]
+    jx = [jnp.asarray(a, jdt) for a in arrs] + [jnp.asarray(kmaskf)]
+    tx = [torch.from_numpy(a).to(tdt) for a in arrs] + [torch.from_numpy(kmaskf)]
+    return jx, tx
+
+
+def _mixed_masks(seed, B=6, L=7, h=H):
+    """Ragged keys; row 0: head 0 has no valid key, the others do; row 2:
+    the last head has none; row 4: no head has one."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((B, L, h)) > 0.3
+    m[:, 0, :] = True
+    m[0, :, 0] = False
+    m[2, :, h - 1] = False
+    m[4] = False
+    return m
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_plain_backward_all_padding_rows_match_jax(dtype_name):
+    """Rows whose every head has no valid key: each query weights all Lk*h
+    merged keys alike, w = round(1/(Lk*h)), so every dv row of such a row
+    is w times the row's dout summed over its Lq*h queries, and dq = dk = 0,
+    as jax.vjp of the differentiable fallback gives (rate 0)."""
+    masks = np.repeat(_mixed_masks(13)[:, :, :1], H, axis=2)
+    masks[[1, 4]] = False
+    jx, tx = _head_mask_inputs(dtype_name, 14, masks)
+    jq, jk, jv, jg, jm = jx
+    tq, tk, tv, tg, tm = tx
+    got = attention_core_bwd_reference(tq, tk, tv, tm, tg, H)
+    seed = jnp.zeros((), jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: _core_train_fallback(q, k, v, jm, seed, H, 0.0), jq, jk, jv)
+    for name, g, f in zip(("dq", "dk", "dv"), got, vjp(jg)):
+        g, f = _f32(g), _f32(f)
+        assert np.abs(g - f).max() <= _tol(dtype_name, f), (name, np.abs(g - f).max())
+    rows = ~masks.any(axis=(1, 2))
+    assert rows.sum() == 3  # rows 0 (head 0 of _mixed_masks), 1 and 4
+    w = float(torch.tensor(1.0 / (7 * H), dtype=tq.dtype))
+    expect = w * _f32(tg).sum(axis=1, keepdims=True)[rows]
+    dv = _f32(got[2])[rows]
+    assert np.abs(dv - expect).max() <= _tol(dtype_name, expect), np.abs(dv - expect).max()
+    assert not _f32(got[0])[rows].any() and not _f32(got[1])[rows].any()
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_plain_backward_mixed_head_masks_match_jax(dtype_name):
+    """Key masks that differ between the heads of a row (rate 0), held
+    against jax.vjp of the differentiable fallback on every row, and
+    against the Pallas kernel (interpret mode), which works on the whole
+    merged plane: dv everywhere, dq at the queries of heads with a valid
+    key, dk in rows where every head has one (ROADMAP C.4: the Pallas
+    kernel omits the select's gradient, which is what a query without a
+    valid key would otherwise add). The padding heads' dq and dk are 0."""
+    masks = _mixed_masks(15)
+    jx, tx = _head_mask_inputs(dtype_name, 16, masks)
+    jq, jk, jv, jg, jm = jx
+    tq, tk, tv, tg, tm = tx
+    got = [_f32(g) for g in attention_core_bwd_reference(tq, tk, tv, tm, tg, H)]
+    seed = jnp.zeros((), jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: _core_train_fallback(q, k, v, jm, seed, H, 0.0), jq, jk, jv)
+    pallas = [_f32(p) for p in _core_train_bwd_pallas(jq, jk, jv, jm, seed, jg, H, 0.0,
+                                                      interpret=True)]
+    for name, g, f in zip(("dq", "dk", "dv"), got, vjp(jg)):
+        f = _f32(f)
+        assert np.abs(g - f).max() <= _tol(dtype_name, f), (name, np.abs(g - f).max())
+    pad = ~masks.any(axis=1)  # (B, h): heads with no valid key
+    merged_pad = np.tile(pad, 7)  # (B, L*h), index position*h + head
+    tol = _tol(dtype_name, pallas[2])
+    assert np.abs(got[2] - pallas[2]).max() <= tol
+    assert np.abs(got[0] - pallas[0])[~merged_pad].max() <= tol
+    whole_rows = ~pad.any(1)
+    assert np.abs(got[1] - pallas[1])[whole_rows].max() <= tol
+    assert not got[0][merged_pad].any() and not got[1][merged_pad].any()
+    assert pad[0].tolist() == [True, False] and pad[4].all()
+
+
+@pytest.mark.parametrize("kind", ["all_padding", "mixed"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_head_masks_match_autograd(kind, rate):
+    """The hand-written backward against autograd of the plain forward in
+    f64, on rows whose heads all lack a valid key and on rows whose heads
+    differ, at rates 0 and 0.1; and the share of the padding heads' queries
+    in dv: dv less dv with their dout zeroed is sum keep * wd * dout over
+    those queries at every merged key, the keep bit at counter (row, merged
+    query, merged key) as the forward draws it."""
+    masks = _mixed_masks(17)
+    if kind == "all_padding":
+        masks = np.repeat(masks[:, :, 1:2], H, axis=2)
+        masks[[0, 3]] = False
+    _, tx = _head_mask_inputs("float32", 18, masks)
+    q, k, v, g = (t.double().requires_grad_(i < 3) for i, t in enumerate(tx[:4]))
+    kmaskf = tx[4].double()
+    seed, B, h, L = 9, masks.shape[0], H, 7
+    attention_core_reference(q, k, v, kmaskf, h, rate, seed).backward(g)
+    got = [t.detach() for t in attention_core_bwd_reference(q, k, v, kmaskf, g, h, rate, seed)]
+    for name, a, b in zip(("dq", "dk", "dv"), got, (q.grad, k.grad, v.grad)):
+        tol = 1e-6 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol, name
+    pad = ~masks.any(axis=1)
+    merged_pad = torch.from_numpy(np.tile(pad, L))
+    g0 = torch.where(merged_pad[..., None], torch.zeros((), dtype=g.dtype), g.detach())
+    dv0 = attention_core_bwd_reference(q, k, v, kmaskf, g0, h, rate, seed)[2].detach()
+    keep = keep_mask(seed, B, L * h, L * h, rate, "cpu") & merged_pad[:, :, None]
+    wd = 1.0 / (L * h) / (1.0 - rate)
+    share = wd * torch.einsum("bqk,bqd->bkd", keep.double(), g.detach())
+    assert float((got[2] - dv0 - share).abs().max()) <= 1e-12
+    assert pad.any() and not got[0][merged_pad].any()

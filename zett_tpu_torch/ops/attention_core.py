@@ -243,8 +243,11 @@ def attention_core(qm, km, vm, kmaskf, num_heads: int, rate: float = 0.0, seed: 
 
 def attention_core_bwd(qm, km, vm, kmaskf, dout, num_heads: int, rate: float = 0.0,
                        seed: int = 0, row_offset: int = 0):
-    """Attention core backward: (dqm, dkm, dvm). CPU tensors take the plain
-    version; on the card this launches kernel 3."""
+    """Attention core backward: (dqm, dkm, dvm), for any key mask, the
+    heads of a row masked alike or not. CPU tensors take the plain version;
+    on the card this launches kernel 3 (in bf16 two device kernels, the
+    heads with a valid key and the rows' heads without one), counted as one
+    launch."""
     _check_rate(rate)
     _check_offset(row_offset, qm.shape[0])
     if qm.device.type == "cpu":
@@ -391,16 +394,17 @@ def _launch_bwd(qm, km, vm, kmaskf, dout, num_heads, rate, seed, row_offset=0):
         raise ValueError(f"attention_core_bwd: no kernel for device {qm.device}")
     maskf = kmaskf.float().contiguous()
     dqm, dkm, dvm = torch.empty_like(qm), torch.empty_like(km), torch.empty_like(vm)
+    row_pad = torch.empty(B, dtype=torch.uint8, device=qm.device)  # the kernel's scratch
     drop, seed32, thr, _, scale, scale32 = _dropout_args(rate, seed, qm.dtype)
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.zt_attention_core_bwd
     fn.restype = i
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, u, f, f, u, p]
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, u, u, f, f, u, p, p]
     stream = torch.cuda.current_stream(qm.device).cuda_stream
     err = fn(_DTYPES[qm.dtype], qm.data_ptr(), km.data_ptr(), vm.data_ptr(),
              maskf.data_ptr(), dout.data_ptr(), dqm.data_ptr(), dkm.data_ptr(),
              dvm.data_ptr(), B, Lq, Lk, num_heads, qm.shape[-1], drop, seed32, thr, scale,
-             scale32, int(row_offset), stream)
+             scale32, int(row_offset), row_pad.data_ptr(), stream)
     _build.check(err, "attention_core_bwd kernel launch")
     _build.count_launch(_BWD)
     return dqm, dkm, dvm
