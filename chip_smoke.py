@@ -9,11 +9,12 @@ Phases (any failure exits non-zero and prints no result):
      14, 15, 18, 19 and 20 that no kernel makes are written
      (``prepare_inputs``); print
      ptxas's registers, shared memory and spills
-     of kernels 1 to 5, and count HGMMA and UTMALDG (kernels 1 and 4) and
-     HMMA (kernels 1 to 5: the attention core's mma.sync; in kernel 1 within
-     its [q|k|v] GEMM, whose epilogue runs the core) in their SASS
-     (cuobjdump, read while phases 2-4 run and reported after phase 4): a
-     count of zero fails;
+     of kernels 1 to 5 (a spill in kernel 2 or 3 fails), and count HGMMA
+     and UTMALDG (kernels 1 and 4), HMMA (kernels 1 to 5: the attention
+     core's mma.sync; in kernel 1 within its [q|k|v] GEMM, whose epilogue
+     runs the core) and UBLKCP (kernel 2's bulk copies past 16 heads of
+     128) in their SASS (cuobjdump, read while phases 2-4 run and reported
+     after phase 4): a count of zero fails;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
@@ -139,7 +140,11 @@ Phases (any failure exits non-zero and prints no result):
      kernels 1 to 5 at 32 heads against their plain versions (kernel 1 at
      B 16384, H 4096, 32 heads of 128, I 8192 at L 7 and 8; kernel 2 at the
      transfer's CLS shape, Lk 7 and 8; kernels 2 and 3 at B 32896, L 7 with
-     a train batch's all-padding share, rates 0 and 0.1; kernel 1 at 32
+     a train batch's all-padding share, rates 0 and 0.1; kernel 2 alone on
+     the shapes its cluster kernel has to get right, held untimed: B 1 and
+     B 133 at Lq 1, Lk 7 (fewer rows than clusters, a partial last wave),
+     Lq 16 with Lk 5 (the largest query tile), at rates 0 and 0.1 on mixed
+     head masks, bf16 and f32, at a rank's row offset; kernel 1 at 32
      heads of 64 on its seven-launch route, kernels 4 and 5 at 32 heads of
      64), bf16 timed beside the bound, the plain version and the library
      call, f32 at a smaller batch; (c) the hypernet of both Mistral configs
@@ -280,6 +285,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -437,8 +443,9 @@ def compare(got, ref, dtype, what):
 # the instructions each redesigned kernel's library must hold: the Hopper
 # GEMM's wgmma (HGMMA) and TMA loads (UTMALDG) in kernels 1 and 4, the
 # tensor-core mma (HMMA) of the attention core (kernels 1, 2, 4, 5) and of
-# kernel 3
-SASS_REQUIRED = {"attention_core": ("HMMA",),
+# kernel 3, and the bulk copies (UBLKCP) of kernel 2's cluster kernel past
+# 16 heads of 128
+SASS_REQUIRED = {"attention_core": ("HMMA", "UBLKCP"),
                  "attention_block": ("HGMMA", "UTMALDG", "HMMA"),
                  "encoder_layer": ("HGMMA", "UTMALDG", "HMMA"),
                  "merged_attention": ("HMMA",), "attention_core_bwd": ("HMMA",)}
@@ -474,14 +481,18 @@ def check_build():
     # every instantiation that spills, the head-width-128 ones (Li128E) among
     # them, on lines of their own
     log(f"  ptxas spills: {len(spills)} kernels" + "".join(f"\n    {x}" for x in spills))
-    # kernel 3's instantiations are sized so that none spills; ptxas
-    # reports only on a fresh build
-    if "attention_core_bwd" not in _build.reports:
-        log("  kernel 3 spill check skipped: no ptxas report (the library was up to date; "
-            "remove build/zett_tpu_torch/ to run it)")
-    k3_spills = [x for x in spills if x.startswith("attention_core_bwd:")]
-    if k3_spills:
-        raise AssertionError(f"kernel 3 spills: {k3_spills}")
+    # kernels 2's and 3's instantiations are sized so that none spills;
+    # ptxas reports only on a fresh build
+    for name, what in (("attention_core", "kernel 2"), ("attention_core_bwd", "kernel 3")):
+        if name not in _build.reports:
+            log(f"  {what} spill check skipped: no ptxas report (the library was up to date; "
+                "remove build/zett_tpu_torch/ to run it)")
+            continue
+        n = _build.reports[name].count("entry function")
+        found = [x for x in spills if x.startswith(f"{name}:")]
+        log(f"  {what}: {len(found)} of its {n} instantiations spill")
+        if found:
+            raise AssertionError(f"{what} spills: {found}")
     # each library's SASS, and kernel 1's three kernels in libencoder_layer.so
     # (its core runs in the [q|k|v] GEMM's epilogue: mma.sync there): one
     # cuobjdump process each, all at once
@@ -3155,15 +3166,63 @@ def mistral_hypernet_config(name):
     return hypernet_config(MISTRAL_RUNS[name], MISTRAL)
 
 
+def check_core_edges(gen, h=32, d=128):
+    """Kernel 2's cluster kernel (past 16 heads of 128): its staging as the
+    library plans it equals ``cluster_plan``'s (the wrapper's mirror), with
+    the clusters the card holds at once; then kernel 2 alone against its
+    plain version on the shapes the cluster kernel has to get right: B 1
+    and B 133 at Lq 1, Lk 7 (fewer rows than the card's clusters, and a
+    partial last wave), Lq 16 with Lk 5 (the largest query tile), at rates
+    0 and 0.1, on key masks that differ between a row's heads, bf16 and
+    f32, at a rank's first row (ROW_OFFSET)."""
+    from zett_tpu_torch.ops import _build
+    from zett_tpu_torch.ops.attention_core import (attention_core, attention_core_reference,
+                                                   cluster_plan)
+
+    plan = _build.load("attention_core").zt_attention_core_plan
+    plan.restype = ctypes.c_int
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for Lq, Lk in ((1, 7), (1, 8), (7, 7), (16, 5)):
+        out = (ctypes.c_int * 5)()
+        _build.check(plan(Lq, Lk, h, d, ctypes.cast(out, ctypes.c_void_p)),
+                     "zt_attention_core_plan")
+        mirror = cluster_plan(Lq, Lk, h, d)
+        if tuple(out[:4]) != mirror:
+            raise AssertionError(f"kernel 2's plan at Lq {Lq}, Lk {Lk}: library {tuple(out[:4])}, "
+                                 f"cluster_plan {mirror}")
+        c, hl, stages, per_cta = mirror
+        log(f"  kernel 2 at Lq {Lq}, Lk {Lk}, {h} heads of {d}: clusters of {c} CTAs of {hl} "
+            f"heads, {stages} stages, {per_cta} bytes a CTA; {out[4]} clusters resident at once "
+            f"({out[4] * c} of {sms} SMs)")
+    for B, Lq, Lk in ((1, 1, 7), (133, 1, 7), (777, 16, 5)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for rate in (0.0, 0.1):
+                qm, km, vm, _, kmaskf, _ = core_inputs(B, Lq, Lk, dtype, gen, h=h, d=d,
+                                                       mixed=True)
+                before = _build.launch_counts["attention_core"]
+                out = attention_core(qm, km, vm, kmaskf, h, rate, 1234, ROW_OFFSET)
+                torch.cuda.synchronize()
+                if _build.launch_counts["attention_core"] != before + 1:
+                    raise AssertionError("attention_core did not count its launch")
+                ref = attention_core_reference(qm, km, vm, kmaskf, h, rate, 1234, ROW_OFFSET)
+                compare(out, ref, dtype, f"kernel 2 B={B} Lq*h={Lq * h} Lk*h={Lk * h} "
+                        f"{str(dtype)[6:]} rate {rate} h={h} d={d} (mixed head masks) row "
+                        f"offset {ROW_OFFSET}")
+                del qm, km, vm, kmaskf, out, ref
+
+
 def phase_heads32_kernels():
     """Kernels 1 to 5 at 32 heads against their plain versions: kernel 1 at
     Mistral-7B's hypernet (B 16384, H 4096, 32 heads of 128, I 8192) at L 7
     and 8, kernel 2 at the transfer's CLS shape (B 16384, Lk 7 and 8),
     kernels 2 and 3 at a train batch (B 32896, L 7) with its all-padding
-    share at rates 0 and 0.1, kernel 3 on key masks that differ between a
-    row's heads (B 2048) and at the full layer (1 row in 97 all-padding),
-    kernel 1 past the fused route's 16 heads of 64 and kernels 4 and 5 at 32
-    heads of 64; bf16 timed, f32 at a smaller batch."""
+    share at rates 0 and 0.1, kernels 2 and 3 on key masks that differ
+    between a row's heads (B 2048), kernel 2 on its cluster kernel's edge
+    shapes (``check_core_edges``), kernel 3 at the full layer (1 row in 97
+    all-padding), kernel 1 past the fused route's 16 heads of 64 and
+    kernels 4 and 5 at 32 heads of 64; bf16 timed, f32 at a smaller
+    batch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     results = {}
     H, h, I = 4096, 32, 8192
@@ -3199,6 +3258,8 @@ def phase_heads32_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             check_train_core(2048, 7, 7, dtype, rate, gen, timed=False, h=h, d=128, mixed=True)
         gc_free()
+    check_core_edges(gen, h=h, d=128)
+    gc_free()
     # the full layer (1 row in 97 all-padding): kernel 3's valid heads alone
     _, results["attention_core_bwd_h32_full"] = check_train_core(
         32896, 7, 7, torch.bfloat16, 0.0, gen, timed=True, h=h, d=128, plain_reps=1, reps=5)
@@ -3207,7 +3268,8 @@ def phase_heads32_kernels():
     # kernels 4 and 5 at the transfer's L 8
     for dtype in (torch.bfloat16, torch.float32):
         timed = dtype == torch.bfloat16
-        check_kernel1(4096, 8, dtype, gen, timed=False, H=2048, h=h, I=4096, fan_in=True)
+        check_kernel1(4096, 8, dtype, gen, timed=timed, H=2048, h=h, I=4096, fan_in=True,
+                      plain_reps=2)
         check_kernel4(16384 if timed else 2048, 8, dtype, False, gen, timed, H=2048, h=h)
         check_kernel5(16384 if timed else 2048, 8, dtype, True, gen, timed, h=h)
         gc_free()

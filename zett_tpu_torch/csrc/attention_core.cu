@@ -30,9 +30,14 @@
 // output columns in four passes of 32, so a lane's accumulators do not
 // grow; the operands move twice the bytes (at B = 32896, L 7, 16 heads:
 // ~3.8 GB, >= 1.13 ms) and a row's staging takes 86 KB, so one CTA an SM.
-// Past 16 heads (Mistral-7B's hypernets: 32 heads of 128) a warp runs two
-// heads of the row; the row's staging (197 KB at L 8) leaves room for one
-// buffer only, so the next row's loads wait for this row's products.
+// Past 16 heads of 128 (Mistral-7B's and Llama-3-8B's hypernets: 32 heads)
+// a row's staging (up to 213 KB) leaves room for one buffer only, so each
+// row is split over a cluster of two CTAs of 16 heads, each a ring of 2-4
+// stages of its share filled by bulk copies: the next rows' loads stay in
+// flight while a row is computed (attention.cuh). At rate > 0 a row whose
+// heads have no valid key draws Lq*h x Lk*h Philox words (50,176 at 32
+// heads, L 7), each about 60 integer instructions: that, not memory, bounds
+// such rows (tools/kernel2_versions.py counts the instructions).
 #include "attention.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16; d: head width, 64 or 128. dropout != 0
@@ -68,4 +73,28 @@ extern "C" int zt_attention_core(int dtype, const void* qm, const void* km, cons
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return (int)zt::launch_attention_d<__nv_bfloat16>(a, d, s);
   return (int)zt::launch_attention_d<float>(a, d, s);
+}
+
+// How the bf16 forward runs rows of Lq, Lk positions of h heads of width d
+// past 16 heads of 128 (attention.cuh attn_cluster_plan): out[0..4] = CTAs
+// a cluster, heads a CTA, stages, shared-memory bytes a CTA, and clusters
+// the card holds at once. Returns a cudaError_t (0 = success).
+extern "C" int zt_attention_core_plan(int Lq, int Lk, int h, int d, int* out) {
+  if (d != 128 || h <= zt::kAttnCtaWarps || Lq > 16 || Lk < 1 || Lk > 32)
+    return (int)cudaErrorInvalidValue;
+  const zt::ClusterPlan p = zt::attn_cluster_plan(Lq, Lk, h, 128);
+  out[0] = p.c;
+  out[1] = p.hl;
+  out[2] = p.stages;
+  out[3] = p.smem;
+  out[4] = 0;
+  const int nk = (Lk + 7) / 8;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (nk) {
+    case 1: err = zt::cluster_fit<1, 128>(p, &out[4]); break;
+    case 2: err = zt::cluster_fit<2, 128>(p, &out[4]); break;
+    case 3: err = zt::cluster_fit<3, 128>(p, &out[4]); break;
+    case 4: err = zt::cluster_fit<4, 128>(p, &out[4]); break;
+  }
+  return (int)err;
 }

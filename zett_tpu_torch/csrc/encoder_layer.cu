@@ -536,55 +536,6 @@ constexpr int kLnParams = kLnN * (2 + 4 + 4);
 constexpr int kLnSmem = GSTAGES * (kStageA + Ring<kLnN>::kStageW) +
                         (kLnN / kEpiCols) * kChunk + 2 * kLnPart + kLnRed + kLnParams + 1024;
 
-__device__ __forceinline__ uint32_t cluster_reg(int which) {
-  uint32_t v;
-  switch (which) {
-    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
-    case 1: asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v)); break;
-    case 2: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
-    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
-  }
-  return v;
-}
-// the shared::cluster address of a shared::cta address in CTA `rank`
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float2 v) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
-               : "memory");
-}
-// arrive on a peer's mbarrier; release: this thread's stores before it are
-// seen by whoever acquires the phase
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
-               : "memory");
-}
-// mbar_wait with cluster-scope acquire (the peers' stores are visible after)
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 36)) __trap();
-  }
-}
-// every thread of every CTA of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(kWideThreads, 1)
 gemm_ln_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
                const __grid_constant__ CUtensorMap map_r, const __grid_constant__ CUtensorMap map_o,

@@ -314,17 +314,49 @@ def _check(qm, km, vm, num_heads, what, widths=HEAD_WIDTHS):
 
 
 SMEM_BYTES = 232448  # an H100 block's shared memory
+CLUSTER_MAX_STAGES = 4  # csrc/attention.cuh kClusterMaxStages
+CLUSTER_MAX_CTAS = 3  # kClusterMaxCtas
+_CTA_WARPS = 16  # csrc/attention.cuh kAttnCtaWarps
+
+
+def row_bytes(Lq: int, Lk: int, num_heads: int, d: int) -> int:
+    """Shared memory of one whole row staged once in one CTA (the zero row,
+    the per-head value sums and the row's q, k and v positions; ``attention.cuh``
+    ``attn_mma_smem`` with one buffer): the bf16 rows every kernel admits."""
+    return 2 * d + num_heads * 32 * 8 * (d // 64) + 2 * (Lq + 2 * Lk) * (num_heads * d + 8)
+
+
+def cluster_plan(Lq: int, Lk: int, num_heads: int, d: int):
+    """How the bf16 forward stages a row past 16 heads of 128
+    (``attention.cuh`` ``attn_cluster_plan``): (CTAs a cluster, heads a CTA,
+    stages, bytes a CTA). Two CTAs a row, three where two stages of a half
+    row do not fit; each CTA holds its heads' share of the row's positions
+    in 2 to ``CLUSTER_MAX_STAGES`` stages beside its heads' value sums, two
+    parities of every CTA's total of them, the zero row, per stage two
+    mbarriers and a flag word a warp, and a word a warp."""
+    for c in (2, 3):
+        hl = -(-num_heads // c)
+        fixed = ((hl + 2 * CLUSTER_MAX_CTAS) * 32 * 8 * (d // 64) + 2 * d
+                 + CLUSTER_MAX_STAGES * (2 * 8 + _CTA_WARPS * 4) + _CTA_WARPS * 4)
+        stage = 2 * (Lq + 2 * Lk) * (hl * d + 8)
+        stages = min(CLUSTER_MAX_STAGES, (SMEM_BYTES - fixed) // stage)
+        if stages >= 2:
+            break
+    return c, hl, stages, fixed + stages * stage
 
 
 def check_row_fits(what: str, dtype, Lq: int, Lk: int, num_heads: int, d: int) -> None:
-    """The bf16 forward stages a row's q, k and v positions (every head) in
-    shared memory (``attention.cuh`` ``attn_mma_smem``): at 16 heads of 128,
-    up to 18 positions; at 32 heads of 128, up to 26 (Lq = Lk = 8 takes
-    213,632 bytes)."""
+    """The bf16 forward admits a row whose q, k and v positions (every
+    head) fit one CTA's shared memory once (``row_bytes``): at 16 heads of
+    128, up to 18 positions; at 32 heads of 128, up to 26 (Lq = Lk = 8 takes
+    213,632 bytes). Past 16 heads of 128 it stages the row split over a
+    cluster (``cluster_plan``: at 32 heads of 128 two CTAs, each 2 to 4
+    stages of its 16 heads' share), at least two stages for every row
+    admitted."""
     if dtype != torch.bfloat16:
         return
     h = num_heads
-    need = 2 * d + h * 32 * 8 * (d // 64) + 2 * (Lq + 2 * Lk) * (h * d + 8)
+    need = row_bytes(Lq, Lk, h, d)
     if need > SMEM_BYTES:
         raise ValueError(f"{what}: a row of Lq={Lq}, Lk={Lk} positions of {h} heads of {d} "
                          f"needs {need} bytes of shared memory, over {SMEM_BYTES}")

@@ -79,11 +79,13 @@ def errors(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
     return out
 
 
-def build(versions: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, bool]]:
-    """Each version's library (all nvcc processes at once) and whether its
-    entry point takes ``row_pad``; the package's own as ``package``."""
+def build_versions(versions: Dict[str, str], package: str) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Each version's library, built with ``nvcc`` in a namespace of its own
+    (``-Dzt=zt_<name>``; all nvcc processes at once) under
+    ``build/zett_tpu_torch/<package>_versions/``, with its source's text; the
+    package's own library ``package`` as ``package``."""
     nvcc = _build._nvcc()
-    out_dir = os.path.join(_build.BUILD_DIR, "kernel3_versions")
+    out_dir = os.path.join(_build.BUILD_DIR, f"{package}_versions")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
     for name, src in versions.items():
@@ -91,14 +93,22 @@ def build(versions: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, bool]]:
         cmd = [nvcc, *_build.NVCC_FLAGS, f"-Dzt=zt_{name}", "-I", _build.CSRC, "-o", lib, src]
         procs.append((name, src, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {"package": (_build.load("attention_core_bwd"), True)}
+    with open(os.path.join(_build.CSRC, f"{package}.cu")) as f:
+        libs = {"package": (_build.load(package), f.read())}
     for name, src, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         with open(src) as f:
-            libs[name] = (ctypes.CDLL(lib), "void* row_pad" in f.read())
+            libs[name] = (ctypes.CDLL(lib), f.read())
     return libs
+
+
+def build(versions: Dict[str, str]) -> Dict[str, Tuple[ctypes.CDLL, bool]]:
+    """Each version's library and whether its entry point takes
+    ``row_pad``; the package's own as ``package``."""
+    return {name: (lib, "void* row_pad" in text)
+            for name, (lib, text) in build_versions(versions, "attention_core_bwd").items()}
 
 
 def call(lib: Tuple[ctypes.CDLL, bool], qm, km, vm, kmaskf, dout, h: int, rate: float,
