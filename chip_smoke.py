@@ -12,9 +12,11 @@ Phases (any failure exits non-zero and prints no result):
      of kernels 1 to 5 (a spill in kernel 2 or 3 fails), and count HGMMA
      and UTMALDG (kernels 1 and 4), HMMA (kernels 1 to 5: the attention
      core's mma.sync; in kernel 1 within its [q|k|v] GEMM, whose epilogue
-     runs the core) and UBLKCP (kernel 2's bulk copies past 16 heads of
-     128) in their SASS (cuobjdump, read while phases 2-4 run and reported
-     after phase 4): a count of zero fails;
+     runs the core), UBLKCP (kernel 2's bulk copies past 16 heads of 128)
+     and the multicast TMA loads (UTMALDG.2D.MULTICAST) of the persistent
+     bf16 GEMM (gemm_bf16_kernel, kernels 1 and 4) in their SASS
+     (cuobjdump, read while phases 2-4 run and reported after phase 4): a
+     count of zero fails, as does a spill in that GEMM or the gelu GEMM;
   2. each kernel against its plain PyTorch version on the card at the
      transfer's shapes (bf16 and f32, ragged batch, all-padding rows), with
      median times of the kernel, the plain version and one PyTorch library
@@ -117,7 +119,9 @@ Phases (any failure exits non-zero and prints no result):
      model directory and the byte-level conversion's vocab and
      n_added_tokens; (b) kernels 1, 2 and 3 at head width 128 against their
      plain versions (kernel 1 at B 16384, L 7, H 2048, 16 heads, I 4096
-     with its plan; kernels 2 and 3 at B 32896, L 7 and CLS-only, rates 0
+     with its plan, its GEMMs' tile order against ops/gemm_order.py's and
+     each GEMM against torch.matmul; kernels 2 and 3 at B 32896, L 7 and
+     CLS-only, rates 0
      and 0.1, a train batch's all-padding share; bf16 timed beside the
      bound, the plain version and nn.TransformerEncoderLayer / SDPA, f32 at
      a smaller batch); (c) the Llama backbone's logits at full depth, card
@@ -138,7 +142,8 @@ Phases (any failure exits non-zero and prints no result):
      width kept, cut to MISTRAL_LAYERS layers, random bf16 weights from a
      seed, a 32000-piece metaspace tokenizer): (a) the model directory; (b)
      kernels 1 to 5 at 32 heads against their plain versions (kernel 1 at
-     B 16384, H 4096, 32 heads of 128, I 8192 at L 7 and 8; kernel 2 at the
+     B 16384, H 4096, 32 heads of 128, I 8192 at L 7 and 8, at L 7 each of
+     its GEMMs against torch.matmul; kernel 2 at the
      transfer's CLS shape, Lk 7 and 8; kernels 2 and 3 at B 32896, L 7 with
      a train batch's all-padding share, rates 0 and 0.1; kernel 2 alone on
      the shapes its cluster kernel has to get right, held untimed: B 1 and
@@ -235,7 +240,8 @@ Phases (any failure exits non-zero and prints no result):
      every non-CLS layer of every batch, the hypernet per 32k vocab; (c)
      kernel 4 at 16 and 32 heads of 128 against its plain version (B 16384,
      L 8 and 7, with and without the prior key bias, bf16 timed at L 8
-     beside the bound, the plain version and F.linear x3 + SDPA + F.linear;
+     beside the bound, the plain version and F.linear x3 + SDPA + F.linear,
+     at 32 heads its two GEMMs against torch.matmul;
      f32 at B 2048); (d) at xlmr_26l's hypernet widths (768, 12 heads of
      64, 26 language ids, 2 layers): language adapters under gelu_new and
      erf-gelu, concat pooling (one position: ROADMAP C.21), relative
@@ -449,11 +455,19 @@ SASS_REQUIRED = {"attention_core": ("HMMA", "UBLKCP"),
                  "attention_block": ("HGMMA", "UTMALDG", "HMMA"),
                  "encoder_layer": ("HGMMA", "UTMALDG", "HMMA"),
                  "merged_attention": ("HMMA",), "attention_core_bwd": ("HMMA",)}
-# kernel 1's three bf16 kernels, each on its own: wgmma and TMA loads in
-# every one, and the core's mma.sync in the [q|k|v] GEMM
-SASS_REQUIRED_IN = {"gemm_qkv_attention_kernel": ("HGMMA", "UTMALDG", "HMMA"),
-                    "gemm_ln_kernel": ("HGMMA", "UTMALDG"),
-                    "gemm_gelu_kernel": ("HGMMA", "UTMALDG")}
+# kernel 1's four bf16 kernels in libencoder_layer.so and the GEMM of
+# kernel 4's library, each on its own: wgmma and TMA loads in every one, the
+# core's mma.sync in the [q|k|v] GEMM, and the weight tiles' multicast TMA
+# loads (UTMALDG.2D.MULTICAST) in the persistent GEMM that walks GemmOrder
+# on clusters of two
+SASS_REQUIRED_IN = (("encoder_layer", "gemm_qkv_attention_kernel", ("HGMMA", "UTMALDG", "HMMA")),
+                    ("encoder_layer", "gemm_ln_kernel", ("HGMMA", "UTMALDG")),
+                    ("encoder_layer", "gemm_gelu_kernel", ("HGMMA", "UTMALDG")),
+                    ("encoder_layer", "gemm_bf16_kernel", ("HGMMA", "UTMALDG", "MULTICAST")),
+                    ("attention_block", "gemm_bf16_kernel", ("HGMMA", "UTMALDG", "MULTICAST")))
+# kernels that must not spill (ptxas): the persistent GEMMs of kernels 1 and
+# 4, besides every instantiation of kernels 2 and 3
+NO_SPILL = ("gemm_bf16_kernel", "gemm_gelu_kernel")
 
 
 def check_build():
@@ -493,11 +507,15 @@ def check_build():
         log(f"  {what}: {len(found)} of its {n} instantiations spill")
         if found:
             raise AssertionError(f"{what} spills: {found}")
-    # each library's SASS, and kernel 1's three kernels in libencoder_layer.so
-    # (its core runs in the [q|k|v] GEMM's epilogue: mma.sync there): one
-    # cuobjdump process each, all at once
+    found = [x for x in spills if any(k in x for k in NO_SPILL)]
+    log(f"  the persistent GEMMs ({', '.join(NO_SPILL)}): {len(found)} spill")
+    if found:
+        raise AssertionError(f"the persistent GEMMs spill: {found}")
+    # each library's SASS, and the kernels of SASS_REQUIRED_IN each on its
+    # own (kernel 1's core runs in the [q|k|v] GEMM's epilogue: mma.sync
+    # there): one cuobjdump process each, all at once
     jobs = [(name, ops, None) for name, ops in SASS_REQUIRED.items()]
-    jobs += [("encoder_layer", ops, function) for function, ops in SASS_REQUIRED_IN.items()]
+    jobs += [(name, ops, function) for name, function, ops in SASS_REQUIRED_IN]
     pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
     futures = [pool.submit(_build.sass_counts, *job) for job in jobs]
     pool.shutdown(wait=False)
@@ -565,12 +583,6 @@ def library_encoder_layer(args, h):
     return lambda: layer(x, src_key_padding_mask=pad)
 
 
-# kernel 1 at B 16384, L 7, bf16 as the unfused seven-launch sequence that
-# the four-launch design replaced ran it (NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md), printed beside this run's
-K1_UNFUSED = "3.084 ms single-call, 7 device kernels a layer"
-
-
 def port_kernels_per_call(run, reps=3):
     """The port's device kernels (``zt::``) that one call of ``run``
     launches, from a profile of ``reps`` calls: (count, names)."""
@@ -578,6 +590,25 @@ def port_kernels_per_call(run, reps=3):
     kernels, _ = device_events(lambda: [run() for _ in range(reps)])
     ours = [name for name, _, _ in kernels if "zt::" in name]
     return len(ours) / reps, sorted({n.split("(")[0] for n in ours})
+
+
+def check_gemm_orders(tag, shapes):
+    """The persistent bf16 GEMM's walk (``csrc/gemm.cuh`` ``GemmOrder``) as
+    the library reports it (``zt_gemm_order``: tiles, cluster, the clusters
+    resident at once, CTAs) against its Python mirror
+    (``ops/gemm_order.py``) at each GEMM of a call, ``shapes`` = [(label,
+    M, N, K)]; a difference fails the run."""
+    from zett_tpu_torch.ops import gemm_order as go
+
+    parts = []
+    for label, M, N, K in shapes:
+        card = go.card_order(M, N, K)
+        mine = go.as_values(go.gemm_order(M, N, K), card[5])
+        if card != mine:
+            raise AssertionError(f"{tag} {label}: the library's order {card}, the mirror's {mine}")
+        parts.append(f"{label} {card[0]} x {card[1]} tiles, clusters of {card[2]} ({card[5]} "
+                     f"resident, {card[6]} CTAs)")
+    log(f"  {tag}: GEMM order equal to the mirror's: " + "; ".join(parts))
 
 
 def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536, fan_in=False,
@@ -637,6 +668,10 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536, fan
     if n_kernels > plan.launches:
         raise AssertionError(f"{tag}: {n_kernels} device kernels a call (the plan's "
                              f"{plan.launches})")
+    if dtype == torch.bfloat16 and plan.route != "fused":  # the fused kernels walk n-fastest
+        M = B * L
+        check_gemm_orders(tag, [("[q|k|v]", M, 3 * H, H), ("out", M, H, H),
+                                ("FFN in + gelu", M, I, H), ("FFN out", M, H, I)])
     if not timed:
         return None
     M = B * L
@@ -664,14 +699,16 @@ def check_kernel1(B, L, dtype, gen, timed, split=False, H=768, h=12, I=1536, fan
         f"plain {plain_ms:.4f} ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); back to back at {bound_ms / b2b:.3f} of the bound")
     if split:
-        log(f"  {tag}: the unfused sequence: {K1_UNFUSED}")
-        if dtype == torch.bfloat16:
+        # the labels follow the plan's route: the fused route's epilogues
+        # carry the core and the LayerNorms, the seven launches' do not
+        if plan.route == "fused":
             shapes = [("[q|k|v] + core", M, H, 3 * H), ("out + LN1", M, H, H),
                       ("FFN in + gelu", M, H, I), ("FFN out + LN2", M, I, H)]
         else:
-            shapes = [("[q|k|v]", M, H, 3 * H), ("out", M, H, H), ("FFN in", M, H, I),
+            shapes = [("[q|k|v]", M, H, 3 * H), ("out", M, H, H),
+                      ("FFN in" + (" + gelu" if dtype == torch.bfloat16 else ""), M, H, I),
                       ("FFN out", M, I, H)]
-        gemm_split(run, shapes, dtype, f"kernel 1 B={B} L={L}")
+        gemm_split(run, shapes, dtype, tag)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -1498,20 +1535,35 @@ def gemm_split(run, shapes, dtype, what, reps=5):
     calls. Returns {label: (port ms, port TFLOP/s, cuBLAS ms, cuBLAS
     TFLOP/s)}, or None when the profile holds no whole calls."""
     run()  # warm
-    kernels, _ = device_events(lambda: [run() for _ in range(reps)])
-    gemms = [ms for name, _, ms in kernels if "gemm_" in name and "zt::" in name]
-    calls = len(gemms) // len(shapes)
-    # the profiler may drop the first launches of its window: use whole calls
-    if not calls or len(gemms) % len(shapes):
-        log(f"  {what}: the profile holds {len(gemms)} GEMM launches of {reps} calls "
-            f"(not whole calls): GEMM split not measured")
+    # the profiler may drop launches at the start of its window (late in a
+    # long process, a whole window's): up to three windows, until one holds
+    # every call's launches; else the GEMMs of the last whole calls of the
+    # window that holds the most
+    best = (0, [], [])
+    for _ in range(3):
+        kernels, _ = device_events(lambda: [run() for _ in range(reps)])
+        gemms = [ms for name, _, ms in kernels if "gemm_" in name and "zt::" in name]
+        by_name = {}
+        for name, _, ms in kernels:
+            by_name.setdefault(name, []).append(ms)
+        calls = len(gemms) // len(shapes)
+        whole = calls == reps and all(len(t) % reps == 0 for t in by_name.values())
+        if calls > best[0] or whole:
+            best = (calls, gemms[len(gemms) - calls * len(shapes):], by_name)
+        if whole:
+            break
+    calls, gemms, by_name = best
+    if not calls:
+        log(f"  {what}: the profiles hold no whole call's GEMM launches: GEMM split not "
+            f"measured")
         return None
-    by_name = {}
-    for name, _, ms in kernels:
-        by_name.setdefault(name, []).append(ms)
-    parts = ", ".join(f"{name.split('(')[0][:48]} {sum(t) / calls:.4f} ms"
-                      for name, t in sorted(by_name.items(), key=lambda kv: -sum(kv[1])))
-    log(f"  {what} device time per call by kernel (mean of {calls} profiled calls): {parts}")
+    if whole:
+        parts = ", ".join(f"{name.split('(')[0][:48]} {sum(t) / reps:.4f} ms"
+                          for name, t in sorted(by_name.items(), key=lambda kv: -sum(kv[1])))
+        log(f"  {what} device time per call by kernel (mean of {reps} profiled calls): {parts}")
+    else:
+        log(f"  {what} device time per call by kernel: not measured (the profiler dropped "
+            f"launches; the GEMMs below are from the last {calls} whole calls)")
     out = {}
     for i, (label, M, K, N) in enumerate(shapes):
         ours = float(np.median(gemms[i::len(shapes)]))
@@ -1646,6 +1698,8 @@ def check_kernel4(B, L, dtype, with_bias, gen, timed, split=False, H=768, h=12, 
         ref = attention_block_reference(x, mask, kb, *w, h)
     err = compare(got, ref, dtype, tag)
     del got, ref
+    if dtype == torch.bfloat16:
+        check_gemm_orders(tag, [("[q|k|v]", B * L, 3 * H, H), ("out", B * L, H, H)])
     if not timed:
         return None
     ms = median_ms(lambda: attention_block(x, mask, kb, *w, num_heads=h))
@@ -2834,7 +2888,8 @@ def phase_head128_kernels():
     results = {}
     H, h, I = 2048, 16, 4096
     for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 2048)):
-        r = check_kernel1(B, 7, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=I)
+        r = check_kernel1(B, 7, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=I,
+                          split=dtype == torch.bfloat16)
         if r is not None:
             results["encoder_layer_d128"] = r
         gc_free()
@@ -3233,7 +3288,7 @@ def phase_heads32_kernels():
             # version, equally close to the f32 layer, round 0.12% of outputs
             # more than 2 ulps apart (NVIDIA H100 80GB HBM3, 700 W)
             r = check_kernel1(B, L, dtype, gen, timed=dtype == torch.bfloat16, H=H, h=h, I=I,
-                              fan_in=True, plain_reps=2)
+                              fan_in=True, plain_reps=2, split=dtype == torch.bfloat16 and L == 7)
             if r is not None and L == 8:
                 results["encoder_layer_h32"] = r
             gc_free()
@@ -5020,7 +5075,8 @@ def phase_heads128_block():
             for with_bias in (False, True):
                 for dtype, B in ((torch.bfloat16, 16384), (torch.float32, 2048)):
                     timed = dtype == torch.bfloat16 and L == 8 and not with_bias
-                    r = check_kernel4(B, L, dtype, with_bias, gen, timed, H=H, h=h, fan_in=True)
+                    r = check_kernel4(B, L, dtype, with_bias, gen, timed, H=H, h=h, fan_in=True,
+                                      split=timed and h == 32)
                     if r is not None and not with_bias:
                         results[name] = r
                     gc_free()

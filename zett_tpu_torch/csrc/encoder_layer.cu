@@ -71,8 +71,11 @@
 // "unfused"): gemm.cuh's bf16 GEMM for [q|k|v] into an (M, 3H) buffer, the
 // tensor-core core of attention.cuh at D = 128 (kernel 2's), the out
 // projection, a residual LayerNorm kernel (one warp a row, the bf16 residual
-// sum rounded as gemm_ln_kernel's epilogue rounds it), the gelu GEMM
-// (gemm_gelu_kernel), the FFN-out GEMM and the second LayerNorm. Why not the
+// sum rounded as gemm_ln_kernel's epilogue rounds it), the FFN-in GEMM
+// (gemm.cuh's, its gelu in the epilogue), the FFN-out GEMM and the second
+// LayerNorm. Its four GEMMs run on two-CTA clusters that share each weight
+// tile where K is 2048 or more (gemm.cuh: Mistral-7B's, Llama-3-8B's and
+// TinyLlama's widths). Why not the
 // four fused launches: (1) one head's [q|k|v] is 384 columns, over wgmma's
 // N of 256; two n192 accumulators a head would need the 128 x 392 tile (100
 // KB) beside the ring in shared memory, which leaves room for two ring
@@ -423,10 +426,14 @@ static cudaError_t qkv_attention(const bf16* x, const bf16* w_qkv, const QkvArgs
 }
 
 // ---------------------------------------------- 3. GEMM + tanh-gelu (FFN in)
-// 128 x 192 tiles, n-fastest (96 accumulators a consumer: the 512-thread
-// bound's 128 registers); the epilogue warps run the gelu on the chunked
-// tile in place and store it. The bias holds whole tiles, zeros past N (the
-// wrapper pads it), so the consumers load it unguarded.
+// The fused route's FFN in: 128 x 192 tiles, n-fastest (96 accumulators a
+// consumer: the 512-thread bound's 128 registers); the epilogue warps run
+// the gelu on the chunked tile in place and store it. The bias holds whole
+// tiles, zeros past N (the wrapper pads it), so the consumers load it
+// unguarded. The seven-launch route's FFN in runs gemm.cuh's
+// gemm_bf16_kernel with its gelu epilogue instead: at Mistral-7B's and
+// TinyLlama's widths its 256-column tiles on two-CTA clusters beat these
+// 192-column ones (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 constexpr int kGeluN = 192;
 constexpr int kGeluSmem =
     GSTAGES * (kStageA + Ring<kGeluN>::kStageW) + (kGeluN / kEpiCols) * kChunk + 1024;
@@ -765,8 +772,8 @@ static cudaError_t encoder_layer_bf16(const bf16* x, const uint8_t* mask, int B,
 
 // The seven launches (f32 at any supported head width; bf16 at head width
 // 128): mask (B, L) f32, > 0 = valid; qkv (M, 3H), ctx, tmp, y1 (M, H), mid
-// (M, I) scratch. The bf16 gelu GEMM is gemm_gelu_kernel (b1 padded to
-// whole 192-column tiles); f32 runs the plain GEMM's gelu epilogue.
+// (M, I) scratch. The FFN-in GEMM runs its GEMM's gelu epilogue (bf16:
+// gemm_bf16_kernel, act 1).
 template <typename T>
 static cudaError_t encoder_layer_unfused(const T* x, const float* mask, int B, int L, int H,
                                          int nh, int I, const T* wqkv_t, const T* bqkv,
@@ -802,11 +809,7 @@ static cudaError_t encoder_layer_unfused(const T* x, const float* mask, int B, i
   ZT_TRY(launch_attention_d<T>(a, H / nh, s));
   ZT_TRY(gemm<T>(ctx, wo_t, bo, tmp, M, H, H, 0, s));
   ZT_TRY(add_layer_norm<T>(tmp, x, ln1s, ln1b, y1, M, H, eps, s));
-  if constexpr (std::is_same<T, bf16>::value) {
-    ZT_TRY(gemm_gelu(y1, w1_t, b1, mid, M, I, H, s));
-  } else {
-    ZT_TRY(gemm<T>(y1, w1_t, b1, mid, M, I, H, 1, s));
-  }
+  ZT_TRY(gemm<T>(y1, w1_t, b1, mid, M, I, H, 1, s));
   ZT_TRY(gemm<T>(mid, w2_t, b2, tmp, M, H, I, 0, s));
   ZT_TRY(add_layer_norm<T>(tmp, y1, ln2s, ln2b, out, M, H, eps, s));
 #undef ZT_TRY
@@ -850,8 +853,7 @@ extern "C" int zt_encoder_layer_ln_clusters(int csize) {
 
 // The seven launches; dtype: 0 = float32, 1 = bfloat16 (head width 128).
 // Weights transposed, row-major: wqkv_t (3H, H) as [q | k | v], wo_t (H, H),
-// w1_t (I, H), w2_t (H, I); mask (B, L) f32, > 0 = valid; bf16: b1
-// (ceil(I / 192) * 192) any values past I. tanh-gelu.
+// w1_t (I, H), w2_t (H, I); mask (B, L) f32, > 0 = valid; b1 (I). tanh-gelu.
 extern "C" int zt_encoder_layer_unfused(int dtype, const void* x, const float* mask, int B, int L,
                                         int H, int nh, int I, const void* wqkv_t,
                                         const void* bqkv, const void* wo_t, const void* bo,
@@ -873,4 +875,19 @@ extern "C" int zt_encoder_layer_unfused(int dtype, const void* x, const float* m
       (const F*)x, mask, B, L, H, nh, I, (const F*)wqkv_t, (const F*)bqkv, (const F*)wo_t,
       (const F*)bo, ln1s, ln1b, (const F*)w1_t, (const F*)b1, (const F*)w2_t, (const F*)b2, ln2s,
       ln2b, eps, (F*)qkv, (F*)ctx, (F*)tmp, (F*)y1, (F*)mid, (F*)out, s);
+}
+
+// The walk of the persistent bf16 GEMM (gemm.cuh gemm_bf16_kernel, its
+// GemmOrder) for (M, N, K). out[7]: m_tiles, n_tiles, cluster, groups,
+// tiles, the clusters resident at once and the CTAs a launch runs. Returns
+// a cudaError_t.
+extern "C" int zt_gemm_order(int M, int N, int K, int* out) {
+  zt::GemmOrder o;
+  int clusters = 0;
+  const cudaError_t err = zt::gemm_bf16_plan(M, N, K, &o, &clusters);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[7] = {o.m_tiles, o.n_tiles, o.cluster, o.groups, o.tiles,
+                       zt::gemm_bf16_fit[o.cluster], clusters * o.cluster};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }

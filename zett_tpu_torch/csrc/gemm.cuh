@@ -10,11 +10,11 @@
 // repack W (K, N) every call, so weights updated in place are never stale).
 //
 // bf16 runs on Hopper's tensor cores: a persistent, warp-specialised kernel.
-// One block per SM walks 128 x 256 output tiles (tile index n-fastest, so
-// the blocks in flight share their A rows and all of W in L2). Warpgroup 0's
-// first thread is the producer: TMA brings 128 x 64 tiles of A and 256 x 64
-// tiles of Wt, 128-byte swizzled, into a ring of 4 stages guarded by
-// full/empty mbarriers, running ahead across tiles. Warpgroups 1 and 2
+// One block per SM walks 128 x 256 output tiles n-fastest (GemmOrder,
+// below), on clusters of two CTAs that share each weight tile where K is
+// long. Warpgroup 0's first thread is the producer: TMA brings 128 x 64
+// tiles of A and 256 x 64 tiles of Wt, 128-byte swizzled, into a ring of 4
+// stages guarded by full/empty mbarriers, running ahead across tiles. Warpgroups 1 and 2
 // consume: each issues wgmma.mma_async m64n256k16 (bf16 in, f32 accumulate
 // in 128 registers a thread; setmaxnreg moves registers from the producer to
 // them) over its 64 rows, keeps one k-block's batch in flight and releases
@@ -33,6 +33,29 @@
 // TMA store clips rows past M and columns past N. Needs rows of whole
 // 16-byte units (N % 8 == 0, K % 8 == 0: TMA's stride rule) and 16-byte
 // aligned A, Wt and C.
+//
+// Weights larger than L2 (the 7-8B hypernets' GEMMs serve _layer_kernel,
+// zett_tpu/ops/pallas_attention.py:727, through kernel 1's seven launches,
+// and _block_kernel, :530, through kernel 4). What bounds a GEMM here is
+// the tensor cores' 989 TFLOP/s, as long as L2 keeps them fed. At
+// Mistral-7B's widths each stage of a CTA brought 48 KB from L2 for 4.2
+// MFLOP (85 operations a byte: 11.6 TB/s out of L2 at the tensor cores'
+// rate). A cluster of two CTAs on neighbouring row tiles of the same N tile
+// shares the weight tile: rank r loads half r (128 rows) and multicasts it
+// into both CTAs, each loads its own A tile, so a CTA brings 32 KB a stage
+// (128 operations a byte). A stage's full barrier in each CTA expects its A
+// tile and both halves; its empty barrier counts both CTAs' consumer
+// warpgroups, since either producer's half lands in both. The last row tile
+// of an odd count has a peer past M: that CTA loads no A, computes on what
+// the stage holds and stores nothing, so the pair stays in lockstep. Every
+// product sums the same k blocks in the same order with the same epilogue
+// as the single-CTA kernel: the outputs are bit-equal whatever the cluster.
+// The weight itself (W_qkv 100.7 MB, W1 and W2 67.1 MB against 50 MB of
+// L2) streams from device memory again every wave of tiles in the
+// n-fastest walk; a walk in weight bands that stay in L2 was measured
+// against it and gained 1-2% at the layer, less than the rounds' spread,
+// and lost at the FFN out (NVIDIA H100 80GB HBM3, 700 W; PERF.md), so the
+// walk stays n-fastest.
 //
 // f32 uses plain FMA tiles (no TF32), for comparisons at full precision.
 //
@@ -94,6 +117,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// tma_load_2d into the same offset of every CTA of the cluster in `mask`
+// (bit q: rank q), completing on the barrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -228,13 +263,59 @@ struct Ring {
   }
 };
 
-// One thread: full counts the producer's arrival, empty both consumers'.
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int nst) {
+// One thread: full counts the producer's arrival, empty both consumers' of
+// each of the `peers` CTAs whose producers fill the stage (a cluster).
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int nst,
+                                          int peers = 1) {
   for (int s = 0; s < nst; ++s) {
     mbar_init(&full[s], 1);
-    mbar_init(&empty[s], kGemmConsumers);
+    mbar_init(&empty[s], kGemmConsumers * peers);
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// A consumer warpgroup's release of a stage: on its own CTA's empty
+// barrier, and in a cluster of cs CTAs on every CTA's (each producer's
+// half of the weight tile lands in all of them).
+__device__ __forceinline__ void ring_release(uint64_t* empty, int cs) {
+  if (cs == 1) {
+    mbar_arrive(empty);
+    return;
+  }
+  const uint32_t addr = smem_u32(empty);
+  for (int q = 0; q < cs; ++q) mbar_arrive_remote(map_rank(addr, (uint32_t)q));
+}
+
+// ------------------------------------------------------------ the tile order
+// Clusters of two where K is 2048 or more (and there are two row tiles to
+// pair): there a tile's mainloop is long and a stage's L2 bytes are what
+// the cluster saves; below it the products are short, the cluster's shared
+// pace costs what the shared tile saves, and single CTAs run (measured on
+// kernels 1 and 4's GEMMs, NVIDIA H100 80GB HBM3, 700 W: PERF.md).
+__host__ __device__ inline int gemm_cluster(int M, int K) {
+  return K >= 2048 && (M + GM - 1) / GM >= 2 ? 2 : 1;
+}
+
+// gemm_bf16_kernel's walk over its GN-column tiles. A work item is a row
+// group (cluster row tiles, one a CTA of the cluster) by an N tile, n
+// fastest: item t is group t / n_tiles, N tile t % n_tiles. A cluster
+// takes items cid, cid + clusters, ...
+struct GemmOrder {
+  int m_tiles;  // GM-row tiles of A and C
+  int n_tiles;  // GN-column tiles of the weight and C
+  int cluster;  // CTAs a cluster: 1, or 2 on neighbouring row tiles
+  int groups;   // row groups: ceil(m_tiles / cluster)
+  int tiles;    // work items: groups x n_tiles
+};
+
+inline GemmOrder gemm_order(int M, int N, int K) {
+  GemmOrder o;
+  o.m_tiles = (M + GM - 1) / GM;
+  o.n_tiles = (N + GN - 1) / GN;
+  o.cluster = gemm_cluster(M, K);
+  o.groups = (o.m_tiles + o.cluster - 1) / o.cluster;
+  o.tiles = o.groups * o.n_tiles;
+  return o;
 }
 
 // The producer: rows [m0, m0 + GM) of A and [n0, n0 + BN) of the weight,
@@ -253,12 +334,37 @@ __device__ __forceinline__ void produce_tile(Ring<BN>& r, const CUtensorMap* map
   }
 }
 
+// The producer of a CTA of a two-CTA cluster: rows [m0, m0 + GM) of A into
+// this CTA's stage, and half `rank` of the weight tile [n0, n0 + BN) (TMA
+// boxes of BN / 2 rows, where one box of BN rows would put them),
+// multicast into both CTAs. A row tile wholly past M loads no A (its
+// products are never stored), a half wholly past N is not loaded (its
+// columns are never stored); both CTAs count the same halves.
+template <int BN>
+__device__ __forceinline__ void produce_tile_pair(Ring<BN>& r, const CUtensorMap* map_a,
+                                                  const CUtensorMap* map_w, int m0, int n0,
+                                                  int kblocks, int M, int N, int rank) {
+  constexpr int kHalf = Ring<BN>::kStageW / 2;
+  const bool a_in = m0 < M;
+  const int halves = n0 + BN / 2 < N ? 2 : 1;
+  const unsigned bytes = (a_in ? kStageA : 0) + halves * kHalf;
+  for (int kb = 0; kb < kblocks; ++kb) {
+    mbar_wait(&r.empty[r.stage], r.phase ^ 1);
+    mbar_expect_tx(&r.full[r.stage], bytes);
+    if (a_in) tma_load_2d(r.sa + r.stage * kStageA, map_a, &r.full[r.stage], kb * GK, m0);
+    if (rank < halves)
+      tma_load_2d_multicast(r.sb + r.stage * Ring<BN>::kStageW + rank * kHalf, map_w,
+                            &r.full[r.stage], kb * GK, n0 + rank * (BN / 2), 0x3);
+    r.advance();
+  }
+}
+
 // Consumer warpgroup c: its 64 rows of the tile into d (f32), one k
 // block's wgmma batch in flight, each stage released once the batch after
-// it is issued.
+// it is issued (in a cluster of cs CTAs, to every CTA's producer).
 template <int BN>
 __device__ __forceinline__ void consume_tile(Ring<BN>& r, float (&d)[BN / 2], int c,
-                                             int kblocks) {
+                                             int kblocks, int cs = 1) {
   const int t128 = threadIdx.x % 128;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
@@ -275,38 +381,52 @@ __device__ __forceinline__ void consume_tile(Ring<BN>& r, float (&d)[BN / 2], in
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // the previous batch
     fence_accumulators(d);
-    if (held >= 0 && t128 == 0) mbar_arrive(&r.empty[held]);
+    if (held >= 0 && t128 == 0) ring_release(&r.empty[held], cs);
     held = r.stage;
     r.advance();
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_accumulators(d);
-  if (t128 == 0) mbar_arrive(&r.empty[held]);
+  if (t128 == 0) ring_release(&r.empty[held], cs);
 }
 
+// One kernel for one CTA a cluster and for two: templated on the cluster
+// size, it ran about 1% faster at K 768 on one CTA and 1.1-1.8% slower on
+// two at Mistral-7B's widths, where most of its time is (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md).
 __global__ void __launch_bounds__(kGemmTcThreads, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
                  const __grid_constant__ CUtensorMap map_c, const bf16* __restrict__ bias, int M,
-                 int N, int K, int act) {
+                 int N, int K, int act, GemmOrder o) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[GSTAGES], empty[GSTAGES];
   Ring<GN> ring(align1024(smem_raw), full, empty, GSTAGES);
   uint8_t* se = ring.end();  // [consumer][2 slots][64][64], swizzled
 
   const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) ring_init(full, empty, GSTAGES);
+  const int cs = o.cluster, rank = (int)cluster_reg(0);
+  const int cid = (int)cluster_reg(2), clusters = (int)cluster_reg(3);
+  if (threadIdx.x == 0) ring_init(full, empty, GSTAGES, cs);
   __syncthreads();
+  // the peer's barriers are initialised before a multicast or a remote
+  // arrive reaches them
+  if (cs > 1) cluster_sync();
 
-  const int n_tiles = (N + GN - 1) / GN;
-  const int tiles = ((M + GM - 1) / GM) * n_tiles;
   const int kblocks = (K + GK - 1) / GK;
 
   if (wg == 0) {
     // producer: one thread keeps the ring full, across tiles
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0)
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-        produce_tile(ring, &map_a, &map_w, (t / n_tiles) * GM, (t % n_tiles) * GN, 0, kblocks);
+      for (int t = cid; t < o.tiles; t += clusters) {
+        const int m0 = (t / o.n_tiles * cs + rank) * GM, n0 = t % o.n_tiles * GN;
+        if (cs == 1)  // one box of GN weight rows, as before the clusters
+          produce_tile(ring, &map_a, &map_w, m0, n0, 0, kblocks);
+        else
+          produce_tile_pair(ring, &map_a, &map_w, m0, n0, kblocks, M, N, rank);
+      }
+    // no CTA leaves while its peer may still arrive on its barriers
+    if (cs > 1) cluster_sync();
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;  // this warpgroup's 64 rows of the tile
@@ -315,9 +435,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
     const int frag_col = 2 * (t128 % 4);
     int chunk = 0;  // epilogue chunks stored so far: their slots alternate
     float d[128];
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / n_tiles) * GM, n0 = (t % n_tiles) * GN;
-      consume_tile(ring, d, c, kblocks);
+    for (int t = cid; t < o.tiles; t += clusters) {
+      const int m0 = (t / o.n_tiles * cs + rank) * GM, n0 = t % o.n_tiles * GN;
+      consume_tile(ring, d, c, kblocks, cs);
+      if (m0 + 64 * c >= M) continue;  // rows wholly past M (a pair's odd last tile)
       // accumulator j of m64nNk16: row 8*((j/2)%2) + the thread's row,
       // column 8*(j/4) + (j%2) + the thread's column pair
 #pragma unroll
@@ -349,6 +470,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
       }
     }
     if (t128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (cs > 1) cluster_sync();
   }
 }
 
@@ -463,21 +585,81 @@ static cudaError_t gemm_setup(int* sms) {
   return cudaSuccess;
 }
 
+// A launch on clusters of cs CTAs (1 or 2): `clusters` of them.
+static void cluster_launch(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int threads,
+                           int smem, int cs, int clusters, cudaStream_t s) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(clusters * cs));
+  cfg->blockDim = dim3((unsigned)threads);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = s;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// The clusters of cs CTAs of `kernel` that the card holds at once, cached
+// in *slot (a static of this library's). None fitting is an error: the
+// launch is refused, never run another way.
+template <typename Kernel>
+static cudaError_t resident_clusters(Kernel kernel, int threads, int smem, int cs, int* slot) {
+  if (*slot > 0) return cudaSuccess;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch(&cfg, attr, threads, smem, cs, 1, 0);
+  int fit = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  *slot = fit;
+  return cudaSuccess;
+}
+
+static int gemm_bf16_fit[3];  // resident clusters of gemm_bf16_kernel by cluster size
+
+// gemm_bf16_kernel's walk of (M, N, K) and the clusters it launches: those
+// resident at once, at most one a work item.
+static cudaError_t gemm_bf16_plan(int M, int N, int K, GemmOrder* o, int* clusters) {
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  *o = gemm_order(M, N, K);
+  const int cs = o->cluster;
+  int sms = 0;
+  cudaError_t err = gemm_setup(&sms);
+  if (err == cudaSuccess)
+    err = resident_clusters(gemm_bf16_kernel, kGemmTcThreads, kGemmSmem, cs, &gemm_bf16_fit[cs]);
+  if (err != cudaSuccess) return err;
+  *clusters = o->tiles < gemm_bf16_fit[cs] ? o->tiles : gemm_bf16_fit[cs];
+  return cudaSuccess;
+}
+
 template <>
 inline cudaError_t gemm<bf16>(const bf16* A, const bf16* Wt, const bf16* bias, bf16* C, int M,
                               int N, int K, int act, cudaStream_t s) {
   if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8) return cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err = gemm_setup(&sms);
+  GemmOrder o;
+  int clusters = 0;
+  cudaError_t err = gemm_bf16_plan(M, N, K, &o, &clusters);
   if (err != cudaSuccess) return err;
   CUtensorMap map_a, map_w, map_c;
-  if (!tile_map(&map_a, A, M, K, GM) || !tile_map(&map_w, Wt, N, K, GN) ||
+  // the weight in boxes of GN rows, or of GN / 2 on a pair (a half each)
+  if (!tile_map(&map_a, A, M, K, GM) || !tile_map(&map_w, Wt, N, K, GN / o.cluster) ||
       !tile_map(&map_c, C, M, N, kEpiCols))
     return cudaErrorInvalidValue;
-  const int tiles = ((M + GM - 1) / GM) * ((N + GN - 1) / GN);
-  const int grid = tiles < sms ? tiles : sms;  // persistent: one block per SM
-  gemm_bf16_kernel<<<grid, kGemmTcThreads, kGemmSmem, s>>>(map_a, map_w, map_c, bias, M, N, K,
-                                                             act);
+  if (o.cluster == 1) {
+    // a plain launch: a launch with the cluster attribute ran 1-2% slower
+    // at one CTA a cluster (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+    gemm_bf16_kernel<<<clusters, kGemmTcThreads, kGemmSmem, s>>>(map_a, map_w, map_c, bias,
+                                                                      M, N, K, act, o);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch(&cfg, attr, kGemmTcThreads, kGemmSmem, o.cluster, clusters, s);
+  err = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel, map_a, map_w, map_c, bias, M, N, K, act, o);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

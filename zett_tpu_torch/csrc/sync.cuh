@@ -88,6 +88,16 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
                : "memory");
 }
+// arrive on a peer's (or this CTA's own, through its cluster address)
+// mbarrier with the default semantics (release at CTA scope), as a TMA
+// ring's consumers release a stage that the cluster's producers refill:
+// the stage's readers are wgmma, done once waited for, and the refill is
+// TMA. With these arrives at cluster scope (mbar_arrive_cluster) and the
+// producer's waits too (mbar_wait_cluster), a two-CTA GEMM ran at half its
+// rate (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
 // mbar_wait with cluster-scope acquire (the peers' stores are visible after)
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
   const uint32_t addr = smem_u32(bar);

@@ -152,7 +152,16 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
     for name, t in (("mask", mask), ("kbias", kbias)):
         if t is not None and (tuple(t.shape) != (B, L) or t.device != x.device):
             raise ValueError(f"attention_block: {name} must be ({B}, {L}) on {x.device}")
-    dev = x.device
+    out = _run(lib, x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+    _build.count_launch(_NAME)
+    return out
+
+
+def _run(lib, x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+    """Kernel 4's launch on checked operands, through ``lib``'s
+    ``zt_attention_block`` (the package's library, or another version's)."""
+    B, L, H = x.shape
+    dtype, dev = x.dtype, x.device
     x = _build.aligned16(x)
     maskf = mask.float().contiguous() if mask is not None else None
     kb = kbias.to(dtype).contiguous() if kbias is not None else None
@@ -173,5 +182,4 @@ def _launch(x, mask, kbias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_heads):
              wqkv_t.data_ptr(), bqkv.data_ptr(), wo_t.data_ptr(), bo.data_ptr(),
              qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "attention_block kernel launch")
-    _build.count_launch(_NAME)
     return out

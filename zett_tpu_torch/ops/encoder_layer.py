@@ -266,11 +266,8 @@ def _launch_unfused(lib, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln, w1, b1, w2
     maskf = (torch.ones(B, L, device=dev) if mask is None else mask.float()).contiguous()
     wqkv_t = pack_weights(wq, wk, wv)
     wo_t, w1_t, w2_t = (pack_weights(w) for w in (wo, w1, w2))
-    if dtype == torch.bfloat16:  # the gelu GEMM reads whole tiles of b1
-        bqkv, bo, b2, b1 = pack_biases(bq, bk, bv, bo, b2, b1)
-    else:
-        bqkv = torch.cat([bq, bk, bv]).contiguous()
-        bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
+    bqkv = torch.cat([bq, bk, bv]).contiguous()
+    bo, b1, b2 = (_build.aligned16(t) for t in (bo, b1, b2))
     M = B * L
     qkv = torch.empty(M, 3 * H, dtype=dtype, device=dev)
     ctx = torch.empty(M, H, dtype=dtype, device=dev)
